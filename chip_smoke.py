@@ -22,7 +22,32 @@ Phases, each of which exits non-zero on failure:
    (median of 5 repeats of 20 calls) of the entry point as a caller issues
    it, of its device work, and of the kernel alone on the card, and the
    plain version's time at B = 8192;
-5. the kernel line, then the device line as the last line of stdout.
+5. the blocked-tier kernel (csrc/blocked.cu) against its plain version,
+   B = 2048 + 7 with one NaN-target lane, on the medium-N warm-start
+   distribution: planar n=33 (D = 34) at 4/2/2 complementarity + polynomial
+   and n=48 (D = 49) at the example's 6/3/2 Mehrotra + Armijo, float64 and
+   float32, with phase 3's tolerances;
+6. the blocked KKT kernel (csrc/blocked_kkt.cu) against its plain version
+   on quasi-definite KKT systems at D = 49 and D = 120, B = 1037, float64
+   (within 1e-9 of max|x| + 1, and the float64 kernel within 1e-8 of
+   torch.linalg.solve) and float32 (within 1e-3 of max|x| + 1);
+7. the blocked tier's main path: fused_solve_batch on the 48-joint arm
+   (examples/blocked_medium_n.py) at B = 8192 in float32 with the example's
+   budget, every launch counter set to 0 just before and read just after
+   (parity, effector error < 1e-3, must exceed 0.9, the example's gate), its
+   outputs against the plain version's; and the standalone path,
+   blocked_kkt_solve at B = 8192, D = 49, float32, counted the same way;
+8. timings of both blocked kernels at those shapes (held and unheld as in
+   phase 4; the blocked kernel also at B = 1, one instance's latency), their
+   plain versions, and for the KKT solve torch.linalg.ldl_factor_ex +
+   ldl_solve as its library yardstick;
+9. the kernel line, then the device line as the last line of stdout.
+
+Tolerances, kernel against plain version: the kernels sum in the plain
+versions' order and build without FMA contraction, so they are expected to
+agree bit for bit (each comparison prints whether they did); the gates
+allow float64 1e-9 and, in float32, where a chaotic lane may flip with one
+rounding, the slice-1 shares.
 """
 
 import json
@@ -35,8 +60,14 @@ import numpy as np
 import torch
 
 import mini_opt_tpu_torch as mot
-from mini_opt_tpu_torch.instances import effector_error, planar_instances, spatial_instances
+from mini_opt_tpu_torch.instances import (
+    effector_error,
+    medium_n_planar_instances,
+    planar_instances,
+    spatial_instances,
+)
 from mini_opt_tpu_torch.ops import _build
+from mini_opt_tpu_torch.ops import blocked as blk
 from mini_opt_tpu_torch.ops import fused_ik as fik
 
 LINK = 0.4
@@ -45,6 +76,13 @@ BENCH = dict(max_iterations=4, qp_iterations=2, ls_iterations=1, barrier="mpc", 
 # outside the tensor cores and HBM3 bandwidth.
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# The blocked tier's main path: the 48-joint arm of
+# examples/blocked_medium_n.py (D = 49) at the example's budget.
+ARM_N = 48
+ARM = dict(max_iterations=6, qp_iterations=3, ls_iterations=2, barrier="mpc", line_search="armijo")
+# The same budget as the positional arguments of the blocked wrappers.
+ARM_ARGS = tuple(ARM[k] for k in ("max_iterations", "qp_iterations", "ls_iterations",
+                                  "line_search", "barrier"))
 
 
 def fail(msg):
@@ -53,14 +91,19 @@ def fail(msg):
 
 
 def max_abs_diff(a, b):
-    """Max |a - b| where both are finite; NaN positions must coincide
-    (returns inf otherwise)."""
+    """Max |a - b| over entries that differ (equal infinities count 0); NaN
+    positions must coincide (returns inf otherwise)."""
     a = a.detach().double().cpu().numpy()
     b = b.detach().double().cpu().numpy()
     if not np.array_equal(np.isnan(a), np.isnan(b)):
         return float("inf")
-    m = ~np.isnan(a)
+    m = ~np.isnan(a) & (a != b)
     return float(np.abs(a[m] - b[m]).max()) if m.any() else 0.0
+
+
+def bit_identical(*pairs):
+    """True when every pair of tensors agrees bit for bit, NaN with NaN."""
+    return all(bool(((a == b) | (a.isnan() & b.isnan())).all()) for a, b in pairs)
 
 
 def lanes_agree(a, b, tol):
@@ -82,6 +125,8 @@ def check_against_plain(tag, fam_kind, data, got, want, max_err):
     dtype = str(xk.dtype).replace("torch.", "")
     tag = f"{tag} {dtype}"
     flags_agree = (sk[2] == sp[2]).double().mean().item()
+    same = bit_identical((xk, xp), (sk, sp), *([(hk, hp)] if hp is not None else []))
+    tag = f"{tag} (bit-identical {same})"
     diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk[:2], sp[:2])}
     if hp is not None:
         diffs["history"] = max_abs_diff(hk, hp)
@@ -163,6 +208,275 @@ def count_ops(fn):
     return Count.ops
 
 
+def event_ms(fn):
+    """One call of fn timed with CUDA events: (ms, what fn returned)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), out
+
+
+def ptxas_report(text):
+    """Per kernel instance in ptxas's -v output: (mangled name, registers,
+    spill-store bytes, shared-memory bytes)."""
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill, int(m.group(2) or 0)))
+            name = None
+    return rows
+
+
+def roofline(ops, bytes_moved):
+    """The least time (ms) for `ops` FP32 operations and `bytes_moved` bytes
+    of device memory, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, bytes_moved / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kkt_systems(B, D, seed, dtype):
+    """B random quasi-definite KKT systems, the class qp.cc factors (a
+    positive definite (1,1) block, m = D // 12 equality rows, a zero (2,2)
+    block: indefinite), and right-hand sides, as CUDA tensors."""
+    rng = np.random.default_rng(seed)
+    m = max(1, D // 12)
+    n = D - m
+    A = rng.normal(size=(B, n, n))
+    H = np.zeros((B, D, D))
+    H[:, :n, :n] = A @ A.transpose(0, 2, 1) + 2.0 * np.eye(n)
+    Aeq = rng.normal(size=(B, m, n))
+    H[:, n:, :n] = Aeq
+    H[:, :n, n:] = Aeq.transpose(0, 2, 1)
+    rhs = rng.normal(size=(B, D))
+    return (torch.as_tensor(H, dtype=dtype, device="cuda"),
+            torch.as_tensor(rhs, dtype=dtype, device="cuda"))
+
+
+def blocked_vs_plain(max_err):
+    """Phase 5: csrc/blocked.cu against _blocked_solve_plain."""
+    B = 2048 + 7
+    cases = [
+        ("planar n=33 (D=34) 4/2/2 complementarity polynomial", 33,
+         dict(max_iterations=4, qp_iterations=2, ls_iterations=2,
+              barrier="complementarity", line_search="polynomial")),
+        ("planar n=48 (D=49) 6/3/2 mpc armijo", ARM_N, ARM),
+    ]
+    for name, n, kw in cases:
+        data, x0 = medium_n_planar_instances(B, n, seed=n)
+        data[5, 0] = np.nan
+        family = fik.planar_family(n, LINK)
+        for dtype in (torch.float64, torch.float32):
+            data_t, x0_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
+            args = (family, data_t, x0_t, kw["max_iterations"], kw["qp_iterations"],
+                    kw["ls_iterations"], kw["line_search"], kw["barrier"])
+            before = blk.BLOCKED_LAUNCHES
+            xk, sk = blk._blocked_solve_cuda(*args)
+            torch.cuda.synchronize()
+            if blk.BLOCKED_LAUNCHES != before + 1:
+                fail(f"{name}: the blocked kernel wrapper did not count its launch")
+            xp, sp = blk._blocked_solve_plain(*args)
+            torch.cuda.synchronize()
+            check_against_plain(f"phase5 {name}", "planar", data, (xk, sk, None), (xp, sp, None), max_err)
+
+
+def check_kkt(tag, H, rhs, xk, xp, max_err):
+    """The KKT kernel's x against the plain version's: within 1e-9 (float64)
+    or 1e-3 (float32) of max|x| + 1; float64 also within 1e-8 of
+    torch.linalg.solve."""
+    dtype = str(H.dtype).replace("torch.", "")
+    scale = xp.abs().max().item() + 1.0
+    err = max_abs_diff(xk, xp)
+    max_err[dtype] = max(max_err[dtype], err)
+    line = (f"# {tag} {dtype}: max|kernel - plain| {err:.3e} (scale {scale:.3e}), "
+            f"bit-identical {bit_identical((xk, xp))}")
+    if H.dtype == torch.float64:
+        ref = torch.linalg.solve(H, rhs)
+        ref_err = (xk - ref).abs().max().item() / (ref.abs().max().item() + 1.0)
+        line += f", relative to torch.linalg.solve {ref_err:.3e}"
+        if not ref_err <= 1e-8:
+            fail(f"{tag}: the float64 kernel is {ref_err} from torch.linalg.solve")
+    print(line, flush=True)
+    if not err <= (1e-9 if H.dtype == torch.float64 else 1e-3) * scale:
+        fail(f"{tag} {dtype}: the KKT kernel disagrees with the plain version ({err})")
+
+
+def kkt_vs_plain(max_err):
+    """Phase 6: csrc/blocked_kkt.cu against _blocked_kkt_solve_plain."""
+    B = 1037
+    for D in (49, 120):
+        for dtype in (torch.float64, torch.float32):
+            H, rhs = kkt_systems(B, D, seed=D, dtype=dtype)
+            before = blk.KKT_LAUNCHES
+            xk = blk._blocked_kkt_solve_cuda(H, rhs)
+            torch.cuda.synchronize()
+            if blk.KKT_LAUNCHES != before + 1:
+                fail(f"D={D}: the KKT kernel wrapper did not count its launch")
+            xp = blk._blocked_kkt_solve_plain(H, rhs)
+            torch.cuda.synchronize()
+            check_kkt(f"phase6 blocked KKT D={D} B={B}", H, rhs, xk, xp, max_err)
+
+
+def reset_counts():
+    fik.KERNEL_LAUNCHES = 0
+    blk.BLOCKED_LAUNCHES = 0
+    blk.KKT_LAUNCHES = 0
+
+
+def counts():
+    return dict(fused_ik=fik.KERNEL_LAUNCHES, blocked=blk.BLOCKED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES)
+
+
+def blocked_paths(card, kind):
+    """Phases 5-8 for the blocked tier; returns its two kernel rows."""
+    max_err_blk = {"float64": 0.0, "float32": 0.0}
+    max_err_kkt = {"float64": 0.0, "float32": 0.0}
+    blocked_vs_plain(max_err_blk)
+    kkt_vs_plain(max_err_kkt)
+
+    # Phase 7: the main path, fused_solve_batch past D = 32.
+    B = 8192
+    targets, x0 = medium_n_planar_instances(B, ARM_N, seed=0)
+    arm = fik.planar_family(ARM_N, LINK)
+    t32, x32 = targets.astype(np.float32), x0.astype(np.float32)
+    reset_counts()
+    x_arm, state_arm = mot.fused_solve_batch(arm, t32, x32, return_state=True, **ARM)
+    torch.cuda.synchronize()
+    arm_counts = counts()
+    if arm_counts["blocked"] < 1:
+        fail(f"the blocked main path launched the blocked kernel no time ({arm_counts})")
+    if x_arm.shape != (B, ARM_N) or state_arm.shape != (B, 3) or not x_arm.is_cuda:
+        fail(f"blocked main path: unexpected outputs {tuple(x_arm.shape)} {tuple(state_arm.shape)}")
+    if not torch.isfinite(x_arm).all():
+        fail("blocked main path: non-finite solutions")
+    err = effector_error("planar", x_arm.cpu(), targets)
+    parity = float((err < 1e-3).mean())
+    status = mot.fused_termination_status(state_arm, f_tol=1e-8, eq_tol=1e-5)
+    satisfied = (status == int(mot.NLSTerminationState.SATISFIED_ABSOLUTE_TOL)).double().mean().item()
+    print(f"# phase7 blocked main path fused_solve_batch planar n={ARM_N} (D=49) B={B} float32 "
+          f"{ARM}: launches {arm_counts} for 1 call; parity {parity:.6f} (effector error p50 "
+          f"{np.median(err):.3e}, max {err.max():.3e}), status satisfied {satisfied:.6f}", flush=True)
+    if not parity > 0.9:
+        fail(f"blocked main path parity {parity} is not above 0.9 (examples/blocked_medium_n.py:75)")
+    data_t, x0_t = mot.batch_from_numpy(t32, x32, "cuda")
+    plain_arm = lambda: blk._blocked_solve_plain(arm, data_t, x0_t, *ARM_ARGS)  # noqa: E731
+    xp, sp = plain_arm()
+    torch.cuda.synchronize()
+    check_against_plain(f"phase7 main path B={B}", "planar", targets,
+                        (x_arm.T, state_arm.T, None), (xp, sp, None), max_err_blk)
+
+    # The standalone path: blocked_kkt_solve at the main path's D and B.
+    D = ARM_N + 1
+    H, rhs = kkt_systems(B, D, seed=7, dtype=torch.float32)
+    reset_counts()
+    x_kkt = mot.blocked_kkt_solve(H, rhs)
+    torch.cuda.synchronize()
+    kkt_counts = counts()
+    if kkt_counts["blocked_kkt"] < 1:
+        fail(f"blocked_kkt_solve launched the KKT kernel no time ({kkt_counts})")
+    print(f"# phase7 blocked_kkt_solve D={D} B={B} float32: launches {kkt_counts} for 1 call", flush=True)
+    plain_kkt = lambda: blk._blocked_kkt_solve_plain(H, rhs)  # noqa: E731
+    check_kkt(f"phase7 blocked_kkt_solve D={D} B={B}", H, rhs, x_kkt, plain_kkt(), max_err_kkt)
+
+    # Phase 8: times at those shapes.
+    t_d, x_d = torch.as_tensor(t32, device="cuda"), torch.as_tensor(x32, device="cuda")
+    entry = lambda: mot.fused_solve_batch(arm, t_d, x_d, **ARM)  # noqa: E731
+    kern = lambda: blk._blocked_solve_cuda(arm, data_t, x0_t, *ARM_ARGS)  # noqa: E731
+    e2e_ms, e2e_all = time_ms(entry, launches=10)
+    dev_ms, dev_all = time_ms(entry, launches=10, held=True)
+    k2_ms, k2_all = time_ms(kern, launches=10, held=True)
+    k2_unheld_ms, _ = time_ms(kern, launches=10)
+    # One instance alone: the latency of one CTA's dependent chain.
+    one = lambda: blk._blocked_solve_cuda(  # noqa: E731
+        arm, data_t[:, :1].contiguous(), x0_t[:, :1].contiguous(), *ARM_ARGS)
+    k2_one_ms, _ = time_ms(one, launches=10, held=True)
+    plain2_ms, _ = event_ms(plain_arm)
+    ops2 = count_ops(plain_arm)
+    bound2_ms, bound2_by = roofline(ops2, B * (2 + ARM_N + ARM_N + 3) * 4)
+    print(f"# phase8 blocked kernel B={B} D=49 float32 on {kind} ({card}): kernel alone on the card "
+          f"{k2_ms:.4f} ms ({B / k2_ms * 1e3:.4e} solves/s), unheld {k2_unheld_ms:.4f} ms, "
+          f"at B=1 {k2_one_ms:.4f} ms, "
+          f"entry point issued back to back "
+          f"{e2e_ms:.4f} ms/call, its device work {dev_ms:.4f} ms; plain {plain2_ms:.3f} ms; "
+          f"{ops2 / B:.0f} elementwise ops per instance -> bound {bound2_ms:.6f} ms ({bound2_by}), "
+          f"kernel = {k2_ms / bound2_ms:.1f}x bound; repeats: entry {e2e_all} device {dev_all} "
+          f"kernel {k2_all}", flush=True)
+
+    kern3 = lambda: blk._blocked_kkt_solve_cuda(H, rhs)  # noqa: E731
+    k3_ms, k3_all = time_ms(kern3, held=True)
+    k3_unheld_ms, _ = time_ms(kern3)
+    e3_ms, _ = time_ms(lambda: mot.blocked_kkt_solve(H, rhs))
+    plain3_ms, _ = event_ms(plain_kkt)
+    ops3 = count_ops(plain_kkt)
+    # Reads the lower triangle with the diagonal and the rhs, writes x.
+    bound3_ms, bound3_by = roofline(ops3, B * (D * (D + 1) // 2 + D + D) * 4)
+
+    def library(H=H, rhs=rhs):
+        LD, pivots, _ = torch.linalg.ldl_factor_ex(H)
+        return torch.linalg.ldl_solve(LD, pivots, rhs[..., None])[..., 0]
+
+    # The yardstick only: the port never calls it. One timed call after a
+    # warm-up on 8 systems: at this batch the call takes seconds (it factors
+    # the systems one by one).
+    library(H[:8], rhs[:8])
+    lib3_ms, lib_x = event_ms(library)
+    lib_note = (f"library ldl_factor_ex + ldl_solve {lib3_ms:.4f} ms (one call), "
+                f"max|kernel - library| {max_abs_diff(x_kkt, lib_x):.3e}")
+    print(f"# phase8 blocked KKT kernel B={B} D={D} float32 on {kind} ({card}): kernel alone "
+          f"{k3_ms:.4f} ms, unheld {k3_unheld_ms:.4f} ms, blocked_kkt_solve issued back to back {e3_ms:.4f} ms/call; plain "
+          f"{plain3_ms:.3f} ms; {ops3 / B:.0f} elementwise ops per system -> bound {bound3_ms:.6f} ms "
+          f"({bound3_by}), kernel = {k3_ms / bound3_ms:.1f}x bound; {lib_note}; repeats {k3_all}",
+          flush=True)
+
+    return [
+        {
+            "name": "blocked_sqp",
+            "route": "cuda",
+            "source": "mini_opt_tpu_torch/csrc/blocked.cu",
+            "replaces": "mini_opt_tpu/ops/pallas_blocked.py:96",
+            "function": "_make_blocked_kernel",
+            "launches": arm_counts["blocked"],
+            "max_abs_err": max(max_err_blk.values()),
+            "max_abs_diff_f64": max_err_blk["float64"],
+            "ms": k2_ms,
+            "plain_ms": plain2_ms,
+            "bound_ms": bound2_ms,
+            "bound_by": bound2_by,
+            "library_ms": None,
+            "shape": f"B={B} n=48 (D=49) float32 6/3/2 mpc armijo",
+            "ops_per_instance": ops2 / B,
+            "parity": parity,
+            "card": card,
+        },
+        {
+            "name": "blocked_kkt_ldlt",
+            "route": "cuda",
+            "source": "mini_opt_tpu_torch/csrc/blocked_kkt.cu",
+            "replaces": "mini_opt_tpu/ops/pallas_blocked.py:751",
+            "function": "blocked_kkt_solve (inline kernel :769)",
+            "launches": kkt_counts["blocked_kkt"],
+            "max_abs_err": max(max_err_kkt.values()),
+            "max_abs_diff_f64": max_err_kkt["float64"],
+            "ms": k3_ms,
+            "plain_ms": plain3_ms,
+            "bound_ms": bound3_ms,
+            "bound_by": bound3_by,
+            "library_ms": lib3_ms,
+            "shape": f"B={B} D={D} float32",
+            "ops_per_instance": ops3 / B,
+            "card": card,
+        },
+    ]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -191,6 +505,10 @@ def main():
         spilling = sum(int(b) > 0 for b in re.findall(r"(\d+) bytes spill stores", text))
         print(f"# ptxas: {len(regs)} kernel instances, registers max {max(regs, default=0)}, "
               f"{spilling} with spill stores", flush=True)
+        for name, nreg, spill, smem in ptxas_report(text):
+            if "blocked" in name:
+                print(f"# ptxas {name}: {nreg} registers, {spill} bytes spill stores, "
+                      f"{smem} bytes static smem", flush=True)
 
     # Phase 3: kernel vs plain version on the card.
     B3 = 8192 + 13
@@ -293,6 +611,8 @@ def main():
           f"instance -> bound {bound_ms:.6f} ms ({bound_by}, {PEAK_FP32_OPS / 1e12:.0f} TFLOP/s FP32 peak); "
           f"kernel {rows[B]['kernel_ms']:.4f} ms = {bound_ms / rows[B]['kernel_ms']:.3f} of bound", flush=True)
 
+    blocked_rows = blocked_paths(card, kind)
+
     print(json.dumps({"kernels": [{
         "name": "fused_ik_sqp",
         "route": "cuda",
@@ -310,7 +630,7 @@ def main():
         "shape": f"B={B} n=2 float32 4/2/1 mpc armijo",
         "ops_per_instance": ops_per_instance,
         "card": card,
-    }]}), flush=True)
+    }] + blocked_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

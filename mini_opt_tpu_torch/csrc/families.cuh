@@ -10,6 +10,10 @@
 //   retract(th)   (in place)
 // The link length is a runtime member. Every expression keeps the operand
 // order of the Python version, so both round alike.
+//
+// PlanarChain at the end is the blocked tier's planar family
+// (blocked_sqp.cuh): the same arithmetic with the chain length a runtime
+// value, evaluated by a whole CTA.
 #pragma once
 
 #include <cmath>
@@ -207,6 +211,108 @@ struct Spatial : JointLimits<N_> {
     const T ez = p[2] - d[2];
     f = T(0.5) * (ey * ey + ez * ez);
     eq = fabs(p[0] - d[0]);
+  }
+};
+
+// Planar chain with a runtime number of joints n, for the blocked tier
+// (blocked_sqp.cuh; D = n + 1 runs to 120, past what one template per N
+// would reasonably instance). The cooperative members are called by every
+// thread of the CTA after a barrier that published th and tgt; thread i < n
+// handles joint i; each ends with a barrier after which its shared-memory
+// outputs are visible, and each returns its uniform outputs (f, eq) to
+// every thread. Arithmetic and operand order are Planar's.
+struct PlanarChain {
+  static constexpr int M = 1;
+  static constexpr int ROWS = 2;
+  int n;
+  double link;
+
+  __host__ __device__ int nvar() const { return n; }
+  // Joints 1..n-1 limited to [0, pi]: slack j sits on joint j + 1.
+  __host__ __device__ int nlo() const { return n - 1; }
+  __host__ __device__ int nhi() const { return n - 1; }
+  __device__ int lo_slot(int i) const { return i - 1; }  // -1: no bound
+  __device__ int hi_slot(int i) const { return i - 1; }
+  __device__ double lo_val(int) const { return 0.0; }
+  __device__ double hi_val(int) const { return kPi; }
+  // Scratch: cos and sin of the cumulative angles, then J_x and J_y.
+  __host__ __device__ int scratch() const { return 4 * n; }
+
+  template <typename T>
+  __device__ __forceinline__ T retract(T a) const {
+    const T two_pi = T(2.0 * kPi);
+    return a - two_pi * floor((a + T(kPi)) / two_pi);
+  }
+
+  // cs[i], sn[i] = cos, sin of th[0] + ... + th[i] (summed in index order).
+  template <typename T>
+  __device__ void angles(int tid, const T* th, T* cs, T* sn) const {
+    if (tid < n) {
+      T phi = th[0];
+      for (int k = 1; k <= tid; ++k) phi = phi + th[k];
+      cs[tid] = cos(phi);
+      sn[tid] = sin(phi);
+    }
+    __syncthreads();
+  }
+
+  template <typename T>
+  __device__ void effector(const T* cs, const T* sn, T& px, T& py) const {
+    T sc = T(0), ss = T(0);  // Python's sum() starts from 0
+    for (int i = 0; i < n; ++i) {
+      sc = sc + cs[i];
+      ss = ss + sn[i];
+    }
+    px = T(link) * sc;
+    py = T(link) * ss;
+  }
+
+  // G: packed lower triangle (row i at i (i + 1) / 2), Jeq (1, n), c (n),
+  // req (1) in shared memory; f to every thread.
+  template <typename T>
+  __device__ void linearize(int tid, const T* th, const T* tgt, T* scr, T* G, T* Jeq, T* c,
+                            T* req, T& f) const {
+    T* cs = scr;
+    T* sn = scr + n;
+    T* jx = scr + 2 * n;
+    T* jy = scr + 3 * n;
+    angles(tid, th, cs, sn);
+    T px, py;
+    effector(cs, sn, px, py);
+    if (tid < n) {
+      // dpx/dth_a = -L sum_{i>=a} s_i ; dpy/dth_a = L sum_{i>=a} c_i
+      T sx = sn[n - 1], sy = cs[n - 1];
+      for (int a = n - 2; a >= tid; --a) {
+        sx = sx + sn[a];
+        sy = sy + cs[a];
+      }
+      jx[tid] = T(-link) * sx;
+      jy[tid] = T(link) * sy;
+    }
+    __syncthreads();
+    const T ry = py - tgt[1];
+    const T rx = px - tgt[0];
+    f = T(0.5) * ry * ry;
+    if (tid < n) {
+      const T jyi = jy[tid];
+      T* row = G + tid * (tid + 1) / 2;
+      for (int j = 0; j <= tid; ++j) row[j] = jyi * jy[j];
+      c[tid] = jyi * ry;
+      Jeq[tid] = jx[tid];
+    }
+    if (tid == 0) req[0] = rx;
+    __syncthreads();
+  }
+
+  template <typename T>
+  __device__ void errors(int tid, const T* th, const T* tgt, T* scr, T& f, T& eq) const {
+    angles(tid, th, scr, scr + n);
+    T px, py;
+    effector(scr, scr + n, px, py);
+    const T ey = py - tgt[1];
+    f = T(0.5) * (ey * ey);
+    eq = fabs(px - tgt[0]);
+    __syncthreads();
   }
 };
 

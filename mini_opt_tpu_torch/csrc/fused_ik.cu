@@ -15,7 +15,6 @@
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int kNoInstance = -1;
 
 template <typename T, class F>
 __global__ void __launch_bounds__(kBlock)
@@ -57,7 +56,7 @@ int dispatch_n(int n, double link, const LaunchArgs& a) {
     case 6: return launch<T>(Fam<6>{{}, link}, a);
     case 7: return launch<T>(Fam<7>{{}, link}, a);
     case 8: return launch<T>(Fam<8>{{}, link}, a);
-    default: return kNoInstance;
+    default: return mo::kNoInstance;
   }
 }
 
@@ -66,7 +65,7 @@ int dispatch_family(int family, int n, double link, const LaunchArgs& a) {
   switch (family) {
     case 0: return dispatch_n<T, mo::Planar>(n, link, a);
     case 1: return dispatch_n<T, mo::Spatial>(n, link, a);
-    default: return kNoInstance;
+    default: return mo::kNoInstance;
   }
 }
 
@@ -87,11 +86,13 @@ extern "C" int mo_fused_ik_launch(int family, int n, int dtype, const void* data
   switch (dtype) {
     case 0: return dispatch_family<float>(family, n, link, a);
     case 1: return dispatch_family<double>(family, n, link, a);
-    default: return kNoInstance;
+    default: return mo::kNoInstance;
   }
 }
 
+// Text of any launcher's return code (fused_sqp.cuh's, or CUDA's).
 extern "C" const char* mo_cuda_error_string(int rc) {
-  if (rc == kNoInstance) return "no kernel instance for this family, n and dtype";
+  if (rc == mo::kNoInstance) return "no kernel instance for this family, n and dtype";
+  if (rc == mo::kTooLarge) return "the system does not fit one CTA (threads or shared memory)";
   return cudaGetErrorString(static_cast<cudaError_t>(rc));
 }

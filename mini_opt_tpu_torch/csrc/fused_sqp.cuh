@@ -65,6 +65,10 @@ __device__ __forceinline__ T sgn(T a) {
   return a > T(0) ? T(1) : (a < T(0) ? T(-1) : a);
 }
 
+// Launcher return codes besides CUDA's own (mo_cuda_error_string).
+constexpr int kNoInstance = -1;  // no kernel instance for these arguments
+constexpr int kTooLarge = -2;    // the system does not fit one CTA
+
 struct SolveOptions {
   int max_iterations;
   int qp_iterations;

@@ -4,8 +4,10 @@
 (``bench.py::make_instances``): reachable planar targets with warm starts.
 ``spatial_instances`` draws targets from random joint angles of the
 alternating z/y-axis chain, the JAX package's spatial test distribution.
-Both return float64 ``(B, rows)`` targets and ``(B, n)`` starts; a caller
-casts them to its working dtype.
+``medium_n_planar_instances`` is a copy of the warm-start serving
+distribution of the JAX repo's medium-N example
+(``examples/blocked_medium_n.py:53-61``). All return float64 ``(B, rows)``
+targets and ``(B, n)`` starts; a caller casts them to its working dtype.
 """
 
 from __future__ import annotations
@@ -34,6 +36,22 @@ def planar_instances(B, n, seed=0, link_len=0.4):
         x0 = np.full((B, n), 0.6)
         x0[:, 0] = angle - 0.3
     return targets, x0
+
+
+def medium_n_planar_instances(B, n=48, seed=0, link_len=0.4):
+    """A reference pose per instance (joints 1..n-1 near 0.06 rad, joint 0
+    in [-0.3, 0.3]) as the warm start, and a target a small task step
+    (+-0.05 per axis) from its effector."""
+    rng = np.random.default_rng(seed)
+    th_ref = np.clip(
+        rng.uniform(0.02, 0.10, (B, n)) + rng.normal(0, 0.01, (B, n)),
+        0.01, np.pi - 0.01,
+    )
+    th_ref[:, 0] = rng.uniform(-0.3, 0.3, B)
+    phi0 = np.cumsum(th_ref, axis=1)
+    eff0 = np.stack([link_len * np.cos(phi0).sum(1), link_len * np.sin(phi0).sum(1)], 1)
+    targets = eff0 + rng.uniform(-0.05, 0.05, (B, 2))
+    return targets, th_ref
 
 
 def spatial_fk(th, link_len=0.4):

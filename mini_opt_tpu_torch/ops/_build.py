@@ -125,6 +125,22 @@ def load_library():
                 p,  # cudaStream_t
             ]
             lib.mo_fused_ik_launch.restype = i
+            lib.mo_blocked_launch.argtypes = [
+                i, i, i,  # family, n, dtype
+                p, p, p, p,  # data, x0, x_out, state
+                i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
+                i, i,  # polynomial line search, Mehrotra barrier
+                ctypes.c_double,  # link length
+                p,  # cudaStream_t
+            ]
+            lib.mo_blocked_launch.restype = i
+            lib.mo_blocked_kkt_launch.argtypes = [
+                i, i,  # dtype, D
+                p, p, p,  # H, rhs, x
+                i,  # B
+                p,  # cudaStream_t
+            ]
+            lib.mo_blocked_kkt_launch.restype = i
             lib.mo_cuda_error_string.argtypes = [i]
             lib.mo_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

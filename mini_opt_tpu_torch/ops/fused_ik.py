@@ -33,11 +33,19 @@ import torch
 
 from .. import convert
 from ..structs import NLSTerminationState
-from . import _build
-
-# Past this KKT size the JAX package hands off to its blocked tier
-# (pallas_blocked.REGISTER_KKT_MAX); the port has no blocked tier yet.
-REGISTER_KKT_MAX = 32
+from . import _build, blocked
+from ._common import (
+    _CUDA_DTYPE_IDS,
+    _PI,
+    _check_cuda_tensors,
+    _check_options,
+    _div,
+    _maximum,
+    _minimum,
+    _mod_pi,
+    _sign,
+)
+from .blocked import REGISTER_KKT_MAX
 
 # Launches of the CUDA kernel in this process: the wrapper adds one right
 # where it launches, and nowhere else.
@@ -46,41 +54,10 @@ KERNEL_LAUNCHES = 0
 # The kernel's instances (csrc/fused_ik.cu): chain lengths and families.
 CUDA_MIN_N, CUDA_MAX_N = 2, 8
 _CUDA_FAMILY_IDS = {"planar": 0, "spatial": 1}
-_CUDA_DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
 # History channels before dx_0..dx_{n-1}: f, eq, penalty, lam, dd, accepted,
 # alpha (pallas_ik.py:590-697).
 _N_DEBUG_FIXED = 7
-
-# Not math.pi: the JAX package's literal, which the wrap arithmetic mirrors.
-_PI = 3.14159265358979
-
-
-def _div(a, k):
-    """a / k for a Python number k, rounded as one true division. (On CUDA,
-    ``tensor / scalar`` computes ``tensor * (1 / scalar)``, which rounds
-    differently from JAX's division and the kernel's.)"""
-    return a / torch.full_like(a, k)
-
-
-def _mod_pi(a):
-    return a - 2.0 * _PI * torch.floor(_div(a + _PI, 2.0 * _PI))
-
-
-def _maximum(a, b):
-    """NaN-propagating max of a tensor and a tensor or float (jnp.maximum)."""
-    return torch.maximum(a, b if torch.is_tensor(b) else torch.full_like(a, b))
-
-
-def _minimum(a, b):
-    """NaN-propagating min of a tensor and a tensor or float (jnp.minimum)."""
-    return torch.minimum(a, b if torch.is_tensor(b) else torch.full_like(a, b))
-
-
-def _sign(a):
-    """jnp.sign: +-1, and the input itself at +-0 and NaN."""
-    one = torch.ones_like(a)
-    return torch.where(a > 0, one, torch.where(a < 0, -one, a))
 
 
 def _ldlt_factor_unrolled(H):
@@ -654,7 +631,7 @@ def _fused_solve_cuda(
         raise NotImplementedError(
             "this FusedFamily has no device-code functor (cuda_functor is "
             "None); families generated from a Problem need the family-to-CUDA "
-            "emitter of slice 2 (ops/fused_auto.py)"
+            "emitter (ops/fused_auto.py), which a later slice of the port brings"
         )
     kind, link_len = family.cuda_functor
     if kind not in _CUDA_FAMILY_IDS:
@@ -665,18 +642,10 @@ def _fused_solve_cuda(
             f"csrc/fused_ik.cu instantiates n = {CUDA_MIN_N}..{CUDA_MAX_N}; got n = {n}"
         )
     dtype = data_t.dtype
-    if dtype not in _CUDA_DTYPE_IDS:
-        raise TypeError(f"the kernel takes float32 or float64, not {dtype}")
-    for name, t, rows in (("data", data_t, family.data_rows), ("x0", x0_t, n)):
-        if not t.is_cuda or t.device != data_t.device or t.dtype != dtype:
-            raise ValueError(f"{name} must be a {dtype} tensor on {data_t.device}")
-        if t.dim() != 2 or t.shape[0] != rows or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous ({rows}, B) tensor")
-    B = data_t.shape[1]
-    if x0_t.shape[1] != B:
-        raise ValueError("data and x0 batch sizes differ")
-    if B >= 2**31:
-        raise ValueError("batch too large for the kernel's int32 indexing")
+    B = data_t.shape[1] if data_t.dim() == 2 else -1
+    _check_cuda_tensors(
+        (("data", data_t, (family.data_rows, B)), ("x0", x0_t, (n, B))), dtype, data_t.device, B
+    )
 
     kw = dict(dtype=dtype, device=data_t.device)
     x_out = torch.empty((n, B), **kw)
@@ -713,28 +682,29 @@ def _fused_solve_cuda(
     return x_out, state, history
 
 
-def _check_options(max_iterations, qp_iterations, ls_iterations, line_search, barrier):
-    if line_search not in ("armijo", "polynomial"):
-        raise ValueError(f"line_search must be 'armijo' or 'polynomial', not {line_search!r}")
-    if barrier not in ("complementarity", "mpc"):
-        raise ValueError(f"barrier must be 'complementarity' or 'mpc', not {barrier!r}")
-    # The final write-out reads iteration-loop state, so a zero-trip solve
-    # has nothing to return.
-    if max_iterations < 1:
-        raise ValueError("fused kernels need max_iterations >= 1")
-    if qp_iterations < 0 or ls_iterations < 0:
-        raise ValueError("qp_iterations and ls_iterations must be >= 0")
-
-
 def _fused_solve(
     family, data, x0, max_iterations, qp_iterations, ls_iterations,
     line_search, barrier, debug_history, return_state, device,
 ):
     _check_options(max_iterations, qp_iterations, ls_iterations, line_search, barrier)
+    # Medium-N dispatch, as pallas_ik.py:862-880: past the register tier's
+    # KKT cap the blocked tier solves the same family.
     if family.n + family.m_eq > REGISTER_KKT_MAX:
-        raise NotImplementedError(
-            f"n + m_eq = {family.n + family.m_eq} > {REGISTER_KKT_MAX} needs the "
-            "blocked tier (ops/pallas_blocked.py), which is slice 2 of the port"
+        if debug_history:
+            raise ValueError(
+                "debug_history is a register-tier feature; the blocked "
+                f"tier (n + m_eq = {family.n + family.m_eq} > "
+                f"{REGISTER_KKT_MAX}) does not record per-iteration rows"
+            )
+        return blocked.blocked_solve_batch(
+            family, data, x0,
+            max_iterations=max_iterations,
+            qp_iterations=qp_iterations,
+            ls_iterations=ls_iterations,
+            line_search=line_search,
+            barrier=barrier,
+            return_state=return_state,
+            device=device,
         )
     data_t, x0_t = convert.to_feature_major(data, x0, device)
     if data_t.shape[0] != family.data_rows or x0_t.shape[0] != family.n:

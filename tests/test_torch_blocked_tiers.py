@@ -1,0 +1,203 @@
+"""The PyTorch port's blocked tier held against the port's own register tier
+and against dense linear algebra, on the CPU. No JAX compile: every check
+here costs a fraction of a second (tests/test_torch_blocked.py holds the
+same code against the JAX package).
+
+* Below REGISTER_KKT_MAX both tiers take the same families, so the blocked
+  plain version (stacked (D, D, B) KKT, right-looking LDL^T) and the
+  register plain version (unrolled LDL^T) must land on the same iterates,
+  as tests/test_pallas_blocked.py::test_blocked_matches_register_kernel
+  holds the two JAX kernels. They sum in different orders, and the
+  near-stretched warm-start chains' KKT systems amplify last-bit
+  differences to a few 1e-6 at the larger budgets (9.1e-6 the largest seen
+  over these cases): the tolerance is 5e-5 on x and relative on f and
+  |eq|_1, flags and statuses exactly equal.
+* ``blocked_kkt_solve`` against ``numpy.linalg.solve`` on well-conditioned
+  quasi-definite systems (condition numbers below 100), D = 1 to 120 (the
+  widths chip_smoke.py gives the kernel included): 1e-12 relative in
+  float64, 1e-5 in float32 (about 4e-7 seen).
+* The slice's main path, the 48-joint arm (D = 49) with the 6/3/2 budget,
+  at small B on the CPU: every lane reaches its target, as
+  examples/blocked_medium_n.py asserts for the JAX package.
+* The argument checks of both public entry points.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import mini_opt_tpu_torch as port
+from mini_opt_tpu_torch.instances import (
+    effector_error,
+    medium_n_planar_instances,
+    planar_instances,
+)
+from mini_opt_tpu_torch.ops import blocked as blk
+
+TIER_TOL = 5e-5
+OPTIONS = [
+    ("armijo", "mpc"),
+    ("armijo", "complementarity"),
+    ("polynomial", "mpc"),
+    ("polynomial", "complementarity"),
+]
+GENERATORS = {"warm": medium_n_planar_instances, "bench": planar_instances}
+
+
+@pytest.mark.parametrize("generator", list(GENERATORS))
+@pytest.mark.parametrize("options", OPTIONS, ids=["-".join(o) for o in OPTIONS])
+@pytest.mark.parametrize("n", [2, 3, 4, 6, 8])
+def test_blocked_tier_matches_register_tier(n, options, generator):
+    line_search, barrier = options
+    data, x0 = GENERATORS[generator](32, n, seed=n)
+    fam = port.planar_family(n, 0.4)
+    kw = dict(max_iterations=6, qp_iterations=3, ls_iterations=2,
+              line_search=line_search, barrier=barrier, return_state=True, device="cpu")
+    x_reg, s_reg = port.fused_solve_batch(fam, data, x0, **kw)
+    x_blk, s_blk = port.blocked_solve_batch(fam, data, x0, **kw)
+    assert x_blk.shape == x_reg.shape == (32, n) and s_blk.shape == s_reg.shape == (32, 3)
+    torch.testing.assert_close(x_blk, x_reg, rtol=0, atol=TIER_TOL)
+    torch.testing.assert_close(s_blk[:, :2], s_reg[:, :2], rtol=TIER_TOL, atol=TIER_TOL)
+    assert torch.equal(s_blk[:, 2], s_reg[:, 2])
+    assert torch.equal(port.fused_termination_status(s_blk), port.fused_termination_status(s_reg))
+
+
+# ---------------------------------------------------------------------------
+# The standalone KKT solve against dense algebra.
+# ---------------------------------------------------------------------------
+
+
+def _well_conditioned_kkt(rng, B, n, m):
+    """Quasi-definite KKT-shaped systems: G = A A^T / n + I, equality rows,
+    zero (2, 2) block."""
+    A = rng.normal(size=(B, n, n))
+    G = A @ np.swapaxes(A, 1, 2) / n + np.eye(n)
+    Aeq = rng.normal(size=(B, m, n))
+    H = np.zeros((B, n + m, n + m))
+    H[:, :n, :n] = G
+    H[:, n:, :n] = Aeq
+    H[:, :n, n:] = np.swapaxes(Aeq, 1, 2)
+    return H
+
+
+KKT_SIZES = [(1, 0), (2, 1), (5, 0), (9, 3), (16, 0), (31, 3), (44, 4), (48, 1), (88, 8), (112, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("size", KKT_SIZES, ids=[f"n{n}m{m}" for n, m in KKT_SIZES])
+def test_kkt_solve_matches_dense_solve(size, dtype):
+    n, m = size
+    rng = np.random.default_rng(100 * n + m)
+    H = _well_conditioned_kkt(rng, 8, n, m)
+    rhs = rng.normal(size=(8, n + m))
+    assert np.linalg.cond(H).max() < 100.0
+    ref = np.linalg.solve(H, rhs[..., None])[..., 0]
+    got = port.blocked_kkt_solve(torch.from_numpy(H).to(dtype), torch.from_numpy(rhs).to(dtype))
+    assert got.dtype == dtype and got.shape == (8, n + m)
+    scale = np.abs(ref).max(1, keepdims=True) + 1.0
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert (np.abs(got.double().numpy() - ref) / scale).max() < tol
+
+
+PIVOT_CASES = {
+    "healthy": None,
+    "zero_pivot": (0, 0, 0.0),
+    "nan_entry": (1, 0, float("nan")),
+    "inf_pivot": (2, 2, float("inf")),
+}
+
+
+@pytest.mark.parametrize("case", list(PIVOT_CASES))
+def test_bad_pivot_is_flagged_on_its_lane_only(case):
+    """The factorization's failure flag (pallas_blocked.py:175-179) is
+    raised on a lane with a zero or non-finite pivot, and the other lanes
+    solve as if alone."""
+    H = torch.eye(3, dtype=torch.float64).repeat(4, 1, 1) * 2.0
+    rhs = torch.ones(4, 3, dtype=torch.float64)
+    if PIVOT_CASES[case] is not None:
+        i, j, v = PIVOT_CASES[case]
+        H[1, i, j] = v
+    _, d = blk._ldlt_factor(H.permute(1, 2, 0))
+    want = torch.zeros(4, dtype=torch.float64)
+    want[1] = 0.0 if case == "healthy" else 1.0
+    assert torch.equal(blk._factor_bad(d), want)
+    x = port.blocked_kkt_solve(H, rhs)
+    lanes = torch.arange(4) if case == "healthy" else torch.tensor([0, 2, 3])
+    assert torch.equal(x[lanes], torch.full((len(lanes), 3), 0.5, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# The main path at full width, small B.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_48_joint_arm_reaches_its_targets(dtype):
+    """The slice's entry point at the example's width and budget on its
+    warm-start distribution: every lane within 1e-3 of its target (the
+    example's gate) and reported SATISFIED_ABSOLUTE_TOL at its gates, the
+    joint limits of joints 1.. kept, and no kernel launched for CPU
+    tensors."""
+    targets, x0 = medium_n_planar_instances(16, 48, seed=0)
+    fam = port.planar_family(48, 0.4)
+    assert fam.n + fam.m_eq > port.REGISTER_KKT_MAX
+    before = blk.BLOCKED_LAUNCHES
+    x, state = port.fused_solve_batch(
+        fam, torch.as_tensor(targets, dtype=dtype), torch.as_tensor(x0, dtype=dtype),
+        max_iterations=6, qp_iterations=3, ls_iterations=2, return_state=True,
+    )
+    assert blk.BLOCKED_LAUNCHES == before
+    assert x.shape == (16, 48) and state.shape == (16, 3) and x.dtype == dtype
+    assert torch.isfinite(x).all() and torch.isfinite(state).all()
+    err = effector_error("planar", x.double().numpy(), targets)
+    assert err.max() < (1e-9 if dtype == torch.float64 else 1e-3)
+    eps = 1e-9 if dtype == torch.float64 else 1e-6
+    assert (x[:, 1:] >= -eps).all() and (x[:, 1:] <= np.pi + eps).all()
+    status = port.fused_termination_status(state, f_tol=1e-8, eq_tol=1e-5)
+    assert (status == int(port.NLSTerminationState.SATISFIED_ABSOLUTE_TOL)).all()
+
+
+# ---------------------------------------------------------------------------
+# Argument checks.
+# ---------------------------------------------------------------------------
+
+SOLVE_REJECTS = {
+    "barrier": (dict(barrier="fixed"), ValueError, "barrier"),
+    "line_search": (dict(line_search="wolfe"), ValueError, "line_search"),
+    "max_iterations": (dict(max_iterations=0), ValueError, "max_iterations"),
+    "qp_iterations": (dict(qp_iterations=-1), ValueError, "qp_iterations"),
+    "ls_iterations": (dict(ls_iterations=-1), ValueError, "ls_iterations"),
+    "data_rows": (dict(data=np.zeros((4, 3))), ValueError, "expected data"),
+    "x0_columns": (dict(x0=np.zeros((4, 33))), ValueError, "expected data"),
+}
+
+
+@pytest.mark.parametrize("case", list(SOLVE_REJECTS))
+def test_blocked_solve_batch_rejects(case):
+    bad, exc, match = SOLVE_REJECTS[case]
+    targets, x0 = medium_n_planar_instances(4, 34, seed=1)
+    kw = dict(data=targets, x0=x0, max_iterations=1, qp_iterations=0, ls_iterations=0)
+    kw.update(bad)
+    with pytest.raises(exc, match=match):
+        port.blocked_solve_batch(port.planar_family(34, 0.4), device="cpu", **kw)
+
+
+def _kkt_reject_cases():
+    f64 = dict(dtype=torch.float64)
+    return {
+        "not_square": (torch.zeros(2, 3, 4, **f64), torch.zeros(2, 3, **f64), ValueError),
+        "rhs_length": (torch.eye(3, **f64).repeat(2, 1, 1), torch.zeros(2, 4, **f64), ValueError),
+        "rhs_batch": (torch.eye(3, **f64).repeat(2, 1, 1), torch.zeros(3, 3, **f64), ValueError),
+        "unbatched": (torch.eye(3, **f64), torch.zeros(3, **f64), ValueError),
+        "mixed_dtypes": (torch.eye(3, **f64)[None], torch.zeros(1, 3), TypeError),
+        "integer": (torch.eye(3, dtype=torch.int64)[None], torch.zeros(1, 3, dtype=torch.int64),
+                    TypeError),
+        "tensor_and_array": (torch.eye(3, **f64)[None], np.zeros((1, 3)), TypeError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_kkt_reject_cases()))
+def test_blocked_kkt_solve_rejects(case):
+    H, rhs, exc = _kkt_reject_cases()[case]
+    with pytest.raises(exc):
+        port.blocked_kkt_solve(H, rhs)

@@ -22,7 +22,13 @@ import pytest
 import torch
 
 import mini_opt_tpu_torch as port
-from mini_opt_tpu_torch.instances import effector_error, planar_instances, spatial_instances
+from mini_opt_tpu_torch.instances import (
+    effector_error,
+    medium_n_planar_instances,
+    planar_instances,
+    spatial_instances,
+)
+from mini_opt_tpu_torch.ops import blocked as blk
 from mini_opt_tpu_torch.ops import fused_ik as fik
 
 REPO = Path(__file__).resolve().parents[1]
@@ -101,12 +107,19 @@ def test_python_only_family_runs_on_cpu():
 
 
 def test_blocked_tier_and_bad_options_raise():
-    big = fik.FusedFamily(
-        n=32, data_rows=1, m_eq=1, linearize=None, errors=None,
-        lower=(None,) * 32, upper=(None,) * 32,
-    )
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port.fused_solve_batch(big, np.zeros((2, 1)), np.zeros((2, 32)), device="cpu")
+    """Past REGISTER_KKT_MAX fused_solve_batch hands the family to the
+    blocked tier (pallas_ik.py:862-880), which records no history."""
+    big = fik.planar_family(port.REGISTER_KKT_MAX, 0.4)  # D = 33
+    targets, x0 = medium_n_planar_instances(3, big.n)
+    kw = dict(max_iterations=1, qp_iterations=0, ls_iterations=0)
+    before = blk.BLOCKED_LAUNCHES
+    got = port.fused_solve_batch(big, targets, x0, device="cpu", return_state=True, **kw)
+    want = port.blocked_solve_batch(big, targets, x0, device="cpu", return_state=True, **kw)
+    assert blk.BLOCKED_LAUNCHES == before
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="debug_history"):
+        port.fused_solve_batch(big, targets, x0, device="cpu", debug_history=True, **kw)
     targets, x0 = planar_instances(4, 2)
     for bad in (dict(barrier="fixed"), dict(line_search="wolfe"), dict(max_iterations=0)):
         with pytest.raises(ValueError):
@@ -117,7 +130,8 @@ def test_blocked_tier_and_bad_options_raise():
 
 def test_sources_present_and_build_dir_ignored():
     csrc = REPO / "mini_opt_tpu_torch" / "csrc"
-    for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu"):
+    for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu", "blocked_sqp.cuh", "blocked.cu",
+                 "blocked_kkt.cu"):
         assert (csrc / name).is_file(), name
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
@@ -186,7 +200,50 @@ def test_cuda_entry_point_launches_or_raises():
         n=2, data_rows=2, m_eq=1, linearize=ref.linearize, errors=ref.errors,
         lower=ref.lower, upper=ref.upper, retract=ref.retract,
     )
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="emitter"):
         port.fused_solve_batch(python_only, targets, x0, **BENCH)
     with pytest.raises(NotImplementedError):
         port.fused_ik_solve_batch(np.zeros((4, 2)), np.zeros((4, 9)), **BENCH)
+    # The blocked tier has a planar functor only.
+    with pytest.raises(NotImplementedError, match="emitter"):
+        port.blocked_solve_batch(fik.spatial_family(33, 0.4), np.zeros((4, 3)), np.zeros((4, 33)))
+
+
+@pytest.mark.cuda
+@needs_cuda
+def test_blocked_kernel_matches_plain_on_card():
+    """csrc/blocked.cu against _blocked_solve_plain at D = 34, float64, with
+    a NaN-target lane: both sum in the same order and round alike."""
+    n, B = 33, 300
+    data, x0 = medium_n_planar_instances(B, n, seed=n)
+    data[5, 0] = np.nan
+    d_t, x_t = port.batch_from_numpy(data, x0, "cuda", torch.float64)
+    args = (fik.planar_family(n, 0.4), d_t, x_t, 6, 3, 2, "armijo", "mpc")
+    before = blk.BLOCKED_LAUNCHES
+    got = blk._blocked_solve_cuda(*args)
+    torch.cuda.synchronize()
+    assert blk.BLOCKED_LAUNCHES == before + 1
+    want = blk._blocked_solve_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@needs_cuda
+def test_blocked_kkt_kernel_matches_plain_on_card():
+    """csrc/blocked_kkt.cu against _blocked_kkt_solve_plain at D = 34 on
+    quasi-definite KKT systems, B = 150 (no multiple of anything)."""
+    rng = np.random.default_rng(34)
+    B, n, m = 150, 31, 3
+    A = rng.normal(size=(B, n, n))
+    H = np.zeros((B, n + m, n + m))
+    H[:, :n, :n] = A @ A.transpose(0, 2, 1) + 2.0 * np.eye(n)
+    H[:, n:, :n] = rng.normal(size=(B, m, n))
+    H[:, :n, n:] = H[:, n:, :n].transpose(0, 2, 1)
+    H_t = torch.as_tensor(H, device="cuda")
+    rhs = torch.as_tensor(rng.normal(size=(B, n + m)), device="cuda")
+    before = blk.KKT_LAUNCHES
+    got = port.blocked_kkt_solve(H_t, rhs)
+    torch.cuda.synchronize()
+    assert blk.KKT_LAUNCHES == before + 1
+    torch.testing.assert_close(got, blk._blocked_kkt_solve_plain(H_t, rhs), rtol=0, atol=0)
