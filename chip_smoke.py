@@ -41,15 +41,39 @@ Phases, each of which exits non-zero on failure:
    phase 4; the blocked kernel also at B = 1, one instance's latency), their
    plain versions, and for the KKT solve torch.linalg.ldl_factor_ex +
    ldl_solve as its library yardstick;
-9. the kernel line, then the device line as the last line of stdout.
+9. the general path's kernels (csrc/ldlt.cu, csrc/fused_qp.cu), built in
+   phase 2's parallel nvcc pass: ptxas registers and spills per instance;
+10. the LDL^T factor and solve kernels (kernels 4 and 5) against their plain
+   versions at D = 3, 5, 9, 17, 33, 40, B = 8192 + 13, float64 and float32,
+   with one NaN lane and one singular lane (the per-lane ``ok`` equal);
+11. the fused QP kernel (kernel 6) against its plain version on QPs from
+   the port's own linearization of bench instances at n = 2, 4 and 8, both
+   barriers, float64 and float32, one NaN-target lane;
+12. the general main path, ``solve_ik_batch`` (bench.py --general: planar
+   n = 2, float32, B = 8192, 10/6/2, complementarity, Armijo) on both
+   inner-QP routes, kkt_solver="pallas_ldlt" (kernels 4 and 5) and
+   qp_solver="pallas_fused" (kernel 6), every launch counter set to 0 just
+   before each route and read just after, checked against the formula (70
+   factorizations and 70 solves, or 10 fused QPs, per call); parity
+   (effector error < 1e-3) at least 0.99; each route against the same
+   entry point with the kernels' plain versions swapped in, on the card,
+   bit for bit; timings: the entry point per call, its device work and
+   kernel share (torch.profiler) and the device's idle share of the
+   unprofiled call, each kernel alone on the inputs the main
+   path gave it (held), its bound, its plain version and, for kernels 4
+   and 5, torch.linalg.ldl_factor_ex / ldl_solve;
+13. the kernel line, then the device line as the last line of stdout.
 
 Tolerances, kernel against plain version: the kernels sum in the plain
 versions' order and build without FMA contraction, so they are expected to
 agree bit for bit (each comparison prints whether they did); the gates
 allow float64 1e-9 and, in float32, where a chaotic lane may flip with one
-rounding, the slice-1 shares.
+rounding, the slice-1 shares. Kernels 4-6 and the general path (phases
+10-12) are held bit for bit in both types.
 """
 
+import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -69,6 +93,8 @@ from mini_opt_tpu_torch.instances import (
 from mini_opt_tpu_torch.ops import _build
 from mini_opt_tpu_torch.ops import blocked as blk
 from mini_opt_tpu_torch.ops import fused_ik as fik
+from mini_opt_tpu_torch.ops import fused_qp as fq
+from mini_opt_tpu_torch.ops import ldlt
 
 LINK = 0.4
 BENCH = dict(max_iterations=4, qp_iterations=2, ls_iterations=1, barrier="mpc", line_search="armijo")
@@ -329,10 +355,15 @@ def reset_counts():
     fik.KERNEL_LAUNCHES = 0
     blk.BLOCKED_LAUNCHES = 0
     blk.KKT_LAUNCHES = 0
+    ldlt.LDLT_FACTOR_LAUNCHES = 0
+    ldlt.LDLT_SOLVE_LAUNCHES = 0
+    fq.FUSED_QP_LAUNCHES = 0
 
 
 def counts():
-    return dict(fused_ik=fik.KERNEL_LAUNCHES, blocked=blk.BLOCKED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES)
+    return dict(fused_ik=fik.KERNEL_LAUNCHES, blocked=blk.BLOCKED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES,
+                ldlt_factor=ldlt.LDLT_FACTOR_LAUNCHES, ldlt_solve=ldlt.LDLT_SOLVE_LAUNCHES,
+                fused_qp=fq.FUSED_QP_LAUNCHES)
 
 
 def blocked_paths(card, kind):
@@ -477,6 +508,322 @@ def blocked_paths(card, kind):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: the general path (kernels 4-6).
+# ---------------------------------------------------------------------------
+
+GENERAL_B = 8192
+GENERAL_ROUTES = {
+    "pallas_ldlt": dict(kkt_solver="pallas_ldlt"),
+    "pallas_fused": dict(qp_solver="pallas_fused"),
+}
+
+
+def general_params(route, dtype=torch.float32):
+    """bench.py --general: default_ik_params at 10/6/2, fixed trips, no
+    history (bench.py:66-88, :273), on one inner-QP route."""
+    return dataclasses.replace(
+        mot.default_ik_params(dtype, max_iterations=10, max_qp_iterations=6),
+        max_line_search_iterations=2, record_history=False, early_exit=False,
+        **GENERAL_ROUTES[route],
+    )
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The general path with each kernel wrapper's launch replaced by its
+    plain version, on the same CUDA tensors: the reference the kernels are
+    held to on the card."""
+    saved = (ldlt._ldlt_factor_cuda, ldlt._ldlt_solve_cuda, fq._fused_qp_cuda)
+    ldlt._ldlt_factor_cuda, ldlt._ldlt_solve_cuda, fq._fused_qp_cuda = (
+        ldlt._ldlt_factor_plain, ldlt._ldlt_solve_plain, fq._fused_qp_plain)
+    try:
+        yield
+    finally:
+        ldlt._ldlt_factor_cuda, ldlt._ldlt_solve_cuda, fq._fused_qp_cuda = saved
+
+
+@contextlib.contextmanager
+def recording(module, name, store):
+    """Keep the arguments of the last call of ``module.name`` in ``store``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args):
+        store[name] = args
+        return fn(*args)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def check_bits(tag, got, want, max_err, ok_pair=None):
+    """Kernel outputs against the plain version's: bit for bit, NaN with
+    NaN, or fail. Records the largest |kernel - plain| per dtype."""
+    dtype = str(got[0].dtype).replace("torch.", "")
+    err = max(max_abs_diff(g, w) for g, w in zip(got, want))
+    max_err[dtype] = max(max_err[dtype], err)
+    same = bit_identical(*zip(got, want))
+    line = f"# {tag} {dtype}: bit-identical {same}, max|kernel - plain| {err:.3e}"
+    if ok_pair is not None:
+        ok_same = torch.equal(*ok_pair)
+        line += f", ok equal {ok_same} ({int((~ok_pair[0]).sum())} lanes not ok)"
+        same = same and ok_same
+    print(line, flush=True)
+    if not same:
+        fail(f"{tag} {dtype}: the kernel disagrees with its plain version")
+
+
+def ldlt_vs_plain(max_err):
+    """Phase 10: kernels 4 and 5 against their plain versions."""
+    B = 8192 + 13
+    for D in (3, 5, 9, 17, 33, 40):
+        rng = np.random.default_rng(D)
+        A = rng.normal(size=(B, D, D))
+        H = A @ A.transpose(0, 2, 1) / D + np.eye(D)
+        m = max(1, D // 6)  # a KKT-shaped zero block, as the QP gives
+        H[:, D - m:, D - m:] = 0.0
+        H[5] = np.nan
+        H[7] = 0.0
+        rhs = rng.normal(size=(D, B))
+        for dtype in (torch.float64, torch.float32):
+            Ht = torch.as_tensor(H, dtype=dtype, device="cuda").permute(1, 2, 0).contiguous()
+            rt = torch.as_tensor(rhs, dtype=dtype, device="cuda")
+            before = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES)
+            Lk, dk = ldlt._ldlt_factor_cuda(Ht)
+            Lp, dp = ldlt._ldlt_factor_plain(Ht)
+            xk = ldlt._ldlt_solve_cuda(Lp, dp, rt)
+            torch.cuda.synchronize()
+            if (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES) != (before[0] + 1, before[1] + 1):
+                fail(f"D={D}: an LDL^T wrapper did not count its launch")
+            xp = ldlt._ldlt_solve_plain(Lp, dp, rt)
+            check_bits(f"phase10 LDL^T factor D={D} B={B}", (Lk, dk), (Lp, dp), max_err["factor"],
+                       ok_pair=(ldlt._ok(Lk, dk), ldlt._ok(Lp, dp)))
+            check_bits(f"phase10 LDL^T solve D={D} B={B}", (xk,), (xp,), max_err["solve"])
+
+
+def ik_qps(n, B, dtype, seed):
+    """The QPs of the general path's first outer iteration at planar n:
+    the port's own linearization of bench instances (lambda = 1e-3), one
+    NaN-target lane. Returns the feature-major kernel arguments but the
+    schedule."""
+    targets, x0 = planar_instances(B, n, seed=seed)
+    targets[5, 0] = np.nan
+    chain = mot.make_planar_chain(n, dtype=dtype, device="cuda")
+    x_t = torch.as_tensor(x0, dtype=dtype, device="cuda")
+    qp, _ = mot.nonlinear.linearize_and_fill_qp(
+        lambda t: mot.make_ik_problem(chain, t), x_t, torch.full_like(x_t[:, 0], 1e-3),
+        data=torch.as_tensor(targets, dtype=dtype, device="cuda"),
+    )
+    return (qp.G.permute(1, 2, 0).contiguous(), qp.c.T.contiguous(),
+            qp.A_eq.permute(1, 2, 0).contiguous(), qp.b_eq.T.contiguous(),
+            qp.ineq_a.T.contiguous(), qp.ineq_b.T.contiguous(), tuple(int(v) for v in qp.ineq_var))
+
+
+def fused_qp_vs_plain(max_err):
+    """Phase 11: kernel 6 against its plain version."""
+    B = 8192 + 13
+    for n in (2, 4, 8):
+        for dtype in (torch.float64, torch.float32):
+            qp_args = ik_qps(n, B, dtype, seed=n)
+            for barrier in ("complementarity", "mpc"):
+                args = qp_args + (6, 0.1, barrier, True)
+                before = fq.FUSED_QP_LAUNCHES
+                got = fq._fused_qp_cuda(*args)
+                torch.cuda.synchronize()
+                if fq.FUSED_QP_LAUNCHES != before + 1:
+                    fail(f"n={n}: the fused QP wrapper did not count its launch")
+                want = fq._fused_qp_plain(*args)
+                check_bits(f"phase11 fused QP n={n} (M={len(qp_args[-1])}) {barrier} B={B}",
+                           got, want, max_err)
+
+
+def profile_call(fn):
+    """One call of fn under torch.profiler: (wall ms of the profiled call,
+    device-busy ms as the union of the intervals of the device's kernels and
+    copies, their number, {name: (count, summed ms)}); busy ms is None when
+    the profiler recorded no device activity. The solver's phase labels
+    (utils/tracing.py) also appear on the device timeline, as user
+    annotations spanning whole phases; they are not device work and are
+    left out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, per_kernel = [], {}
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or getattr(e, "is_user_annotation", False):
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        count, ms = per_kernel.get(e.name, (0, 0.0))
+        per_kernel[e.name] = (count + 1, ms + (end - start) / 1e3)
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        busy_us += cur_end - cur_start
+    return wall_ms, (busy_us / 1e3 if spans else None), len(spans), per_kernel
+
+
+def general_paths(card, kind):
+    """Phases 10-12; returns the kernel rows of kernels 4, 5 and 6."""
+    err4 = {"float64": 0.0, "float32": 0.0}
+    err5 = {"float64": 0.0, "float32": 0.0}
+    err6 = {"float64": 0.0, "float32": 0.0}
+    ldlt_vs_plain({"factor": err4, "solve": err5})
+    fused_qp_vs_plain(err6)
+
+    # Phase 12: the general main path at full width, both routes.
+    B = GENERAL_B
+    targets, x0 = planar_instances(B, 2, seed=0)
+    t32, x32 = targets.astype(np.float32), x0.astype(np.float32)
+    expected = {"pallas_ldlt": dict(ldlt_factor=70, ldlt_solve=70, fused_qp=0),
+                "pallas_fused": dict(ldlt_factor=0, ldlt_solve=0, fused_qp=10)}
+    seen, launched, timing = {}, {}, {}
+    for route in GENERAL_ROUTES:
+        params = general_params(route)
+        mot.solve_ik_batch(t32[:64], x32[:64], params=params)  # warm-up, uncounted
+        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            for module, name in ((ldlt, "_ldlt_factor_cuda"), (ldlt, "_ldlt_solve_cuda"),
+                                 (fq, "_fused_qp_cuda")):
+                stack.enter_context(recording(module, name, seen))
+            reset_counts()
+            res = mot.solve_ik_batch(t32, x32, params=params)
+            torch.cuda.synchronize()
+            got = counts()
+        launched[route] = got
+        want = dict(fused_ik=0, blocked=0, blocked_kkt=0, **expected[route])
+        if got != want:
+            fail(f"phase12 {route}: launches {got}, the formula gives {want}")
+        if res.x.shape != (B, 2) or not res.x.is_cuda or not torch.isfinite(res.x).all():
+            fail(f"phase12 {route}: unexpected solutions {tuple(res.x.shape)} {res.x.device}")
+        err = effector_error("planar", res.x.cpu().numpy(), targets)
+        parity = float((err < 1e-3).mean())
+        satisfied = mot.termination_state_indicates_satisfied_tol(res.termination_state).double().mean().item()
+        with plain_kernels():
+            ref = mot.solve_ik_batch(t32, x32, params=params)
+            torch.cuda.synchronize()
+        same = bit_identical((res.x, ref.x), (res.termination_state, ref.termination_state),
+                             (res.errors.f, ref.errors.f), (res.errors.equality, ref.errors.equality))
+        print(f"# phase12 {route} solve_ik_batch planar n=2 B={B} float32 10/6/2 complementarity "
+              f"armijo: launches {got} for 1 call (formula {expected[route]}); parity {parity:.6f} "
+              f"(effector error p50 {np.median(err):.3e}, max {err.max():.3e}), satisfied "
+              f"{satisfied:.6f}; against the plain kernels on the card: bit-identical {same}, "
+              f"max|dx| {max_abs_diff(res.x, ref.x):.3e}", flush=True)
+        if not same:
+            fail(f"phase12 {route}: the kernel route disagrees with the plain route")
+        if not parity >= 0.99:
+            fail(f"phase12 {route}: parity {parity} is below 0.99")
+
+        entry = lambda: mot.solve_ik_batch(t32, x32, params=params)  # noqa: E731
+        e2e_ms, e2e_all = time_ms(entry, repeats=3, launches=1, warmup=1)
+        with plain_kernels():
+            plain_e2e_ms, _ = event_ms(entry)
+        prof_wall, busy_ms, n_kernels, per_kernel = profile_call(entry)
+        ours = {k: v for k, v in per_kernel.items() if re.search(r"ldlt_(factor|solve)_kernel|fused_qp_kernel", k)}
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+        timing[route] = dict(e2e_ms=e2e_ms, busy_ms=busy_ms, parity=parity)
+        dev_txt = "not measured (the profiler recorded no device activity)" if busy_ms is None else (
+            f"device busy {busy_ms:.3f} ms in {n_kernels} kernels, idle share {1 - busy_ms / e2e_ms:.4f} "
+            f"of the unprofiled call ({e2e_ms:.3f} ms; the profiled call's own wall is {prof_wall:.3f} ms, "
+            f"idle share {1 - busy_ms / prof_wall:.4f} of it); this slice's kernels "
+            f"{ {k[:48]: (c, round(ms, 5)) for k, (c, ms) in ours.items()} }; the largest "
+            f"{ [(k[:48], c, round(ms, 3)) for k, (c, ms) in top] }")
+        print(f"# phase12 {route} on {kind} ({card}): entry point {e2e_ms:.3f} ms/call "
+              f"({B / e2e_ms * 1e3:.4e} solves/s), repeats {e2e_all}; with the plain "
+              f"kernels {plain_e2e_ms:.3f} ms; profiled call: {dev_txt}", flush=True)
+
+    rows = []
+    # Each kernel alone, on the inputs the main path last gave it.
+    Ht = seen["_ldlt_factor_cuda"][0]
+    Lt, dt, rt = seen["_ldlt_solve_cuda"]
+    qp_args = seen["_fused_qp_cuda"]
+    D, = Ht.shape[:1]
+    N, K, M = qp_args[1].shape[0], qp_args[3].shape[0], len(qp_args[6])
+    f32 = 4
+    H_b = Ht.permute(2, 0, 1).contiguous()
+    rhs_b = rt.T.contiguous()
+
+    # The library yardsticks, timed once each after a warm-up on 8 systems
+    # (the port never calls them).
+    torch.linalg.ldl_factor_ex(H_b[:8])
+    lib_factor_ms, (LD, piv, _) = event_ms(lambda: torch.linalg.ldl_factor_ex(H_b))
+    torch.linalg.ldl_solve(LD[:8], piv[:8], rhs_b[:8, :, None])
+    lib_solve_ms, _ = event_ms(lambda: torch.linalg.ldl_solve(LD, piv, rhs_b[..., None]))
+
+    kernels = [
+        ("ldlt_factor", "mini_opt_tpu/ops/pallas_ldlt.py:47", "_ldlt_kernel (launched :115)",
+         lambda: ldlt._ldlt_factor_cuda(Ht), lambda: ldlt._ldlt_factor_plain(Ht),
+         # reads the lower triangle, writes L and d
+         B * (D * (D + 1) // 2 + D * D + D) * f32, lib_factor_ms, "pallas_ldlt", "ldlt_factor", err4,
+         f"B={B} D={D} float32",
+         # what a consumer reads of the output: L's strict lower triangle and d
+         B * (D * (D + 1) // 2 + D * (D - 1) // 2 + D) * f32),
+        ("ldlt_solve", "mini_opt_tpu/ops/pallas_ldlt.py:70", "_solve_kernel (launched :155)",
+         lambda: ldlt._ldlt_solve_cuda(Lt, dt, rt), lambda: ldlt._ldlt_solve_plain(Lt, dt, rt),
+         # reads L's strict lower triangle, d and the rhs, writes x
+         B * (D * (D - 1) // 2 + 3 * D) * f32, lib_solve_ms, "pallas_ldlt", "ldlt_solve", err5,
+         f"B={B} D={D} float32", None),
+        ("fused_qp", "mini_opt_tpu/ops/pallas_qp.py:36", "_make_qp_kernel (launched :262)",
+         lambda: fq._fused_qp_cuda(*qp_args), lambda: fq._fused_qp_plain(*qp_args),
+         # reads G's lower triangle, c, A, b, ia, ib; writes x, y
+         B * (N * (N + 1) // 2 + N + K * N + K + 2 * M + N + K) * f32, None, "pallas_fused",
+         "fused_qp", err6, f"B={B} N={N} K={K} M={M} float32 6 iterations complementarity", None),
+    ]
+    for (name, replaces, function, kern, plain, nbytes, lib_ms, route, count_key, err, shape,
+         needed_bytes) in kernels:
+        k_ms, k_all = time_ms(kern, held=True)
+        k_unheld_ms, _ = time_ms(kern)
+        plain_ms, _ = event_ms(plain)
+        ops = count_ops(plain)
+        bound_ms, bound_by = roofline(ops, nbytes)
+        print(f"# phase12 kernel {name} {shape} on {kind} ({card}): alone on the card {k_ms:.5f} ms "
+              f"(held; unheld {k_unheld_ms:.5f}), {launched[route][count_key]} "
+              f"launches per call; plain {plain_ms:.3f} ms; {ops / B:.0f} elementwise ops per instance, "
+              f"{nbytes / B:.0f} bytes -> bound {bound_ms:.6f} ms ({bound_by}), kernel = "
+              f"{k_ms / bound_ms:.1f}x bound; library "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; repeats {k_all}", flush=True)
+        if needed_bytes is not None:
+            tight_ms, tight_by = roofline(ops, needed_bytes)
+            print(f"# phase12 kernel {name}: counting only the output a consumer reads, "
+                  f"{needed_bytes / B:.0f} bytes -> bound {tight_ms:.6f} ms ({tight_by}), kernel = "
+                  f"{k_ms / tight_ms:.1f}x that bound", flush=True)
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mini_opt_tpu_torch/csrc/" + ("fused_qp.cu" if name == "fused_qp" else "ldlt.cu"),
+            "replaces": replaces,
+            "function": function,
+            "launches": launched[route][count_key],
+            "max_abs_err": max(err.values()),
+            "max_abs_diff_f64": err["float64"],
+            "ms": k_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": lib_ms,
+            "shape": shape,
+            "ops_per_instance": ops / B,
+            "entry_ms": timing[route]["e2e_ms"],
+            "entry_device_busy_ms": timing[route]["busy_ms"],
+            "parity": timing[route]["parity"],
+            "card": card,
+        })
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -509,6 +856,13 @@ def main():
             if "blocked" in name:
                 print(f"# ptxas {name}: {nreg} registers, {spill} bytes spill stores, "
                       f"{smem} bytes static smem", flush=True)
+        # Phase 9: the general path's kernels, from the same build.
+        for name, nreg, spill, _ in ptxas_report(text):
+            m = re.search(r"(ldlt_factor|ldlt_solve|fused_qp)_kernelI([fd])(?:Li(\d+)ELi(\d+)E)?", name)
+            if m:
+                kernel, t, n, k = m.groups()
+                label = f"{kernel}<{'float' if t == 'f' else 'double'}" + (f", N={n}, K={k}>" if n else ">")
+                print(f"# phase9 ptxas {label}: {nreg} registers, {spill} bytes spill stores", flush=True)
 
     # Phase 3: kernel vs plain version on the card.
     B3 = 8192 + 13
@@ -612,6 +966,7 @@ def main():
           f"kernel {rows[B]['kernel_ms']:.4f} ms = {bound_ms / rows[B]['kernel_ms']:.3f} of bound", flush=True)
 
     blocked_rows = blocked_paths(card, kind)
+    general_rows = general_paths(card, kind)
 
     print(json.dumps({"kernels": [{
         "name": "fused_ik_sqp",
@@ -630,7 +985,7 @@ def main():
         "shape": f"B={B} n=2 float32 4/2/1 mpc armijo",
         "ops_per_instance": ops_per_instance,
         "card": card,
-    }] + blocked_rows}), flush=True)
+    }] + blocked_rows + general_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1,5 +1,6 @@
-"""What crosses between the JAX package and the port: instance data and warm
-starts. This system has no weights.
+"""What crosses between the JAX package and the port: instance data, warm
+starts, and the general path's problem description (a chain's link poses and
+masks, the solver's ``NLSParams``). This system has no weights.
 
 The JAX entry points take batch-major ``(B, rows)`` / ``(B, n)`` arrays and
 pack them feature-major inside ``_fused_solve`` (pallas_ik.py:898-901, with
@@ -7,10 +8,12 @@ pack them feature-major inside ``_fused_solve`` (pallas_ik.py:898-901, with
 layout and uses the feature-major ``(vars, B)`` layout, without padding, for
 its kernel: thread ``i`` reads column ``i``.
 
-Solver settings need no conversion: the port's keyword budgets
+The fused paths' settings need no conversion: their keyword budgets
 (``max_iterations``, ``qp_iterations``, ``ls_iterations``, ``line_search``,
 ``barrier``) keep the JAX names and defaults, so one kwargs dict drives both
-packages.
+packages. The general path's ``NLSParams`` crosses as a dict
+(``params_from_dict(dataclasses.asdict(jax_params))``), and an
+``ActuatorChain`` as numpy arrays (``chain_from_numpy``).
 """
 
 from __future__ import annotations
@@ -80,3 +83,40 @@ def to_feature_major(data, x0, device=None):
             f"data and x0 must share float32 or float64; got {data_t.dtype} and {x0_t.dtype}"
         )
     return data_t, x0_t
+
+
+def chain_from_numpy(rotations, translations, masks, rotation_xyz=None, dtype=torch.float64, device=None):
+    """The port's ``ActuatorChain`` from a chain's link poses and masks as
+    numpy arrays: ``rotations (L, 4)`` wxyz quaternions, ``translations
+    (L, 3)``, ``masks (L, 6)`` (0/1 per optimized parameter) and, when given,
+    the links' XYZ euler decompositions ``rotation_xyz (L, 3)`` (else they
+    are recomputed from the quaternions). Numpy inputs go to ``device``
+    ("cuda" unless the caller names one)."""
+    from .models.chains import ActuatorChain, ActuatorLink, Pose
+
+    device = _resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    links = []
+    for i in range(len(masks)):
+        pose = Pose(t(rotations[i]), t(translations[i]))
+        xyz = None if rotation_xyz is None else t(rotation_xyz[i])
+        links.append(ActuatorLink.create(pose, tuple(int(m) for m in masks[i]), xyz))
+    return ActuatorChain(links=tuple(links))
+
+
+def params_from_dict(fields):
+    """The port's ``NLSParams`` from ``dataclasses.asdict`` of the JAX
+    package's: enum members cross by their integer values, which both
+    packages share."""
+    from .nonlinear import NLSParams
+    from .structs import BarrierStrategy, InitialGuessMethod, LineSearchStrategy
+
+    kw = dict(fields)
+    kw["line_search_strategy"] = LineSearchStrategy(int(kw["line_search_strategy"]))
+    kw["qp_barrier_strategy"] = BarrierStrategy(int(kw["qp_barrier_strategy"]))
+    if kw.get("qp_initial_guess_method") is not None:
+        kw["qp_initial_guess_method"] = InitialGuessMethod(int(kw["qp_initial_guess_method"]))
+    return NLSParams(**kw)

@@ -141,6 +141,31 @@ def load_library():
                 p,  # cudaStream_t
             ]
             lib.mo_blocked_kkt_launch.restype = i
+            lib.mo_ldlt_factor_launch.argtypes = [
+                i, i,  # dtype, D
+                p, p, p,  # H, L, d
+                i,  # B
+                p,  # cudaStream_t
+            ]
+            lib.mo_ldlt_factor_launch.restype = i
+            lib.mo_ldlt_solve_launch.argtypes = [
+                i, i,  # dtype, D
+                p, p, p, p,  # L, d, rhs, x
+                i,  # B
+                p,  # cudaStream_t
+            ]
+            lib.mo_ldlt_solve_launch.restype = i
+            lib.mo_fused_qp_launch.argtypes = [
+                i, i, i, i,  # dtype, N, K, M
+                ctypes.POINTER(i),  # the M box rows' variables
+                p, p, p, p, p, p,  # G, c, A_eq, b_eq, ia, ib
+                p, p,  # x, y
+                i, i,  # B, iterations
+                ctypes.c_double,  # sigma
+                i, i,  # Mehrotra barrier, equality-constrained initial guess
+                p,  # cudaStream_t
+            ]
+            lib.mo_fused_qp_launch.restype = i
             lib.mo_cuda_error_string.argtypes = [i]
             lib.mo_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -591,11 +591,12 @@ def _blocked_kkt_solve_cuda(H, rhs):
 def blocked_kkt_solve(H, rhs, lanes: int = 128, device=None):
     """Solve B dense quasi-definite systems ``H x = rhs`` by an unpivoted
     batched LDL^T: ``H (B, D, D)`` (lower triangle read), ``rhs (B, D)`` ->
-    ``(B, D)``. ``lanes`` is the JAX package's TPU tile width, checked and
-    otherwise unused. Tensors run where they lie; numpy inputs go to
-    ``device`` ("cuda" unless the caller passes "cpu")."""
-    if lanes <= 0 or lanes % 128:
-        raise ValueError(f"lanes must be a positive multiple of 128, not {lanes}")
+    ``(B, D)``. ``lanes`` is the JAX package's TPU tile width; like JAX's
+    ``blocked_kkt_solve`` (pallas_blocked.py:750-767), which pads the batch
+    to it and checks nothing, the port takes any value, and it changes no
+    result. Tensors run where they lie; numpy inputs go to ``device``
+    ("cuda" unless the caller passes "cpu")."""
+    del lanes
     if not torch.is_tensor(H) or not torch.is_tensor(rhs):
         if torch.is_tensor(H) or torch.is_tensor(rhs):
             raise TypeError("pass H and rhs both as tensors or both as arrays")

@@ -1,0 +1,269 @@
+"""The whole fixed-trip QP interior point as one kernel, the PyTorch port of
+``mini_opt_tpu/ops/pallas_qp.py``.
+
+``csrc/fused_qp.cu`` replaces the TPU kernel ``pallas_qp.py::_make_qp_kernel``
+(launched at :262 by ``_fused_qp_batch``): for B independent QPs of N
+variables, K equality rows and M <= 2N diagonal box rows it runs the
+equality-constrained initial guess, the condensed-KKT assembly, the fully
+unrolled LDL^T (the helpers of ``csrc/fused_sqp.cuh``),
+fraction-to-boundary and the complementarity or Mehrotra schedule for a
+fixed number of iterations, one instance per thread. N and K are compile-time
+sizes of the kernel (N = 2..8, K in {0, 1}); the box rows' variables, their
+count and the schedule are run-time values. Other sizes raise on CUDA
+tensors.
+
+Beside it sits ``_fused_qp_plain``, the same computation as plain PyTorch on
+lists of ``(B,)`` tensors, a line-by-line counterpart of ``_make_qp_kernel``.
+CPU tensors run it; CUDA tensors launch the kernel or raise. The kernel
+builds without FMA contraction, so on the card both agree bit for bit.
+
+Semantics are ``qp.py::qp_ip_solve`` with ``early_exit=False``: every
+iteration runs, and no tolerance ends the loop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from ._common import _CUDA_DTYPE_IDS, _check_cuda_tensors, _div, _maximum, _minimum
+from .fused_ik import _ldlt_apply, _ldlt_factor_unrolled
+
+# Launches of the CUDA kernel in this process: the wrapper adds one right
+# where it launches, and nowhere else.
+FUSED_QP_LAUNCHES = 0
+
+# The kernel's instances (csrc/fused_qp.cu).
+CUDA_MIN_N, CUDA_MAX_N = 2, 8
+CUDA_K = (0, 1)
+
+
+def _fused_qp_plain(Gt, ct, At, bt, iat, ibt, ineq_var, iterations, sigma, barrier, has_eq_guess):
+    """The kernel's computation on feature-major tensors: ``Gt (N, N, B)``
+    (lower triangle read), ``ct (N, B)``, ``At (K, N, B)``, ``bt (K, B)``,
+    ``iat`` / ``ibt (M, B)`` -> ``x (N, B)``, ``y (K, B)``. Operations in
+    ``pallas_qp.py::_make_qp_kernel``'s order."""
+    N, K, M = ct.shape[0], bt.shape[0], len(ineq_var)
+    D = N + K
+    G = [[Gt[i, j] for j in range(N)] for i in range(N)]
+    c = [ct[i] for i in range(N)]
+    A = [[At[k, j] for j in range(N)] for k in range(K)]
+    b = [bt[k] for k in range(K)]
+    ia = [iat[m] for m in range(M)]
+    ib = [ibt[m] for m in range(M)]
+    one = torch.ones_like(c[0])
+    zero = torch.zeros_like(c[0])
+
+    def gsym(i, j):
+        return G[i][j] if i >= j else G[j][i]
+
+    def assemble(sig):
+        """Condensed (N+K)x(N+K) lower triangle; sig[m] = a_m^2 z/s."""
+        H = [[zero] * D for _ in range(D)]
+        for i in range(N):
+            for j in range(i + 1):
+                H[i][j] = G[i][j]
+        for m in range(M):
+            v = ineq_var[m]
+            H[v][v] = H[v][v] + sig[m]
+        for k in range(K):
+            for j in range(N):
+                H[N + k][j] = A[k][j]
+        return H
+
+    # Initial guess (qp.cc:439-482).
+    if has_eq_guess:
+        sol = _ldlt_apply(
+            *_ldlt_factor_unrolled(assemble([zero] * M)),
+            [-c[i] for i in range(N)] + [-b[k] for k in range(K)],
+        )
+        x = sol[:N]
+        y = [-sol[N + k] for k in range(K)]
+    else:
+        x = [zero] * N
+        y = [zero] * K
+    # Clamp into the feasible half-lines, then s = max(1e-9, ax+b), z = 1/s.
+    for m in range(M):
+        v = ineq_var[m]
+        t = ia[m] * x[v] + ib[m]
+        x[v] = x[v] + torch.where(t < 0.0, -t / ia[m], zero)
+    s = [_maximum(ia[m] * x[ineq_var[m]] + ib[m], 1e-9) for m in range(M)]
+    z = [1.0 / v for v in s]
+
+    mu = one
+    tau = 0.995
+    for _ in range(iterations):
+        # KKT residuals (qp.cc:391-420).
+        r_d = []
+        for i in range(N):
+            acc = c[i]
+            for j in range(N):
+                acc = acc + gsym(i, j) * x[j]
+            for k in range(K):
+                acc = acc - A[k][i] * y[k]
+            r_d.append(acc)
+        for m in range(M):
+            r_d[ineq_var[m]] = r_d[ineq_var[m]] - ia[m] * z[m]
+        r_pe = []
+        for k in range(K):
+            acc = b[k]
+            for j in range(N):
+                acc = acc + A[k][j] * x[j]
+            r_pe.append(acc)
+        r_pi = [ia[m] * x[ineq_var[m]] + ib[m] - s[m] for m in range(M)]
+        r_c = [s[m] * z[m] for m in range(M)]
+        zs = [z[m] / s[m] for m in range(M)]
+
+        Lf, df = _ldlt_factor_unrolled(assemble([ia[m] * ia[m] * zs[m] for m in range(M)]))
+
+        def solve_step(mu_v, corr):
+            """Elimination, condensed solve, back-substitution
+            (qp.cc:318-364)."""
+            r_aug = list(r_d)
+            for m in range(M):
+                v = ineq_var[m]
+                r_aug[v] = r_aug[v] + ia[m] * (zs[m] * r_pi[m] + (r_c[m] + corr[m] - mu_v) / s[m])
+            sol = _ldlt_apply(Lf, df, [-v_ for v_ in r_aug] + [-r for r in r_pe])
+            dx_v = sol[:N]
+            dy_v = [-sol[N + k] for k in range(K)]
+            ds_v = [ia[m] * dx_v[ineq_var[m]] + r_pi[m] for m in range(M)]
+            dz_v = [-zs[m] * ds_v[m] - (r_c[m] + corr[m] - mu_v) / s[m] for m in range(M)]
+            return dx_v, dy_v, ds_v, dz_v
+
+        def ftb(vs, dvs, tau_v):
+            alpha = one
+            for v_, dv in zip(vs, dvs):
+                blocking = (v_ + dv <= 0.0) & (torch.abs(dv) > 0.0)
+                cand = -tau_v * v_ / torch.where(blocking, dv, one)
+                alpha = _minimum(alpha, torch.where(blocking, cand, one))
+            return alpha
+
+        zeros_c = [zero] * M
+        if M == 0:
+            dx, dy, ds, dz = solve_step(zero, zeros_c)
+        elif barrier == "mpc":
+            dxa, dya, dsa, dza = solve_step(zero, zeros_c)
+            ap_a = ftb(s, dsa, 1.0)
+            ad_a = ftb(z, dza, 1.0)
+            mu_aff = zero
+            for m in range(M):
+                mu_aff = mu_aff + (s[m] + ap_a * dsa[m]) * (z[m] + ad_a * dza[m])
+            mu_aff = _maximum(_div(mu_aff, M), 0.0)
+            ratio = mu_aff / mu
+            mu_used = ratio * (ratio * ratio) * mu  # (mu_aff / mu) ** 3 * mu
+            dx, dy, ds, dz = solve_step(mu_used, [dsa[m] * dza[m] for m in range(M)])
+        else:
+            dx, dy, ds, dz = solve_step(mu, zeros_c)
+
+        if M > 0:
+            ap = ftb(s, ds, tau)
+            ad = ftb(z, dz, tau)
+        else:
+            ap = ad = one
+        x = [x[i] + ap * dx[i] for i in range(N)]
+        s = [s[m] + ap * ds[m] for m in range(M)]
+        y = [y[k] + ad * dy[k] for k in range(K)]
+        z = [z[m] + ad * dz[m] for m in range(M)]
+        if M > 0:
+            comp = zero
+            for m in range(M):
+                comp = comp + s[m] * z[m]
+            mu = sigma * _div(comp, M)
+
+    kw = dict(dtype=ct.dtype, device=ct.device)
+    x_out = torch.stack(x) if N else torch.zeros((0, ct.shape[1]), **kw)
+    y_out = torch.stack(y) if K else torch.zeros((0, ct.shape[1]), **kw)
+    return x_out, y_out
+
+
+def _check_cuda_shape(N, K, M):
+    if not CUDA_MIN_N <= N <= CUDA_MAX_N or K not in CUDA_K:
+        raise NotImplementedError(
+            f"csrc/fused_qp.cu instantiates N = {CUDA_MIN_N}..{CUDA_MAX_N} and K in "
+            f"{CUDA_K}; got N = {N}, K = {K}"
+        )
+    if M > 2 * N:
+        raise NotImplementedError(f"csrc/fused_qp.cu takes at most 2N = {2 * N} box rows; got {M}")
+
+
+def _fused_qp_cuda(Gt, ct, At, bt, iat, ibt, ineq_var, iterations, sigma, barrier, has_eq_guess):
+    """Launch ``csrc/fused_qp.cu`` on feature-major CUDA tensors; same
+    contract as ``_fused_qp_plain``. Raises on anything the kernel does not
+    take and on a refused launch."""
+    global FUSED_QP_LAUNCHES
+    N, B = ct.shape
+    K, M = bt.shape[0], len(ineq_var)
+    _check_cuda_shape(N, K, M)
+    if any(not 0 <= v < N for v in ineq_var):
+        raise ValueError(f"ineq_var {ineq_var} out of range for N = {N}")
+    _check_cuda_tensors(
+        (
+            ("G", Gt, (N, N, B)), ("c", ct, (N, B)), ("A_eq", At, (K, N, B)),
+            ("b_eq", bt, (K, B)), ("ia", iat, (M, B)), ("ib", ibt, (M, B)),
+        ),
+        ct.dtype, ct.device, B,
+    )
+    x = torch.empty((N, B), dtype=ct.dtype, device=ct.device)
+    y = torch.empty((K, B), dtype=ct.dtype, device=ct.device)
+    if B == 0:
+        return x, y
+    var = (ctypes.c_int * max(M, 1))(*ineq_var)
+    lib = _build.load_library()
+    with torch.cuda.device(ct.device):
+        rc = lib.mo_fused_qp_launch(
+            _CUDA_DTYPE_IDS[ct.dtype], N, K, M, var,
+            Gt.data_ptr(), ct.data_ptr(), At.data_ptr(), bt.data_ptr(),
+            iat.data_ptr(), ibt.data_ptr(), x.data_ptr(), y.data_ptr(), B,
+            iterations, ctypes.c_double(sigma), int(barrier == "mpc"), int(bool(has_eq_guess)),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fused QP kernel launch failed: {_build.error_string(rc)}")
+    FUSED_QP_LAUNCHES += 1
+    return x, y
+
+
+def _fused_qp_batch(G, c, A_eq, b_eq, ia, ib, *, ineq_var, iterations, sigma, barrier, has_eq_guess):
+    """Batch-first: G (B, N, N), c (B, N), A_eq (B, K, N), b_eq (B, K),
+    ia / ib (B, M) -> x (B, N), y (B, K)."""
+    if barrier not in ("complementarity", "mpc"):
+        raise ValueError(f"barrier must be 'complementarity' or 'mpc', not {barrier!r}")
+    if iterations < 0:
+        raise ValueError("iterations must be >= 0")
+    ineq_var = tuple(int(v) for v in ineq_var)
+    if ia.shape[-1] != len(ineq_var) or ib.shape[-1] != len(ineq_var):
+        raise ValueError(f"ia and ib need {len(ineq_var)} columns, one per ineq_var entry")
+    args = (
+        G.permute(1, 2, 0).contiguous(), c.T.contiguous(), A_eq.permute(1, 2, 0).contiguous(),
+        b_eq.T.contiguous(), ia.T.contiguous(), ib.T.contiguous(),
+        ineq_var, iterations, sigma, barrier, has_eq_guess,
+    )
+    if c.is_cuda:
+        x, y = _fused_qp_cuda(*args)
+    elif c.device.type == "cpu":
+        x, y = _fused_qp_plain(*args)
+    else:
+        raise NotImplementedError(f"no fused QP for device {c.device}")
+    return x.T, y.T
+
+
+def make_fused_qp_solver(
+    ineq_var: tuple,
+    iterations: int,
+    sigma: float = 0.1,
+    barrier: str = "complementarity",
+    has_eq_guess: bool = True,
+):
+    """``solve(G, c, A_eq, b_eq, ia, ib) -> (x, y)`` for batch-first QPs with
+    the static box-row variables ``ineq_var``: one kernel launch solves the
+    whole batch (the JAX package's vmapped call)."""
+
+    def solve(G, c, A_eq, b_eq, ia, ib):
+        return _fused_qp_batch(
+            G, c, A_eq, b_eq, ia, ib, ineq_var=ineq_var, iterations=iterations,
+            sigma=sigma, barrier=barrier, has_eq_guess=has_eq_guess,
+        )
+
+    return solve

@@ -1,14 +1,21 @@
-"""Status enums of the solver, the PyTorch port's copy of
-``mini_opt_tpu/structs.py``'s enum block.
+"""Status enums and result containers of the solver, the PyTorch port of
+``mini_opt_tpu/structs.py``.
 
-Names and integer values are identical to the JAX package's, so an int32
-status produced by either package compares directly with the other's. The
-result and history containers of the general path are not ported yet.
+Enum names and integer values are identical to the JAX package's, so an
+int32 status produced by either package compares directly with the other's.
+The containers are dataclasses of batched tensors: every leaf carries the
+leading batch dimension B that JAX's ``vmap`` gives the same leaf, so
+``result.iterations.line_search.alpha`` is ``(B, iterations, probes)`` in
+both packages. ``QPEigenvalues`` is not ported yet (``log_qp_eigenvalues``
+raises), so ``NLSIterationHistory`` has no ``qp_eigenvalues`` field.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
+
+import torch
 
 
 class BarrierStrategy(enum.IntEnum):
@@ -93,3 +100,277 @@ class NLSTerminationState(enum.IntEnum):
     MAX_LAMBDA = 4
     QP_INDEFINITE = 5
     USER_CALLBACK = 6
+
+
+def termination_state_indicates_satisfied_tol(state):
+    """TerminationStateIndicatesSatisfiedTol (structs.hpp:250-261), per
+    lane."""
+    return (
+        (state == NLSTerminationState.SATISFIED_ABSOLUTE_TOL)
+        | (state == NLSTerminationState.SATISFIED_RELATIVE_TOL)
+        | (state == NLSTerminationState.SATISFIED_FIRST_ORDER_TOL)
+    )
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leaf by leaf to tensors held in dataclasses and tuples
+    (named or plain) of the same structure; None stays None."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(
+            **{
+                f.name: tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest))
+                for f in dataclasses.fields(tree)
+            }
+        )
+    if isinstance(tree, tuple):
+        items = [tree_map(fn, *leaves) for leaves in zip(tree, *rest)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    raise TypeError(f"tree_map: unsupported node {type(tree).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# Small value containers; every field is a (B,) tensor unless noted.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class KKTError:
+    """L2 norms of the four first-order KKT residuals (structs.hpp:68-78)."""
+
+    r_dual: torch.Tensor
+    r_comp: torch.Tensor
+    r_primal_eq: torch.Tensor
+    r_primal_ineq: torch.Tensor
+
+    def max(self):
+        return torch.maximum(
+            torch.maximum(self.r_dual, self.r_comp),
+            torch.maximum(self.r_primal_eq, self.r_primal_ineq),
+        )
+
+
+@dataclasses.dataclass
+class Errors:
+    """Nonlinear cost components (structs.hpp:169-186): ``f`` is the sum of
+    squared residual costs, ``equality`` the L1 norm of equality-constraint
+    violations."""
+
+    f: torch.Tensor
+    equality: torch.Tensor
+
+    def total(self, penalty):
+        return self.f + penalty * self.equality
+
+    def l_infinity(self):
+        return torch.maximum(self.f, self.equality)
+
+    def contains_invalid_values(self):
+        return ~(torch.isfinite(self.f) & torch.isfinite(self.equality))
+
+
+@dataclasses.dataclass
+class DirectionalDerivatives:
+    """Directional derivatives of ``Errors`` along the QP step
+    (structs.hpp:189-203)."""
+
+    d_f: torch.Tensor
+    d_equality: torch.Tensor
+
+    def total(self, penalty):
+        return self.d_f + penalty * self.d_equality
+
+    def l_infinity(self):
+        return torch.maximum(torch.abs(self.d_f), torch.abs(self.d_equality))
+
+
+@dataclasses.dataclass
+class AlphaValues:
+    """Fraction-to-boundary step sizes (structs.hpp:45-50)."""
+
+    primal: torch.Tensor
+    dual: torch.Tensor
+
+
+@dataclasses.dataclass
+class QPLagrangeMultipliers:
+    """Summary of equality-constraint multipliers (structs.hpp:108-113)."""
+
+    min: torch.Tensor
+    l_infinity: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Stacked iteration histories: row i of the axis after B is iteration i.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class QPIterationHistory:
+    """Stacked analog of vector<QPInteriorPointIteration>
+    (structs.hpp:81-94). Leaves are ``(B, max_iterations)`` (with more
+    leading axes when nested in an NLS history); rows at index >=
+    ``num_iterations`` keep their initial values."""
+
+    kkt_initial: KKTError
+    kkt_final: KKTError
+    mu: torch.Tensor
+    alpha: AlphaValues
+    alpha_probe: AlphaValues
+    mu_affine: torch.Tensor
+
+    @staticmethod
+    def empty(shape, dtype=torch.float64, device=None) -> "QPIterationHistory":
+        """Zeros of ``shape`` (alpha: ones), the JAX package's initial
+        buffers: alpha_probe and mu_affine are 0 when the predictor-corrector
+        is unused."""
+        def v():
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return QPIterationHistory(
+            kkt_initial=KKTError(v(), v(), v(), v()),
+            kkt_final=KKTError(v(), v(), v(), v()),
+            mu=v(),
+            alpha=AlphaValues(torch.ones_like(v()), torch.ones_like(v())),
+            alpha_probe=AlphaValues(v(), v()),
+            mu_affine=v(),
+        )
+
+
+@dataclasses.dataclass
+class QPIPResult:
+    """Result of the interior-point QP solve; analog of
+    QPInteriorPointSolverOutputs (structs.hpp:116-134) plus the final
+    iterate. x (B, N), s and z (B, M), y (B, K)."""
+
+    termination_state: torch.Tensor  # int32, QPTerminationState
+    num_iterations: torch.Tensor  # int32
+    x: torch.Tensor
+    s: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    iterations: QPIterationHistory
+    lagrange_multipliers: QPLagrangeMultipliers  # zeros when K == 0
+
+
+@dataclasses.dataclass
+class QPNullSpaceResult:
+    """Result of the null-space equality-constrained QP solve."""
+
+    termination_state: torch.Tensor  # int32, QPNullSpaceTerminationState
+    x: torch.Tensor  # (B, N)
+    rank: torch.Tensor  # int32 numerical rank of A_eq
+
+
+@dataclasses.dataclass
+class LineSearchHistory:
+    """Stacked analog of vector<LineSearchStep> (structs.hpp:206-212):
+    alpha, f and equality ``(B, max_steps)``, num_steps ``(B,)``."""
+
+    alpha: torch.Tensor
+    f: torch.Tensor
+    equality: torch.Tensor
+    num_steps: torch.Tensor  # int32
+
+    @staticmethod
+    def empty(batch, max_steps, dtype=torch.float64, device=None) -> "LineSearchHistory":
+        def z():
+            return torch.zeros((batch, max_steps), dtype=dtype, device=device)
+
+        return LineSearchHistory(
+            z(), z(), z(), torch.zeros((batch,), dtype=torch.int32, device=device)
+        )
+
+
+@dataclasses.dataclass
+class NLSIterationHistory:
+    """Stacked analog of vector<NLSIteration> (structs.hpp:277-326). Leaves
+    are ``(B, max_iterations)``; line-search leaves ``(B, max_iterations,
+    max_steps)``; the nested QP telemetry ``(B, max_iterations,
+    max_qp_iterations)``, with a zero-size last axis when not recorded
+    (null-space path, fused QP, history off)."""
+
+    optimizer_state: torch.Tensor  # int32
+    lam: torch.Tensor  # lambda at iteration start
+    errors_initial: Errors
+    directional_derivatives: DirectionalDerivatives
+    penalty: torch.Tensor
+    step_result: torch.Tensor  # int32 StepSizeSelectionResult
+    qp_termination_state: torch.Tensor  # int32 (IP or null-space enum)
+    qp_num_iterations: torch.Tensor  # int32
+    qp_kkt_final_max: torch.Tensor
+    line_search: LineSearchHistory
+    qp_iterations: QPIterationHistory
+
+    @staticmethod
+    def empty(
+        batch,
+        max_iterations,
+        max_line_search_steps,
+        dtype=torch.float64,
+        device=None,
+        max_qp_iterations=0,
+    ) -> "NLSIterationHistory":
+        kw = dict(dtype=dtype, device=device)
+
+        def v():
+            return torch.zeros((batch, max_iterations), **kw)
+
+        def i():
+            return torch.zeros((batch, max_iterations), dtype=torch.int32, device=device)
+
+        def ls():
+            return torch.zeros((batch, max_iterations, max_line_search_steps), **kw)
+
+        return NLSIterationHistory(
+            optimizer_state=i(),
+            lam=v(),
+            errors_initial=Errors(v(), v()),
+            directional_derivatives=DirectionalDerivatives(v(), v()),
+            penalty=v(),
+            step_result=i(),
+            qp_termination_state=i(),
+            qp_num_iterations=i(),
+            qp_kkt_final_max=v(),
+            line_search=LineSearchHistory(ls(), ls(), ls(), i()),
+            qp_iterations=QPIterationHistory.empty(
+                (batch, max_iterations, max_qp_iterations), **kw
+            ),
+        )
+
+
+@dataclasses.dataclass
+class NLSResult:
+    """Result of the nonlinear solve; analog of NLSSolverOutputs
+    (structs.hpp:329-347) plus the final iterate, batch-first."""
+
+    termination_state: torch.Tensor  # int32 NLSTerminationState
+    num_iterations: torch.Tensor  # int32
+    x: torch.Tensor  # (B, N) final linearization point
+    errors: Errors  # nonlinear errors at the final iterate
+    iterations: NLSIterationHistory
+    # int32 QPSolverVariant per lane (the reference's variant key).
+    solver_variant: torch.Tensor
+
+    def num_qp_iterations(self):
+        """Total inner-QP iterations per lane (structs.cc:208-214)."""
+        return self.iterations.qp_num_iterations.sum(-1)
+
+    def num_line_search_steps(self):
+        """Total line-search probes per lane (structs.cc:216-222)."""
+        return self.iterations.line_search.num_steps.sum(-1)
+
+    def num_failed_line_searches(self):
+        """Iterations whose step selection failed, per lane
+        (structs.cc:224-236)."""
+        sr = self.iterations.step_result
+        valid = torch.arange(sr.shape[-1], device=sr.device) < self.num_iterations[..., None]
+        failed = (
+            (sr == StepSizeSelectionResult.MAX_ITERATIONS)
+            | (sr == StepSizeSelectionResult.FAILURE_NON_FINITE_COST)
+            | (sr == StepSizeSelectionResult.FAILURE_INVALID_ALPHA)
+        )
+        return (valid & failed).sum(-1).to(torch.int32)

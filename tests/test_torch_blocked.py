@@ -194,16 +194,19 @@ def test_fused_solve_batch_past_d32_is_the_blocked_tier(planar33):
 
 @pytest.mark.parametrize("lanes", [256, 1024])
 def test_lanes_change_no_result(planar33, lanes):
-    """``lanes`` is the JAX kernel's tile width: checked, never a result."""
+    """``lanes`` is the JAX kernels' tile width, never a result.
+    ``blocked_solve_batch`` checks it as pallas_blocked.py:686 does (a
+    positive multiple of 128); ``blocked_kkt_solve`` takes any value, as
+    JAX's does (pallas_blocked.py:750-767)."""
     fam, targets, x0 = planar33
     want = port.blocked_solve_batch(fam, targets, x0, **KW33)
     got = port.blocked_solve_batch(fam, targets, x0, lanes=lanes, **KW33)
     assert torch.equal(got, want)
+    H, rhs = torch.eye(3)[None], torch.ones(1, 3)
     for bad in (100, 0):
         with pytest.raises(ValueError, match="lanes"):
             port.blocked_solve_batch(fam, targets, x0, lanes=bad, **KW33)
-        with pytest.raises(ValueError, match="lanes"):
-            port.blocked_kkt_solve(torch.eye(3)[None], torch.ones(1, 3), lanes=bad)
+        assert torch.equal(port.blocked_kkt_solve(H, rhs, lanes=bad), port.blocked_kkt_solve(H, rhs))
 
 
 def test_cpu_blocked_paths_launch_no_kernel(planar33):

@@ -201,3 +201,14 @@ def test_blocked_kkt_solve_rejects(case):
     H, rhs, exc = _kkt_reject_cases()[case]
     with pytest.raises(exc):
         port.blocked_kkt_solve(H, rhs)
+
+
+def test_blocked_kkt_solve_takes_any_lanes():
+    """JAX's blocked_kkt_solve checks no ``lanes`` (pallas_blocked.py:750-767)
+    and solves with a tile of 64; so does the port."""
+    rng = np.random.default_rng(64)
+    H = _well_conditioned_kkt(rng, 5, 5, 1)
+    rhs = rng.normal(size=(5, 6))
+    x = port.blocked_kkt_solve(torch.as_tensor(H), torch.as_tensor(rhs), lanes=64)
+    resid = np.abs(np.einsum("bij,bj->bi", H, x.numpy()) - rhs).max()
+    assert resid <= 1e-12

@@ -30,6 +30,8 @@ from mini_opt_tpu_torch.instances import (
 )
 from mini_opt_tpu_torch.ops import blocked as blk
 from mini_opt_tpu_torch.ops import fused_ik as fik
+from mini_opt_tpu_torch.ops import fused_qp as fq
+from mini_opt_tpu_torch.ops import ldlt
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "mini_opt_tpu")
@@ -48,7 +50,8 @@ def _imported_roots(path):
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, mini_opt_tpu_torch, mini_opt_tpu_torch.instances; "
+        "import sys, mini_opt_tpu_torch, mini_opt_tpu_torch.instances, "
+        "mini_opt_tpu_torch.utils.numerical, mini_opt_tpu_torch.utils.tol; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -131,7 +134,7 @@ def test_blocked_tier_and_bad_options_raise():
 def test_sources_present_and_build_dir_ignored():
     csrc = REPO / "mini_opt_tpu_torch" / "csrc"
     for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu", "blocked_sqp.cuh", "blocked.cu",
-                 "blocked_kkt.cu"):
+                 "blocked_kkt.cu", "ldlt.cu", "fused_qp.cu"):
         assert (csrc / name).is_file(), name
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
@@ -247,3 +250,92 @@ def test_blocked_kkt_kernel_matches_plain_on_card():
     torch.cuda.synchronize()
     assert blk.KKT_LAUNCHES == before + 1
     torch.testing.assert_close(got, blk._blocked_kkt_solve_plain(H_t, rhs), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The general path's kernels (csrc/ldlt.cu, csrc/fused_qp.cu) on the card.
+# ---------------------------------------------------------------------------
+
+
+def _bit_equal(a, b):
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.cuda
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("D", [3, 17, 40])
+def test_ldlt_kernels_match_plain_on_card(D, dtype):
+    """Kernels 4 and 5 against their plain versions, bit for bit, on SPD
+    systems with one NaN lane and one singular lane (``ok`` equal)."""
+    rng = np.random.default_rng(D)
+    B = 300
+    A = rng.normal(size=(B, D, D))
+    H = A @ A.transpose(0, 2, 1) + D * np.eye(D)
+    H[5] = np.nan
+    H[7] = 0.0
+    Ht = torch.as_tensor(H, dtype=dtype, device="cuda").permute(1, 2, 0).contiguous()
+    rhs = torch.as_tensor(rng.normal(size=(D, B)), dtype=dtype, device="cuda")
+    before = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES)
+    Lk, dk = ldlt._ldlt_factor_cuda(Ht)
+    xk = ldlt._ldlt_solve_cuda(Lk, dk, rhs)
+    torch.cuda.synchronize()
+    assert (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    Lp, dp = ldlt._ldlt_factor_plain(Ht)
+    xp = ldlt._ldlt_solve_plain(Lp, dp, rhs)
+    assert _bit_equal(Lk, Lp) and _bit_equal(dk, dp) and _bit_equal(xk, xp)
+    assert torch.equal(ldlt._ok(Lk, dk), ldlt._ok(Lp, dp))
+
+
+@pytest.mark.cuda
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("barrier", ["complementarity", "mpc"])
+def test_fused_qp_kernel_matches_plain_on_card(barrier, dtype):
+    """Kernel 6 against its plain version, bit for bit, on the IK
+    linearization of bench instances (N = 4, one equality row, both bounds on
+    joints 1..3), one NaN-target lane."""
+    targets, x0 = planar_instances(300, 4, seed=4)
+    targets[5, 0] = np.nan
+    chain = port.make_planar_chain(4, dtype=dtype, device="cuda")
+    x_t = torch.as_tensor(x0, dtype=dtype, device="cuda")
+    qp, _ = port.nonlinear.linearize_and_fill_qp(
+        lambda t: port.make_ik_problem(chain, t), x_t, torch.full_like(x_t[:, 0], 1e-3),
+        data=torch.as_tensor(targets, dtype=dtype, device="cuda"),
+    )
+    args = (
+        qp.G.permute(1, 2, 0).contiguous(), qp.c.T.contiguous(), qp.A_eq.permute(1, 2, 0).contiguous(),
+        qp.b_eq.T.contiguous(), qp.ineq_a.T.contiguous(), qp.ineq_b.T.contiguous(),
+        tuple(int(v) for v in qp.ineq_var), 6, 0.1, barrier, True,
+    )
+    before = fq.FUSED_QP_LAUNCHES
+    xk, yk = fq._fused_qp_cuda(*args)
+    torch.cuda.synchronize()
+    assert fq.FUSED_QP_LAUNCHES == before + 1
+    xp, yp = fq._fused_qp_plain(*args)
+    assert _bit_equal(xk, xp) and _bit_equal(yk, yp)
+
+
+@pytest.mark.cuda
+@needs_cuda
+@pytest.mark.parametrize("route", ["pallas_ldlt", "pallas_fused"])
+def test_general_path_launches_its_kernels(route):
+    """solve_ik_batch at 10/6/2 with fixed trips: 70 factorizations and 70
+    solves (1 + 6 per outer iteration), or 10 fused QPs; every lane at its
+    target."""
+    import dataclasses
+
+    targets, x0 = planar_instances(300, 2, seed=0)
+    params = dataclasses.replace(
+        port.default_ik_params(torch.float32, max_iterations=10, max_qp_iterations=6),
+        max_line_search_iterations=2, record_history=False, early_exit=False,
+        **({"kkt_solver": "pallas_ldlt"} if route == "pallas_ldlt" else {"qp_solver": "pallas_fused"}),
+    )
+    before = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES, fq.FUSED_QP_LAUNCHES)
+    res = port.solve_ik_batch(targets.astype(np.float32), x0.astype(np.float32), params=params)
+    torch.cuda.synchronize()
+    after = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES, fq.FUSED_QP_LAUNCHES)
+    launched = tuple(a - b for a, b in zip(after, before))
+    assert launched == ((70, 70, 0) if route == "pallas_ldlt" else (0, 0, 10))
+    assert res.x.is_cuda
+    assert (effector_error("planar", res.x.cpu().numpy(), targets) < 1e-3).mean() >= 0.99
