@@ -62,14 +62,39 @@ Phases, each of which exits non-zero on failure:
    unprofiled call, each kernel alone on the inputs the main
    path gave it (held), its bound, its plain version and, for kernels 4
    and 5, torch.linalg.ldl_factor_ex / ldl_solve;
-13. the kernel line, then the device line as the last line of stdout.
+13. the pose-ring kernel (csrc/pose_ring.cu), built in phase 2's parallel
+   nvcc pass: ptxas registers, spill stores and stack frame per instance;
+14. kernel 7 against its plain version, B = 8192 + 13 with one
+   NaN-measurement lane and one NaN-start lane, float64 and float32, on
+   the canonical ring N = 16 at 6/2 (scripts/bench_extras.py's
+   pose_ring_bench distribution), the chain with the closure (12, 4) and
+   the closures ((15, 0), (4, 11)) at N = 16, 5/2 (its
+   pose_ring_chain_closure_bench distribution), and the ring N = 32 at
+   6/2. float64: x and state within 1e-9, flags identical; float32: phase
+   3's shares; the NaN lanes flagged, their neighbours finite;
+15. the pose-ring main path, models.pose_graph.solve_pose_graph_rings on
+   the N = 16 ring, float32, B = 8192, 6/2, with every launch counter set
+   to 0 just before and read just after (exactly one pose-ring launch per
+   call), the converged share (final cost < 2e-3 N, the bench's noise
+   gate) at least 0.99, its outputs against the plain version's; then the
+   two closure topologies through the same entry point (converged share,
+   flags);
+16. timings at the main path's shape: the entry point as a caller issues
+   it, its device work and the kernel alone (held), the kernel at B = 1
+   (one instance's latency), the plain version once, the bound; and the
+   general twin, make_pose_graph_problem + nls_solve at 6/2
+   (kkt_solver="ldlt") at B = 1024, per call and its median cost beside
+   the kernel's (reported, not gated);
+17. the kernel line, then the device line as the last line of stdout.
 
 Tolerances, kernel against plain version: the kernels sum in the plain
 versions' order and build without FMA contraction, so they are expected to
 agree bit for bit (each comparison prints whether they did); the gates
 allow float64 1e-9 and, in float32, where a chaotic lane may flip with one
 rounding, the slice-1 shares. Kernels 4-6 and the general path (phases
-10-12) are held bit for bit in both types.
+10-12) are held bit for bit in both types. Kernel 7 (phases 14-15) keeps
+phase 3's gates: its float32 solve runs sin, cos and an angle wrap in every
+iteration.
 """
 
 import contextlib
@@ -85,16 +110,20 @@ import torch
 
 import mini_opt_tpu_torch as mot
 from mini_opt_tpu_torch.instances import (
+    chain_closure_instances,
     effector_error,
     medium_n_planar_instances,
     planar_instances,
+    ring_instances,
     spatial_instances,
 )
+from mini_opt_tpu_torch.models import pose_graph as pg
 from mini_opt_tpu_torch.ops import _build
 from mini_opt_tpu_torch.ops import blocked as blk
 from mini_opt_tpu_torch.ops import fused_ik as fik
 from mini_opt_tpu_torch.ops import fused_qp as fq
 from mini_opt_tpu_torch.ops import ldlt
+from mini_opt_tpu_torch.ops import pose_ring as pr
 
 LINK = 0.4
 BENCH = dict(max_iterations=4, qp_iterations=2, ls_iterations=1, barrier="mpc", line_search="armijo")
@@ -246,18 +275,21 @@ def event_ms(fn):
 
 def ptxas_report(text):
     """Per kernel instance in ptxas's -v output: (mangled name, registers,
-    spill-store bytes, shared-memory bytes)."""
-    rows, name, spill = [], None, 0
+    spill-store bytes, shared-memory bytes, stack-frame bytes)."""
+    rows, name, spill, stack = [], None, 0, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name, spill = m.group(1), 0
+            name, spill, stack = m.group(1), 0, 0
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            stack = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
-            rows.append((name, int(m.group(1)), spill, int(m.group(2) or 0)))
+            rows.append((name, int(m.group(1)), spill, int(m.group(2) or 0), stack))
             name = None
     return rows
 
@@ -353,6 +385,7 @@ def kkt_vs_plain(max_err):
 
 def reset_counts():
     fik.KERNEL_LAUNCHES = 0
+    pr.KERNEL_LAUNCHES = 0
     blk.BLOCKED_LAUNCHES = 0
     blk.KKT_LAUNCHES = 0
     ldlt.LDLT_FACTOR_LAUNCHES = 0
@@ -363,7 +396,7 @@ def reset_counts():
 def counts():
     return dict(fused_ik=fik.KERNEL_LAUNCHES, blocked=blk.BLOCKED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES,
                 ldlt_factor=ldlt.LDLT_FACTOR_LAUNCHES, ldlt_solve=ldlt.LDLT_SOLVE_LAUNCHES,
-                fused_qp=fq.FUSED_QP_LAUNCHES)
+                fused_qp=fq.FUSED_QP_LAUNCHES, pose_ring=pr.KERNEL_LAUNCHES)
 
 
 def blocked_paths(card, kind):
@@ -704,7 +737,7 @@ def general_paths(card, kind):
             torch.cuda.synchronize()
             got = counts()
         launched[route] = got
-        want = dict(fused_ik=0, blocked=0, blocked_kkt=0, **expected[route])
+        want = dict(fused_ik=0, blocked=0, blocked_kkt=0, pose_ring=0, **expected[route])
         if got != want:
             fail(f"phase12 {route}: launches {got}, the formula gives {want}")
         if res.x.shape != (B, 2) or not res.x.is_cuda or not torch.isfinite(res.x).all():
@@ -824,6 +857,187 @@ def general_paths(card, kind):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 13-16: the pose-ring path (kernel 7).
+# ---------------------------------------------------------------------------
+
+RING_N = 16
+RING_B = 8192
+RING_BUDGET = (6, 2)
+RING_GATE = 2e-3 * RING_N  # bench_extras.py:927, the noise floor's gate
+# (name, N, closures or None for the canonical ring, budget): the three
+# configurations of bench_extras.py's pose-ring cells and the N = 32 ring.
+RING_CASES = [
+    ("ring N=16 6/2", RING_N, None, RING_BUDGET),
+    ("closure (12, 4) N=16 5/2", RING_N, ((12, 4),), (5, 2)),
+    ("closures ((15, 0), (4, 11)) N=16 5/2", RING_N, ((15, 0), (4, 11)), (5, 2)),
+    ("ring N=32 6/2", 32, None, RING_BUDGET),
+]
+
+
+def ring_case(n, closures, B, seed):
+    """The family and float64 (B, 3E) measurements, (B, 3N) starts of one
+    configuration, from the JAX repo's bench distributions."""
+    if closures is None:
+        return (pr.pose_ring_family(n),) + ring_instances(B, n, seed=seed)
+    return (pr.pose_ring_family(n, closures=closures),) + chain_closure_instances(B, n, closures, seed=seed)
+
+
+def check_ring(tag, got, want, max_err, nan_lanes=()):
+    """Kernel 7's feature-major (x, state) against the plain version's:
+    float64 within 1e-9 with identical flags, float32 flags on >= 99.9% of
+    lanes and x within 1e-3 on >= 99.5%; the NaN lanes flagged and every
+    other lane finite. Records the largest |kernel - plain| per dtype."""
+    (xk, sk), (xp, sp) = got, want
+    dtype = str(xk.dtype).replace("torch.", "")
+    same = bit_identical((xk, xp), (sk, sp))
+    diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk[:2], sp[:2])}
+    err = max(diffs.values())
+    max_err[dtype] = max(max_err[dtype], err)
+    flags_agree = (sk[2] == sp[2]).double().mean().item()
+    x_agree = lanes_agree(xk, xp, 1e-3).double().mean().item()
+    others = torch.ones(xk.shape[1], dtype=torch.bool, device=xk.device)
+    others[list(nan_lanes)] = False
+    flagged = all(bool(sk[2, lane] != 0) for lane in nan_lanes)
+    finite = bool(torch.isfinite(xk[:, others]).all() and torch.isfinite(sk[:, others]).all())
+    print(f"# {tag} {dtype} (bit-identical {same}): max|kernel - plain| {diffs}, flags agree "
+          f"{flags_agree:.6f}, x within 1e-3 {x_agree:.6f}, NaN lanes flagged {flagged}, others finite "
+          f"{finite}, lanes flagged {int((sk[2] != 0).sum())}", flush=True)
+    if not (flagged and finite):
+        fail(f"{tag} {dtype}: NaN lanes not flagged or their neighbours not finite")
+    if dtype == "float64" and (err > 1e-9 or flags_agree != 1.0):
+        fail(f"{tag}: kernel disagrees with the plain version ({diffs}, flags {flags_agree})")
+    if dtype == "float32" and (flags_agree < 0.999 or x_agree < 0.995):
+        fail(f"{tag}: float32 agreement below threshold")
+
+
+def pose_ring_paths(card, kind):
+    """Phases 14-16; returns kernel 7's row."""
+    max_err = {"float64": 0.0, "float32": 0.0}
+    B = 8192 + 13
+    for name, n, closures, (iters, ls) in RING_CASES:
+        fam, data, x0 = ring_case(n, closures, B, seed=n)
+        data[5, 4] = np.nan
+        x0[9, 2] = np.nan
+        for dtype in (torch.float64, torch.float32):
+            d_t, x_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
+            before = pr.KERNEL_LAUNCHES
+            got = pr._pose_ring_cuda(fam, d_t, x_t, iters, ls)
+            torch.cuda.synchronize()
+            if pr.KERNEL_LAUNCHES != before + 1:
+                fail(f"{name}: the pose-ring wrapper did not count its launch")
+            want = pr._pose_ring_plain(fam, d_t, x_t, iters, ls)
+            check_ring(f"phase14 {name} B={B}", got, want, max_err, nan_lanes=(5, 9))
+
+    # Phase 15: the main path, solve_pose_graph_rings at full width.
+    iters, ls = RING_BUDGET
+    launched, converged = None, {}
+    for name, n, closures, (it_c, ls_c) in RING_CASES[:3]:
+        fam, data, x0 = ring_case(n, closures, RING_B, seed=0)
+        meas = data.astype(np.float32).reshape(RING_B, -1, 3)
+        starts = x0.astype(np.float32).reshape(RING_B, n, 3)
+        reset_counts()
+        x, state = pg.solve_pose_graph_rings(meas, starts, closures=closures, max_iterations=it_c,
+                                             ls_iterations=ls_c, return_state=True)
+        torch.cuda.synchronize()
+        got = counts()
+        want = {k: (1 if k == "pose_ring" else 0) for k in got}
+        if got != want:
+            fail(f"phase15 {name}: launches {got}, expected one pose-ring launch")
+        if x.shape != (RING_B, n, 3) or state.shape != (RING_B, 3) or not x.is_cuda:
+            fail(f"phase15 {name}: unexpected outputs {tuple(x.shape)} {tuple(state.shape)} {x.device}")
+        f = state[:, 0].double().cpu().numpy()
+        share = float(np.mean(f < 2e-3 * n))
+        converged[name] = share
+        print(f"# phase15 main path solve_pose_graph_rings {name} B={RING_B} float32: launches {got} for 1 "
+              f"call; converged share (cost < {2e-3 * n:.3g}) {share:.6f}, cost median {np.median(f):.4e} "
+              f"p99 {np.quantile(f, 0.99):.4e}, lanes flagged {int((state[:, 2] != 0).sum())}, all finite "
+              f"{bool(torch.isfinite(x).all())}", flush=True)
+        if launched is None:
+            launched = got["pose_ring"]
+            ring = (fam, meas, starts, x, state)
+    fam, meas, starts, x_main, state_main = ring
+    if not converged[RING_CASES[0][0]] >= 0.99:
+        fail(f"phase15: converged share {converged[RING_CASES[0][0]]} is below 0.99")
+    d_t = torch.as_tensor(meas.reshape(RING_B, -1), device="cuda").T.contiguous()
+    x_t = torch.as_tensor(starts.reshape(RING_B, -1), device="cuda").T.contiguous()
+    plain = lambda: pr._pose_ring_plain(fam, d_t, x_t, iters, ls)  # noqa: E731
+    check_ring(f"phase15 main path B={RING_B}", (x_main.reshape(RING_B, -1).T, state_main.T), plain(), max_err)
+
+    # Phase 16: times at the main path's shape.
+    m_d, s_d = torch.as_tensor(meas, device="cuda"), torch.as_tensor(starts, device="cuda")
+    entry = lambda: pg.solve_pose_graph_rings(m_d, s_d, max_iterations=iters, ls_iterations=ls)  # noqa: E731
+    kern = lambda: pr._pose_ring_cuda(fam, d_t, x_t, iters, ls)  # noqa: E731
+    one = lambda: pr._pose_ring_cuda(  # noqa: E731
+        fam, d_t[:, :1].contiguous(), x_t[:, :1].contiguous(), iters, ls)
+    e2e_ms, e2e_all = time_ms(entry, launches=10)
+    dev_ms, dev_all = time_ms(entry, launches=10, held=True)
+    k_ms, k_all = time_ms(kern, launches=10, held=True)
+    k_unheld_ms, _ = time_ms(kern, launches=10)
+    k_one_ms, _ = time_ms(one, launches=10, held=True)
+    plain_ms, _ = event_ms(plain)
+    ops = count_ops(plain)
+    E = fam.n_edges
+    # Reads the 3E measurements and 3N starts, writes 3N poses and 3 state
+    # scalars per instance.
+    bound_ms, bound_by = roofline(ops, RING_B * (3 * E + 3 * RING_N + 3 * RING_N + 3) * 4)
+    print(f"# phase16 pose-ring kernel ring N={RING_N} B={RING_B} float32 {iters}/{ls} on {kind} ({card}): "
+          f"kernel alone on the card {k_ms:.4f} ms ({RING_B / k_ms * 1e3:.4e} graphs/s), unheld "
+          f"{k_unheld_ms:.4f} ms, at B=1 {k_one_ms:.4f} ms; entry point issued back to back "
+          f"{e2e_ms:.4f} ms/call, its device work {dev_ms:.4f} ms; plain {plain_ms:.3f} ms; "
+          f"{ops / RING_B:.0f} elementwise ops per instance -> bound {bound_ms:.6f} ms ({bound_by}), "
+          f"kernel = {k_ms / bound_ms:.1f}x bound; library none; repeats: entry {e2e_all} device "
+          f"{dev_all} kernel {k_all}", flush=True)
+
+    # The general twin on the same instances at the same budget (reported).
+    Bg = 1024
+    edges = pg.ring_edges(RING_N)
+    params = mot.NLSParams(
+        max_iterations=iters, max_qp_iterations=1, max_line_search_iterations=ls,
+        line_search_strategy=mot.LineSearchStrategy.ARMIJO_BACKTRACK, armijo_search_tau=0.5,
+        record_history=False, early_exit=False, kkt_solver="ldlt",
+    )
+    ones = torch.ones(len(edges), dtype=torch.float32, device="cuda")
+
+    def problem_fn(d):
+        return pg.make_pose_graph_problem(RING_N, edges, d.reshape(len(edges), 3), ones, anchor_weight=100.0)
+
+    d_g, x_g = d_t.T[:Bg].contiguous(), x_t.T[:Bg].contiguous()
+    general = lambda: mot.nls_solve(problem_fn, params, x_g, data=d_g)  # noqa: E731
+    general()
+    torch.cuda.synchronize()
+    gen_ms, res = event_ms(general)
+    f_gen = res.errors.f.double().cpu().numpy()
+    f_k = state_main[:Bg, 0].double().cpu().numpy()
+    print(f"# phase16 general twin make_pose_graph_problem + nls_solve ring N={RING_N} B={Bg} float32 "
+          f"{iters}/{ls} kkt_solver=ldlt on {kind} ({card}): {gen_ms:.3f} ms/call ({Bg / gen_ms * 1e3:.4e} "
+          f"graphs/s), cost median {np.median(f_gen):.4e} (kernel on the same lanes {np.median(f_k):.4e}), "
+          f"converged share {np.mean(f_gen < RING_GATE):.6f}; kernel graphs/s over the twin's "
+          f"{(RING_B / k_ms) / (Bg / gen_ms):.1f}x", flush=True)
+
+    return [{
+        "name": "pose_ring",
+        "route": "cuda",
+        "source": "mini_opt_tpu_torch/csrc/pose_ring.cu",
+        "replaces": "mini_opt_tpu/ops/pallas_pose_ring.py:184",
+        "function": "_make_ring_kernel (launched :712)",
+        "launches": launched,
+        "max_abs_err": max(max_err.values()),
+        "max_abs_diff_f64": max_err["float64"],
+        "ms": k_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": f"B={RING_B} ring N={RING_N} float32 {iters}/{ls}",
+        "ops_per_instance": ops / RING_B,
+        "converged_share": converged[RING_CASES[0][0]],
+        "entry_ms": e2e_ms,
+        "general_twin_ms_B1024": gen_ms,
+        "card": card,
+    }]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -852,17 +1066,24 @@ def main():
         spilling = sum(int(b) > 0 for b in re.findall(r"(\d+) bytes spill stores", text))
         print(f"# ptxas: {len(regs)} kernel instances, registers max {max(regs, default=0)}, "
               f"{spilling} with spill stores", flush=True)
-        for name, nreg, spill, smem in ptxas_report(text):
+        for name, nreg, spill, smem, _ in ptxas_report(text):
             if "blocked" in name:
                 print(f"# ptxas {name}: {nreg} registers, {spill} bytes spill stores, "
                       f"{smem} bytes static smem", flush=True)
         # Phase 9: the general path's kernels, from the same build.
-        for name, nreg, spill, _ in ptxas_report(text):
+        for name, nreg, spill, _, _ in ptxas_report(text):
             m = re.search(r"(ldlt_factor|ldlt_solve|fused_qp)_kernelI([fd])(?:Li(\d+)ELi(\d+)E)?", name)
             if m:
                 kernel, t, n, k = m.groups()
                 label = f"{kernel}<{'float' if t == 'f' else 'double'}" + (f", N={n}, K={k}>" if n else ">")
                 print(f"# phase9 ptxas {label}: {nreg} registers, {spill} bytes spill stores", flush=True)
+        # Phase 13: the pose-ring kernel, from the same build.
+        for name, nreg, spill, _, stack in ptxas_report(text):
+            m = re.search(r"pose_ring_kernelI([fd])Li(\d+)E", name)
+            if m:
+                t, k = m.groups()
+                print(f"# phase13 ptxas pose_ring<{'float' if t == 'f' else 'double'}, K={k}>: {nreg} "
+                      f"registers, {spill} bytes spill stores, {stack} bytes stack frame", flush=True)
 
     # Phase 3: kernel vs plain version on the card.
     B3 = 8192 + 13
@@ -967,6 +1188,7 @@ def main():
 
     blocked_rows = blocked_paths(card, kind)
     general_rows = general_paths(card, kind)
+    ring_rows = pose_ring_paths(card, kind)
 
     print(json.dumps({"kernels": [{
         "name": "fused_ik_sqp",
@@ -985,7 +1207,7 @@ def main():
         "shape": f"B={B} n=2 float32 4/2/1 mpc armijo",
         "ops_per_instance": ops_per_instance,
         "card": card,
-    }] + blocked_rows + general_rows}), flush=True)
+    }] + blocked_rows + general_rows + ring_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -13,6 +13,11 @@ grows slice by slice. It carries:
   the lane-batched LDL^T kernels (``csrc/ldlt.cu``, ``kkt_solver=
   "pallas_ldlt"``) or as one fused interior-point kernel
   (``csrc/fused_qp.cu``, ``qp_solver="pallas_fused"``);
+* SE(2) pose graphs: the general path's ``make_pose_graph_problem`` and
+  ``solve_pose_graph``, and the serving tier for batches of
+  chain-plus-closure graphs, ``models.pose_graph.solve_pose_graph_rings``,
+  solved by one bordered block-Thomas CUDA kernel (``csrc/pose_ring.cu``,
+  reached through ``ops.pose_ring``);
 
 each kernel with a plain PyTorch version of the same computation for CPU
 tensors.
@@ -27,6 +32,7 @@ from .models.ik import (
     mod_pi_retraction,
     solve_ik_batch,
 )
+from .models.pose_graph import make_pose_graph_problem, solve_pose_graph
 from .nonlinear import NLSParams, Problem, nls_solve
 from .ops.blocked import REGISTER_KKT_MAX, blocked_kkt_solve, blocked_solve_batch
 from .ops.fused_ik import (
@@ -120,6 +126,7 @@ __all__ = [
     "make_fused_qp_solver",
     "make_ik_problem",
     "make_planar_chain",
+    "make_pose_graph_problem",
     "make_residual",
     "mod_pi_retraction",
     "nls_solve",
@@ -130,6 +137,7 @@ __all__ = [
     "robustify",
     "solve_batch",
     "solve_ik_batch",
+    "solve_pose_graph",
     "spatial_family",
     "termination_state_indicates_satisfied_tol",
     "validate_problem",

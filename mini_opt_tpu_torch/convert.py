@@ -12,8 +12,10 @@ The fused paths' settings need no conversion: their keyword budgets
 (``max_iterations``, ``qp_iterations``, ``ls_iterations``, ``line_search``,
 ``barrier``) keep the JAX names and defaults, so one kwargs dict drives both
 packages. The general path's ``NLSParams`` crosses as a dict
-(``params_from_dict(dataclasses.asdict(jax_params))``), and an
-``ActuatorChain`` as numpy arrays (``chain_from_numpy``).
+(``params_from_dict(dataclasses.asdict(jax_params))``), an
+``ActuatorChain`` as numpy arrays (``chain_from_numpy``), and a pose-ring
+family with its batch of graphs as the family's fields and numpy arrays
+(``pose_ring_from_numpy``).
 """
 
 from __future__ import annotations
@@ -120,3 +122,36 @@ def params_from_dict(fields):
     if kw.get("qp_initial_guess_method") is not None:
         kw["qp_initial_guess_method"] = InitialGuessMethod(int(kw["qp_initial_guess_method"]))
     return NLSParams(**kw)
+
+
+def pose_ring_from_numpy(fields, measurements, x0, device=None, dtype=None):
+    """The port's ``PoseRingFamily`` and batch-major tensors from a pose-ring
+    family's fields (``dataclasses.asdict`` of the JAX package's
+    ``PoseRingFamily``: n_poses, anchor_weight, closure, closures) and a
+    batch of graphs as numpy arrays: ``measurements (B, E, 3)`` and
+    ``x0 (B, N, 3)``. Returns ``(family, data (B, 3E), x0 (B, 3N))`` on
+    ``device`` ("cuda" unless named), in ``dtype`` (the arrays' own when
+    None)."""
+    from .ops.pose_ring import pose_ring_family
+
+    closure = fields.get("closure")
+    closures = fields.get("closures") or None
+    family = pose_ring_family(
+        int(fields["n_poses"]),
+        anchor_weight=float(fields.get("anchor_weight", 100.0)),
+        closure=None if closure is None else tuple(int(v) for v in closure),
+        closures=None if closures is None else tuple(tuple(int(v) for v in c) for c in closures),
+    )
+    meas, x0 = np.asarray(measurements), np.asarray(x0)
+    B = meas.shape[0]
+    if meas.shape != (B, family.n_edges, 3) or x0.shape != (B, family.n_poses, 3):
+        raise ValueError(
+            f"expected measurements (B, {family.n_edges}, 3) and x0 (B, {family.n_poses}, 3); "
+            f"got {meas.shape} and {x0.shape}"
+        )
+    device = _resolve_device(device)
+    out = [
+        torch.as_tensor(np.ascontiguousarray(a.reshape(B, -1)), device=device)
+        for a in (meas, x0)
+    ]
+    return (family,) + tuple(t.to(dtype or t.dtype) for t in out)

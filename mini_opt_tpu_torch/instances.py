@@ -8,6 +8,11 @@ alternating z/y-axis chain, the JAX package's spatial test distribution.
 distribution of the JAX repo's medium-N example
 (``examples/blocked_medium_n.py:53-61``). All return float64 ``(B, rows)``
 targets and ``(B, n)`` starts; a caller casts them to its working dtype.
+
+``ring_instances`` and ``chain_closure_instances`` are copies of the JAX
+repo's pose-ring bench distributions (``scripts/bench_extras.py``:
+``pose_ring_bench`` :867-883 and ``pose_ring_chain_closure_bench``
+:1299-1320): float64 ``(B, 3E)`` edge measurements and ``(B, 3N)`` starts.
 """
 
 from __future__ import annotations
@@ -82,6 +87,52 @@ def spatial_instances(B, n, seed=0, link_len=0.4):
     x0 = th + rng.uniform(-0.25, 0.25, (B, n))
     x0[:, 1:] = np.clip(x0[:, 1:], 0.05, np.pi - 0.05)
     return spatial_fk(th, link_len), x0
+
+
+def ring_instances(B, n, seed=0, start_noise=0.15):
+    """The canonical N-pose ring (unit steps, turn 2 pi / N per edge): the
+    true measurements plus N(0, 0.02) noise, and the true poses plus
+    N(0, start_noise) as starts."""
+    turn = 2 * np.pi / n
+    meas = np.tile([1.0, 0.0, turn], (n, 1))
+    th = np.arange(n) * turn
+    pts = np.zeros((n, 2))
+    for i in range(1, n):
+        pts[i] = pts[i - 1] + [np.cos(th[i - 1]), np.sin(th[i - 1])]
+    truth = np.column_stack([pts, np.where(th > np.pi, th - 2 * np.pi, th)])
+    rng = np.random.default_rng(seed)
+    data = meas.ravel() + rng.normal(0, 0.02, (B, 3 * n))
+    x0 = truth.ravel() + rng.normal(0, start_noise, (B, 3 * n))
+    return data, x0
+
+
+def chain_edges(n, closures):
+    """The odometry chain (t, t+1) followed by the closures."""
+    return tuple((t, t + 1) for t in range(n - 1)) + tuple(tuple(c) for c in closures)
+
+
+def chain_closure_instances(B, n, closures, seed=0, step=0.5, start_noise=0.08):
+    """A wandering chain (headings a running sum of U(-0.5, 0.5), steps of
+    ``step``) with consistent measurements on the chain edges and the
+    closures plus N(0, 0.02) noise; starts are the true poses plus
+    N(0, start_noise), with pose 0 set to the origin."""
+    rng = np.random.default_rng(seed)
+    th = np.cumsum(rng.uniform(-0.5, 0.5, (B, n)), axis=1)
+    xy = np.cumsum(np.stack([np.cos(th), np.sin(th)], -1) * step, axis=1)
+    poses = np.concatenate([xy, th[..., None]], -1)
+
+    def edge_meas(pi, pj):
+        c, s = np.cos(pi[..., 2]), np.sin(pi[..., 2])
+        dx = pj[..., 0] - pi[..., 0]
+        dy = pj[..., 1] - pi[..., 1]
+        return np.stack([c * dx + s * dy, -s * dx + c * dy, pj[..., 2] - pi[..., 2]], -1)
+
+    edges = chain_edges(n, closures)
+    meas = np.stack([edge_meas(poses[:, i], poses[:, j]) for (i, j) in edges], 1)
+    meas += rng.normal(scale=0.02, size=meas.shape)
+    x0 = poses + rng.normal(scale=start_noise, size=poses.shape)
+    x0[:, 0] = 0.0
+    return meas.reshape(B, 3 * len(edges)), x0.reshape(B, 3 * n)
 
 
 def effector_error(kind, x, targets, link_len=0.4):

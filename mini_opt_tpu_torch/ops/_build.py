@@ -166,6 +166,17 @@ def load_library():
                 p,  # cudaStream_t
             ]
             lib.mo_fused_qp_launch.restype = i
+            lib.mo_pose_ring_scratch_slots.argtypes = [i, i]  # n poses, closures
+            lib.mo_pose_ring_scratch_slots.restype = i
+            lib.mo_pose_ring_launch.argtypes = [
+                i, i, i,  # dtype, n poses, closures
+                ctypes.POINTER(i),  # the closures' (from, to) pairs
+                ctypes.c_double,  # anchor weight
+                p, p, p, p, p,  # data, x0, x_out, state, scratch
+                i, i, i,  # B, max_iterations, ls_iterations
+                p,  # cudaStream_t
+            ]
+            lib.mo_pose_ring_launch.restype = i
             lib.mo_cuda_error_string.argtypes = [i]
             lib.mo_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

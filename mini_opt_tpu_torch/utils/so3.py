@@ -117,8 +117,12 @@ def skew3(v):
 
 
 def mod_pi(angle):
-    """Wrap angle(s) into (-pi, pi]."""
-    return angle - 2.0 * math.pi * torch.floor(_div(angle + math.pi, 2.0 * math.pi))
+    """Wrap angle(s) into (-pi, pi]. The whole turns subtracted are
+    detached: their derivative is zero, and under ``torch.func.jacfwd`` a
+    Python scalar times floor's zero tangent comes out float64, which would
+    turn a float32 Jacobian into float64."""
+    turns = torch.floor(_div(angle + math.pi, 2.0 * math.pi)).detach()
+    return angle - 2.0 * math.pi * turns
 
 
 def _axis_quat(angle, axis: int):

@@ -51,7 +51,8 @@ def _imported_roots(path):
 def test_import_leaves_jax_out():
     code = (
         "import sys, mini_opt_tpu_torch, mini_opt_tpu_torch.instances, "
-        "mini_opt_tpu_torch.utils.numerical, mini_opt_tpu_torch.utils.tol; "
+        "mini_opt_tpu_torch.utils.numerical, mini_opt_tpu_torch.utils.tol, "
+        "mini_opt_tpu_torch.ops.pose_ring, mini_opt_tpu_torch.models.pose_graph; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -134,7 +135,8 @@ def test_blocked_tier_and_bad_options_raise():
 def test_sources_present_and_build_dir_ignored():
     csrc = REPO / "mini_opt_tpu_torch" / "csrc"
     for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu", "blocked_sqp.cuh", "blocked.cu",
-                 "blocked_kkt.cu", "ldlt.cu", "fused_qp.cu"):
+                 "blocked_kkt.cu", "ldlt.cu", "fused_qp.cu", "pose_ring.cuh", "pose_ring.cu",
+                 "pose_ring_f64.cu"):
         assert (csrc / name).is_file(), name
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
