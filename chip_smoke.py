@@ -85,15 +85,43 @@ Phases, each of which exits non-zero on failure:
    general twin, make_pose_graph_problem + nls_solve at 6/2
    (kkt_solver="ldlt") at B = 1024, per call and its median cost beside
    the kernel's (reported, not gated);
-17. the kernel line, then the device line as the last line of stdout.
+17. the MPC kernels (csrc/mpc.cu, mpc_f64.cu), built in phase 2's parallel
+   nvcc pass: ptxas registers, spill stores and stack frame per instance
+   (solve and servo, float and double, cart-pole and quadrotor);
+18. kernels 8 and 9 against their plain versions, B = 8192 + 13 with one
+   NaN-state lane and one NaN-warm-start lane, float64 and float32: kernel 8
+   on the cart-pole at T = 20 at the cold budget 8/3/2 and at 2/2/1 with
+   history, and on the quadrotor at T = 12, 8/3/2; kernel 9 on the
+   cart-pole at 1/1/1 and the quadrotor at 2/1/1, 8 periods each. float64
+   within 1e-9 with identical flags, float32 phase 3's shares; the NaN lanes
+   flagged, every other lane finite;
+19. the MPC main path in float32 at B = 1024 (scripts/bench_extras.py's
+   fleet) and B = 8192, every launch counter set to 0 just before and read
+   just after: the cart-pole at mpc_servo_bench's settings (T = 20,
+   dt = 0.05: fused_mpc_solve_batch at 8/3/2, exactly one kernel-8 launch;
+   rk4_step and shift_warm_start; fused_mpc_servo_batch at 1/1/1 for 29
+   periods, exactly one kernel-9 launch; stabilized share |theta| < 0.05 at
+   least 0.99), its B = 1024 outputs against the same sequence on the plain
+   versions; fused_mpc_rollout_batch at 2/2/1 for 8 steps (exactly 8
+   kernel-8 launches, its stabilized share reported); the quadrotor at
+   mpc_quadrotor_bench's settings (T = 12, cold 8/3/2, servo 2/1/1 for 64
+   periods, one launch each; hover share at least 0.99);
+20. timings (held): kernel 8 at the cold budget at B = 1024 and B = 1,
+   kernel 9 per period as (servo(65) - servo(1)) / 64 (the bench's
+   difference method) and its control solves/s, the entry points as a caller
+   issues them, each plain version once, the bounds; and the general twin,
+   solve_mpc batched through nls_solve with kkt_solver="riccati:20:4:1" at
+   B = 1024 and 2/2/1 (Mehrotra), ms per call and its cost median beside the
+   kernel's (reported, not gated);
+21. the kernel line, then the device line as the last line of stdout.
 
 Tolerances, kernel against plain version: the kernels sum in the plain
 versions' order and build without FMA contraction, so they are expected to
 agree bit for bit (each comparison prints whether they did); the gates
 allow float64 1e-9 and, in float32, where a chaotic lane may flip with one
 rounding, the slice-1 shares. Kernels 4-6 and the general path (phases
-10-12) are held bit for bit in both types. Kernel 7 (phases 14-15) keeps
-phase 3's gates: its float32 solve runs sin, cos and an angle wrap in every
+10-12) are held bit for bit in both types. Kernels 7-9 (phases 14-15,
+18-19) keep phase 3's gates: their float32 solves run sin and cos in every
 iteration.
 """
 
@@ -110,19 +138,23 @@ import torch
 
 import mini_opt_tpu_torch as mot
 from mini_opt_tpu_torch.instances import (
+    cartpole_mpc_instances,
     chain_closure_instances,
     effector_error,
     medium_n_planar_instances,
     planar_instances,
+    quadrotor_mpc_instances,
     ring_instances,
     spatial_instances,
 )
+from mini_opt_tpu_torch.models import mpc as mpcm
 from mini_opt_tpu_torch.models import pose_graph as pg
 from mini_opt_tpu_torch.ops import _build
 from mini_opt_tpu_torch.ops import blocked as blk
 from mini_opt_tpu_torch.ops import fused_ik as fik
 from mini_opt_tpu_torch.ops import fused_qp as fq
 from mini_opt_tpu_torch.ops import ldlt
+from mini_opt_tpu_torch.ops import mpc as pm
 from mini_opt_tpu_torch.ops import pose_ring as pr
 
 LINK = 0.4
@@ -391,12 +423,15 @@ def reset_counts():
     ldlt.LDLT_FACTOR_LAUNCHES = 0
     ldlt.LDLT_SOLVE_LAUNCHES = 0
     fq.FUSED_QP_LAUNCHES = 0
+    pm.KERNEL_LAUNCHES = 0
+    pm.SERVO_LAUNCHES = 0
 
 
 def counts():
     return dict(fused_ik=fik.KERNEL_LAUNCHES, blocked=blk.BLOCKED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES,
                 ldlt_factor=ldlt.LDLT_FACTOR_LAUNCHES, ldlt_solve=ldlt.LDLT_SOLVE_LAUNCHES,
-                fused_qp=fq.FUSED_QP_LAUNCHES, pose_ring=pr.KERNEL_LAUNCHES)
+                fused_qp=fq.FUSED_QP_LAUNCHES, pose_ring=pr.KERNEL_LAUNCHES,
+                mpc=pm.KERNEL_LAUNCHES, mpc_servo=pm.SERVO_LAUNCHES)
 
 
 def blocked_paths(card, kind):
@@ -737,7 +772,7 @@ def general_paths(card, kind):
             torch.cuda.synchronize()
             got = counts()
         launched[route] = got
-        want = dict(fused_ik=0, blocked=0, blocked_kkt=0, pose_ring=0, **expected[route])
+        want = {k: expected[route].get(k, 0) for k in got}
         if got != want:
             fail(f"phase12 {route}: launches {got}, the formula gives {want}")
         if res.x.shape != (B, 2) or not res.x.is_cuda or not torch.isfinite(res.x).all():
@@ -1037,6 +1072,247 @@ def pose_ring_paths(card, kind):
         "card": card,
     }]
 
+# ---------------------------------------------------------------------------
+# Phases 17-20: the MPC path (kernels 8 and 9).
+# ---------------------------------------------------------------------------
+
+MPC_T, MPC_DT = 20, 0.05
+MPC_COLD = (8, 3, 2)
+MPC_SERVO = (1, 1, 1)
+MPC_GATE_PERIODS = 30  # bench_extras.py:752: the cold period, then 29 servo periods
+QUAD_T, QUAD_PERIODS, QUAD_SERVO = 12, 64, (2, 1, 1)  # bench_extras.py:1195-1196
+CART = mpcm.CartPole()
+
+
+def mpc_inputs(kind, B, seed, dtype, poison=False):
+    """(family, x (nx, B), z (dim, B)): the bench's fleet as feature-major
+    CUDA tensors and the cold initial guess; ``poison`` makes lane 5's
+    state and lane 9's warm start NaN."""
+    if kind == "cartpole":
+        fam, x = pm.cartpole_mpc_family(MPC_T, MPC_DT), cartpole_mpc_instances(B, seed)
+    else:
+        fam, x = pm.quadrotor_mpc_family(QUAD_T, MPC_DT), quadrotor_mpc_instances(B, seed)
+    z = mpcm.family_initial_guess(fam, torch.as_tensor(x)).numpy()
+    if poison:
+        x[5, 2] = np.nan
+        z[9, 1] = np.nan
+    return (fam,) + mot.batch_from_numpy(x, z, "cuda", dtype)
+
+
+def check_mpc(tag, got, want, flag_row, max_err, nan_lanes=()):
+    """Kernel 8's or 9's feature-major outputs against the plain version's:
+    float64 within 1e-9 with identical flags (row 2 of ``got[flag_row]``),
+    float32 flags on >= 99.9% of lanes and every output within 1e-3 on
+    >= 99.5% of the lanes with finite inputs; the NaN lanes flagged and every other lane finite. Records the
+    largest |kernel - plain| per dtype."""
+    pairs = [(g, w) for g, w in zip(got, want) if w is not None]
+    dtype = str(got[0].dtype).replace("torch.", "")
+    same = bit_identical(*pairs)
+    err = max(max_abs_diff(g, w) for g, w in pairs)
+    max_err[dtype] = max(max_err[dtype], err)
+    fk, fp = got[flag_row][2], want[flag_row][2]
+    flags_agree = (fk == fp).double().mean().item()
+    others = torch.ones_like(fk, dtype=torch.bool)
+    others[list(nan_lanes)] = False
+    agree = others.clone()
+    for g, w in pairs:
+        agree &= lanes_agree(g, w, 1e-3)
+    # Over the lanes with finite inputs (a NaN lane's cost is +inf on both
+    # sides, which lanes_agree does not count as agreeing).
+    z_agree = (agree.double().sum() / others.double().sum()).item()
+    flagged = all(bool(fk[lane] != 0) for lane in nan_lanes)
+    finite = all(bool(torch.isfinite(g[..., others]).all()) for g, _ in pairs)
+    print(f"# {tag} {dtype} (bit-identical {same}): max|kernel - plain| {err:.3e}, flags agree "
+          f"{flags_agree:.6f}, outputs within 1e-3 {z_agree:.6f}, NaN lanes flagged {flagged}, others finite "
+          f"{finite}, lanes flagged {int((fk != 0).sum())}", flush=True)
+    if nan_lanes and not (flagged and finite):
+        fail(f"{tag} {dtype}: NaN lanes not flagged or their neighbours not finite")
+    if dtype == "float64" and (err > 1e-9 or flags_agree != 1.0):
+        fail(f"{tag}: kernel disagrees with the plain version ({err}, flags {flags_agree})")
+    if dtype == "float32" and (flags_agree < 0.999 or z_agree < 0.995):
+        fail(f"{tag}: float32 agreement below threshold")
+
+
+def mpc_vs_plain(err8, err9):
+    """Phase 18: kernels 8 and 9 against their plain versions."""
+    B = 8192 + 13
+    solves = [("cart-pole T=20 8/3/2", "cartpole", MPC_COLD, False),
+              ("cart-pole T=20 2/2/1 +history", "cartpole", (2, 2, 1), True),
+              ("quadrotor T=12 8/3/2", "quadrotor", MPC_COLD, False)]
+    for name, kind, bud, hist in solves:
+        for dtype in (torch.float64, torch.float32):
+            fam, x_t, z_t = mpc_inputs(kind, B, 1, dtype, poison=True)
+            before = pm.KERNEL_LAUNCHES
+            got = pm._mpc_cuda(fam, x_t, z_t, *bud, hist)
+            torch.cuda.synchronize()
+            if pm.KERNEL_LAUNCHES != before + 1:
+                fail(f"{name}: the kernel-8 wrapper did not count its launch")
+            want = pm._mpc_plain(fam, x_t, z_t, *bud, hist)
+            check_mpc(f"phase18 kernel 8 {name} B={B}", got, want, 1, err8, nan_lanes=(5, 9))
+    servos = [("cart-pole T=20 1/1/1 x 8 periods", "cartpole", MPC_SERVO),
+              ("quadrotor T=12 2/1/1 x 8 periods", "quadrotor", QUAD_SERVO)]
+    for name, kind, bud in servos:
+        for dtype in (torch.float64, torch.float32):
+            fam, x_t, z_t = mpc_inputs(kind, B, 2, dtype, poison=True)
+            before = pm.SERVO_LAUNCHES
+            got = pm._mpc_servo_cuda(fam, x_t, z_t, 8, *bud)
+            torch.cuda.synchronize()
+            if pm.SERVO_LAUNCHES != before + 1:
+                fail(f"{name}: the kernel-9 wrapper did not count its launch")
+            want = pm._mpc_servo_plain(fam, x_t, z_t, 8, *bud)
+            check_mpc(f"phase18 kernel 9 {name} B={B}", got, want, 2, err9, nan_lanes=(5, 9))
+
+
+def expect_launches(tag, want_nonzero):
+    got = counts()
+    want = {k: want_nonzero.get(k, 0) for k in got}
+    if got != want:
+        fail(f"{tag}: launches {got}, expected {want_nonzero}")
+    return got
+
+
+def mpc_paths(card, kind):
+    """Phases 18-20; returns the rows of kernels 8 and 9."""
+    err8 = {"float64": 0.0, "float32": 0.0}
+    err9 = {"float64": 0.0, "float32": 0.0}
+    mpc_vs_plain(err8, err9)
+
+    # Phase 19: the main path, mpc_servo_bench's cold solve + servo loop.
+    fam = pm.cartpole_mpc_family(MPC_T, MPC_DT)
+    main = {}
+    for B in (1024, 8192):
+        x0 = torch.as_tensor(cartpole_mpc_instances(B, 0), dtype=torch.float32, device="cuda")
+        reset_counts()
+        z0 = mpcm.initial_guess(CART, x0, MPC_T, MPC_DT)
+        z = mot.fused_mpc_solve_batch(fam, x0, z0, *MPC_COLD)
+        x1 = mpcm.rk4_step(CART, x0, z[:, 0], MPC_DT)
+        z1 = mpcm.shift_warm_start(CART, z, MPC_T, MPC_DT)
+        xf, zf, stats = mot.fused_mpc_servo_batch(fam, x1, z1, MPC_GATE_PERIODS - 1, *MPC_SERVO)
+        torch.cuda.synchronize()
+        got = expect_launches(f"phase19 cart-pole B={B}", {"mpc": 1, "mpc_servo": 1})
+        if xf.shape != (B, 4) or zf.shape != (B, fam.dim) or stats.shape != (B, 4) or not xf.is_cuda:
+            fail(f"phase19: unexpected outputs {tuple(xf.shape)} {tuple(zf.shape)} {tuple(stats.shape)}")
+        theta = xf[:, 2].abs().double().cpu().numpy()
+        share = float(np.mean(theta < 0.05))
+        print(f"# phase19 main path cart-pole T={MPC_T} B={B} float32: cold fused_mpc_solve_batch "
+              f"{MPC_COLD}, rk4_step + shift_warm_start, fused_mpc_servo_batch {MPC_SERVO} x "
+              f"{MPC_GATE_PERIODS - 1}: launches {got}; stabilized share (|theta| < 0.05) {share:.6f}, "
+              f"|theta| median {np.median(theta):.3e} max {theta.max():.3e}, max|u0| {stats[:, 3].max().item():.4f}, "
+              f"lanes flagged {int((stats[:, 2] != 0).sum())}, all finite {bool(torch.isfinite(zf).all())}", flush=True)
+        if not share >= 0.99:
+            fail(f"phase19: stabilized share {share} is below 0.99")
+        main[B] = dict(x0=x0, z0=z0, x1=x1, z1=z1, share=share, launches=got)
+        if B == 1024:
+            xt, zt = x0.T.contiguous(), z0.T.contiguous()
+            zp, sp0, _ = pm._mpc_plain(fam, xt, zt, *MPC_COLD)
+            x1p = mpcm.rk4_step(CART, x0, zp[0], MPC_DT)
+            z1p = mpcm.shift_warm_start(CART, zp.T, MPC_T, MPC_DT)
+            want = pm._mpc_servo_plain(fam, x1p.T.contiguous(), z1p.T.contiguous(), MPC_GATE_PERIODS - 1,
+                                       *MPC_SERVO)
+            check_mpc(f"phase19 main path B={B} against the plain sequence", (z.T, xf.T, zf.T, stats.T),
+                      (zp,) + tuple(want), 3, err9)
+
+    B = 1024
+    x0 = main[B]["x0"]
+    reset_counts()
+    states, _, st_roll = mpcm.fused_mpc_rollout_batch(CART, x0, 8, MPC_T, MPC_DT, budget=(2, 2, 1))
+    torch.cuda.synchronize()
+    got = expect_launches("phase19 fused_mpc_rollout_batch", {"mpc": 8})
+    roll_share = float((states[-1][:, 2].abs() < 0.05).double().mean().item())
+    print(f"# phase19 fused_mpc_rollout_batch cart-pole B={B} float32 cold {MPC_COLD} then (2, 2, 1), 8 steps: "
+          f"launches {got}; stabilized share after 8 steps {roll_share:.6f}, lanes flagged "
+          f"{int((st_roll[:, 2] != 0).sum())}", flush=True)
+
+    quad = pm.quadrotor_mpc_family(QUAD_T, MPC_DT)
+    for Bq in (1024, 8192):
+        xq = torch.as_tensor(quadrotor_mpc_instances(Bq, 0), dtype=torch.float32, device="cuda")
+        reset_counts()
+        zq1 = mot.fused_mpc_solve_batch(quad, xq, mpcm.family_initial_guess(quad, xq), *MPC_COLD)
+        xqf, _, sq = mot.fused_mpc_servo_batch(quad, xq, zq1, QUAD_PERIODS, *QUAD_SERVO)
+        torch.cuda.synchronize()
+        got = expect_launches(f"phase19 quadrotor B={Bq}", {"mpc": 1, "mpc_servo": 1})
+        hover = ((xqf[:, :2].abs() < 0.1).all(1) & (xqf[:, 2].abs() < 0.05)).double().mean().item()
+        print(f"# phase19 quadrotor T={QUAD_T} B={Bq} float32: cold {MPC_COLD}, servo {QUAD_SERVO} x "
+              f"{QUAD_PERIODS}: launches {got}; hover share {hover:.6f}, lanes flagged "
+              f"{int((sq[:, 2] != 0).sum())}", flush=True)
+        if not hover >= 0.99:
+            fail(f"phase19: quadrotor hover share {hover} is below 0.99")
+
+    # Phase 20: times at the main path's shapes (B = 1024).
+    m = main[B]
+    x0, z0, x1, z1 = m["x0"], m["z0"], m["x1"], m["z1"]
+    xt, zt, x1t, z1t = (a.T.contiguous() for a in (x0, z0, x1, z1))
+    k8 = lambda: pm._mpc_cuda(fam, xt, zt, *MPC_COLD)  # noqa: E731
+    k8_ms, k8_all = time_ms(k8, launches=10, held=True)
+    k8_one = lambda: pm._mpc_cuda(fam, xt[:, :1].contiguous(), zt[:, :1].contiguous(), *MPC_COLD)  # noqa: E731
+    k8_one_ms, _ = time_ms(k8_one, launches=10, held=True)
+    K = 65
+    s1_ms, _ = time_ms(lambda: pm._mpc_servo_cuda(fam, x1t, z1t, 1, *MPC_SERVO), launches=10, held=True)
+    sK_ms, sK_all = time_ms(lambda: pm._mpc_servo_cuda(fam, x1t, z1t, K, *MPC_SERVO), launches=3, held=True)
+    per_period = (sK_ms - s1_ms) / (K - 1)
+    e8_ms, _ = time_ms(lambda: mot.fused_mpc_solve_batch(fam, x0, z0, *MPC_COLD), launches=10)
+    e9_ms, _ = time_ms(lambda: mot.fused_mpc_servo_batch(fam, x1, z1, MPC_GATE_PERIODS - 1, *MPC_SERVO),
+                       launches=3)
+    plain8 = lambda: pm._mpc_plain(fam, xt, zt, *MPC_COLD)  # noqa: E731
+    plain8_ms, _ = event_ms(plain8)
+    plain9_ms, _ = event_ms(lambda: pm._mpc_servo_plain(fam, x1t, z1t, 2, *MPC_SERVO))
+    plain9_ms /= 2
+    ops8 = count_ops(plain8)
+    ops9 = count_ops(lambda: pm._mpc_servo_plain(fam, x1t, z1t, 1, *MPC_SERVO))
+    nx, dim = fam.nx, fam.dim
+    # Kernel 8 reads x0 and z0 and writes z and the state; kernel 9's K-period
+    # launch reads x and z and writes x, z and 4 stats, a 1/K share per period.
+    bound8_ms, bound8_by = roofline(ops8, B * (nx + dim + dim + 3) * 4)
+    bound9_ms, bound9_by = roofline(ops9, B * (nx + dim + nx + dim + 4) * 4 / K)
+    print(f"# phase20 kernel 8 cart-pole T={MPC_T} B={B} float32 {MPC_COLD} on {kind} ({card}): alone on the card "
+          f"{k8_ms:.4f} ms ({B / k8_ms * 1e3:.4e} solves/s), at B=1 {k8_one_ms:.4f} ms; fused_mpc_solve_batch "
+          f"issued back to back {e8_ms:.4f} ms/call; plain {plain8_ms:.1f} ms; {ops8 / B:.0f} elementwise ops "
+          f"per instance -> bound {bound8_ms:.6f} ms ({bound8_by}), kernel = {k8_ms / bound8_ms:.1f}x bound; "
+          f"library none; repeats {k8_all}", flush=True)
+    print(f"# phase20 kernel 9 cart-pole T={MPC_T} B={B} float32 {MPC_SERVO} on {kind} ({card}): servo(1) "
+          f"{s1_ms:.4f} ms, servo({K}) {sK_ms:.4f} ms -> {per_period:.5f} ms per period "
+          f"({B / per_period * 1e3:.4e} control solves/s); fused_mpc_servo_batch x {MPC_GATE_PERIODS - 1} "
+          f"issued back to back {e9_ms:.4f} ms/call; plain {plain9_ms:.1f} ms per period; {ops9 / B:.0f} "
+          f"elementwise ops per instance-period -> bound {bound9_ms:.6f} ms ({bound9_by}), kernel = "
+          f"{per_period / bound9_ms:.1f}x bound; library none; repeats servo({K}) {sK_all}", flush=True)
+
+    # The general twin: solve_mpc batched through nls_solve on the Riccati
+    # KKT backend at 2/2/1, Mehrotra, on the same lanes (reported).
+    params = dataclasses.replace(
+        mpcm.default_mpc_params(torch.float32, early_exit=False, horizon=MPC_T),
+        max_iterations=2, max_qp_iterations=2, max_line_search_iterations=1,
+        qp_barrier_strategy=mot.BarrierStrategy.PREDICTOR_CORRECTOR, record_history=False,
+    )
+    general = lambda: mpcm.solve_mpc(CART, x0, MPC_T, MPC_DT, params=params, z0=z0)  # noqa: E731
+    general()
+    torch.cuda.synchronize()
+    gen_ms, res = event_ms(general)
+    _, st_k = mot.fused_mpc_solve_batch(fam, x0, z0, 2, 2, 1, return_state=True)
+    k221_ms, _ = time_ms(lambda: pm._mpc_cuda(fam, xt, zt, 2, 2, 1), launches=10, held=True)
+    f_gen = res.errors.f.double().cpu().numpy()
+    f_k = st_k[:, 0].double().cpu().numpy()
+    print(f"# phase20 general twin solve_mpc + nls_solve kkt_solver={params.kkt_solver} cart-pole T={MPC_T} "
+          f"B={B} float32 2/2/1 mpc on {kind} ({card}): {gen_ms:.3f} ms/call ({B / gen_ms * 1e3:.4e} "
+          f"solves/s), cost median {np.median(f_gen):.6e} (kernel 8 at 2/2/1 on the same lanes "
+          f"{np.median(f_k):.6e}, {k221_ms:.4f} ms held); kernel solves/s over the twin's "
+          f"{gen_ms / k221_ms:.1f}x", flush=True)
+
+    common = dict(route="cuda", source="mini_opt_tpu_torch/csrc/mpc.cu", library_ms=None, card=card)
+    return [
+        dict(common, name="mpc_solve", replaces="mini_opt_tpu/ops/pallas_mpc.py:419",
+             function="_make_mpc_kernel (launched :1268)", launches=m["launches"]["mpc"],
+             max_abs_err=max(err8.values()), max_abs_diff_f64=err8["float64"], ms=k8_ms, plain_ms=plain8_ms,
+             bound_ms=bound8_ms, bound_by=bound8_by, shape=f"B={B} cart-pole T={MPC_T} float32 8/3/2",
+             ops_per_instance=ops8 / B, ms_at_B1=k8_one_ms, entry_ms=e8_ms, general_twin_ms_221=gen_ms),
+        dict(common, name="mpc_servo", replaces="mini_opt_tpu/ops/pallas_mpc.py:992",
+             function="_make_mpc_servo_kernel (launched :1131)", launches=m["launches"]["mpc_servo"],
+             max_abs_err=max(err9.values()), max_abs_diff_f64=err9["float64"], ms=per_period,
+             plain_ms=plain9_ms, bound_ms=bound9_ms, bound_by=bound9_by,
+             shape=f"B={B} cart-pole T={MPC_T} float32 1/1/1, per period of a {K}-period launch",
+             ops_per_instance=ops9 / B, control_solves_per_s=B / per_period * 1e3,
+             stabilized_share=m["share"], entry_ms_29_periods=e9_ms),
+    ]
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1077,6 +1353,13 @@ def main():
                 kernel, t, n, k = m.groups()
                 label = f"{kernel}<{'float' if t == 'f' else 'double'}" + (f", N={n}, K={k}>" if n else ">")
                 print(f"# phase9 ptxas {label}: {nreg} registers, {spill} bytes spill stores", flush=True)
+        # Phase 17: the MPC kernels, from the same build.
+        for name, nreg, spill, _, stack in ptxas_report(text):
+            m = re.search(r"mpc_(solve|servo)_kernelI([fd])NS0_\d+(CartPole|Quadrotor)", name)
+            if m:
+                which, t, plant = m.groups()
+                print(f"# phase17 ptxas mpc_{which}<{'float' if t == 'f' else 'double'}, {plant}>: {nreg} "
+                      f"registers, {spill} bytes spill stores, {stack} bytes stack frame", flush=True)
         # Phase 13: the pose-ring kernel, from the same build.
         for name, nreg, spill, _, stack in ptxas_report(text):
             m = re.search(r"pose_ring_kernelI([fd])Li(\d+)E", name)
@@ -1189,6 +1472,7 @@ def main():
     blocked_rows = blocked_paths(card, kind)
     general_rows = general_paths(card, kind)
     ring_rows = pose_ring_paths(card, kind)
+    mpc_rows = mpc_paths(card, kind)
 
     print(json.dumps({"kernels": [{
         "name": "fused_ik_sqp",
@@ -1207,7 +1491,7 @@ def main():
         "shape": f"B={B} n=2 float32 4/2/1 mpc armijo",
         "ops_per_instance": ops_per_instance,
         "card": card,
-    }] + blocked_rows + general_rows + ring_rows}), flush=True)
+    }] + blocked_rows + general_rows + ring_rows + mpc_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

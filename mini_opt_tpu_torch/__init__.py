@@ -18,13 +18,24 @@ grows slice by slice. It carries:
   chain-plus-closure graphs, ``models.pose_graph.solve_pose_graph_rings``,
   solved by one bordered block-Thomas CUDA kernel (``csrc/pose_ring.cu``,
   reached through ``ops.pose_ring``);
+* model-predictive control of plant fleets: the cart-pole transcription on
+  the general path (``models.mpc``, with the structured Riccati KKT backend
+  ``kkt_solver="riccati:T:NX:NU"``), and the fused serving tier, one MPC
+  period per launch (``fused_mpc_solve_batch``, ``csrc/mpc.cu``) or the
+  whole receding-horizon loop in one launch (``fused_mpc_servo_batch``);
 
 each kernel with a plain PyTorch version of the same computation for CPU
 tensors.
 """
 
 from .assertions import MiniOptError, validate_problem
-from .convert import batch_from_numpy, batch_to_numpy, chain_from_numpy, params_from_dict
+from .convert import (
+    batch_from_numpy,
+    batch_to_numpy,
+    chain_from_numpy,
+    mpc_family_from_numpy,
+    params_from_dict,
+)
 from .models.ik import (
     default_ik_params,
     make_ik_problem,
@@ -33,6 +44,7 @@ from .models.ik import (
     solve_ik_batch,
 )
 from .models.pose_graph import make_pose_graph_problem, solve_pose_graph
+from .models.mpc import CartPole, default_mpc_params, serving_mpc_params, solve_mpc
 from .nonlinear import NLSParams, Problem, nls_solve
 from .ops.blocked import REGISTER_KKT_MAX, blocked_kkt_solve, blocked_solve_batch
 from .ops.fused_ik import (
@@ -45,6 +57,13 @@ from .ops.fused_ik import (
     spatial_family,
 )
 from .ops.fused_qp import make_fused_qp_solver
+from .ops.mpc import (
+    MPCFamily,
+    cartpole_mpc_family,
+    fused_mpc_servo_batch,
+    fused_mpc_solve_batch,
+    quadrotor_mpc_family,
+)
 from .parallel.batch import solve_batch
 from .qp import QP, LinearInequalityConstraint, QPInteriorPointParams, Var, qp_ip_solve, qp_null_space_solve
 from .residual import (
@@ -83,6 +102,7 @@ __all__ = [
     "AlphaValues",
     "BarrierStrategy",
     "BlockResidual",
+    "CartPole",
     "DirectionalDerivatives",
     "Errors",
     "FusedFamily",
@@ -90,6 +110,7 @@ __all__ = [
     "KKTError",
     "LineSearchStrategy",
     "LinearInequalityConstraint",
+    "MPCFamily",
     "MiniOptError",
     "NLSIterationHistory",
     "NLSParams",
@@ -116,10 +137,14 @@ __all__ = [
     "batch_to_numpy",
     "blocked_kkt_solve",
     "blocked_solve_batch",
+    "cartpole_mpc_family",
     "chain_from_numpy",
     "default_ik_params",
+    "default_mpc_params",
     "fill_jacobian_rows",
     "fused_ik_solve_batch",
+    "fused_mpc_servo_batch",
+    "fused_mpc_solve_batch",
     "fused_solve_batch",
     "fused_spatial_ik_solve_batch",
     "fused_termination_status",
@@ -129,14 +154,18 @@ __all__ = [
     "make_pose_graph_problem",
     "make_residual",
     "mod_pi_retraction",
+    "mpc_family_from_numpy",
     "nls_solve",
     "params_from_dict",
     "planar_family",
     "qp_ip_solve",
     "qp_null_space_solve",
+    "quadrotor_mpc_family",
     "robustify",
+    "serving_mpc_params",
     "solve_batch",
     "solve_ik_batch",
+    "solve_mpc",
     "solve_pose_graph",
     "spatial_family",
     "termination_state_indicates_satisfied_tol",

@@ -155,3 +155,20 @@ def pose_ring_from_numpy(fields, measurements, x0, device=None, dtype=None):
         for a in (meas, x0)
     ]
     return (family,) + tuple(t.to(dtype or t.dtype) for t in out)
+
+
+def mpc_family_from_numpy(kind, horizon, dt, **constants):
+    """The port's ``MPCFamily`` of the named plant: ``kind`` "cartpole"
+    (constants: u_max, q, q_terminal, r_u, goal, mass_cart, mass_pole,
+    length, gravity) or "quadrotor" (u_max, mass, inertia, arm, gravity, q,
+    q_terminal, r_u), the keywords of the JAX package's
+    ``cartpole_mpc_family`` / ``quadrotor_mpc_family`` as floats, so that
+    both packages build the same family."""
+    from .ops.mpc import cartpole_mpc_family, quadrotor_mpc_family
+
+    families = {"cartpole": cartpole_mpc_family, "quadrotor": quadrotor_mpc_family}
+    if kind not in families:
+        raise ValueError(f"kind must be one of {sorted(families)}, not {kind!r}")
+    kw = {k: (tuple(float(x) for x in v) if isinstance(v, (tuple, list, np.ndarray)) else float(v))
+          for k, v in constants.items()}
+    return families[kind](int(horizon), float(dt), **kw)

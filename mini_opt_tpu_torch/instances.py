@@ -13,6 +13,11 @@ targets and ``(B, n)`` starts; a caller casts them to its working dtype.
 repo's pose-ring bench distributions (``scripts/bench_extras.py``:
 ``pose_ring_bench`` :867-883 and ``pose_ring_chain_closure_bench``
 :1299-1320): float64 ``(B, 3E)`` edge measurements and ``(B, 3N)`` starts.
+
+``cartpole_mpc_instances`` and ``quadrotor_mpc_instances`` are copies of the
+JAX repo's MPC fleet distributions (``scripts/bench_extras.py``:
+``mpc_servo_bench`` :770-780 and ``mpc_quadrotor_bench`` :1209-1213):
+float64 ``(B, nx)`` plant states.
 """
 
 from __future__ import annotations
@@ -147,3 +152,28 @@ def effector_error(kind, x, targets, link_len=0.4):
     else:
         p = spatial_fk(x, link_len)
     return np.abs(p - targets).max(axis=1)
+
+
+def cartpole_mpc_instances(B, seed=0):
+    """Cart-pole plant states (p, v, theta, w) uniform in +-0.2, +-0.2,
+    +-0.35, +-0.2."""
+    rng = np.random.default_rng(seed)
+    return np.column_stack(
+        [
+            rng.uniform(-0.2, 0.2, B),
+            rng.uniform(-0.2, 0.2, B),
+            rng.uniform(-0.35, 0.35, B),
+            rng.uniform(-0.2, 0.2, B),
+        ]
+    )
+
+
+def quadrotor_mpc_instances(B, seed=0):
+    """Planar-quadrotor states (x, y, theta, vx, vy, omega): position
+    uniform in +-0.4, heading in +-0.25, at rest."""
+    rng = np.random.default_rng(seed)
+    x0 = np.zeros((B, 6))
+    x0[:, 0] = rng.uniform(-0.4, 0.4, B)
+    x0[:, 1] = rng.uniform(-0.4, 0.4, B)
+    x0[:, 2] = rng.uniform(-0.25, 0.25, B)
+    return x0

@@ -177,6 +177,26 @@ def load_library():
                 p,  # cudaStream_t
             ]
             lib.mo_pose_ring_launch.restype = i
+            lib.mo_mpc_scratch_slots.argtypes = [i, i]  # plant, horizon
+            lib.mo_mpc_scratch_slots.restype = i
+            lib.mo_mpc_launch.argtypes = [
+                i, i,  # dtype, plant
+                p, p,  # plant constants, cost constants (double arrays)
+                i,  # horizon
+                p, p, p, p, p, p,  # x0, z0, z_out, stat, history (or NULL), scratch
+                i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
+                p,  # cudaStream_t
+            ]
+            lib.mo_mpc_launch.restype = i
+            lib.mo_mpc_servo_launch.argtypes = [
+                i, i,  # dtype, plant
+                p, p,  # plant constants, cost constants (double arrays)
+                i,  # horizon
+                p, p, p, p, p, p,  # x0, z0, x_out, z_out, stats, scratch
+                i, i, i, i, i,  # B, periods, max_iterations, qp_iterations, ls_iterations
+                p,  # cudaStream_t
+            ]
+            lib.mo_mpc_servo_launch.restype = i
             lib.mo_cuda_error_string.argtypes = [i]
             lib.mo_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -10,9 +10,10 @@ and ``rhs (B, D)``.
 * ``"ldlt_ir"`` -- LDL^T plus one step of iterative refinement.
 * ``"pallas_ldlt"`` -- the lane-batched kernels of ``ops/ldlt.py``
                   (``csrc/ldlt.cu`` on the card).
+* ``"riccati:T:NX:NU"`` -- the structured backward Riccati recursion of
+                  ``ops/riccati.py`` for MPC transcriptions.
 
 ``"auto"`` resolves as the JAX package resolves it off a TPU: to ``"lu"``.
-The structured ``"riccati:T:NX:NU"`` backend is not ported yet and raises.
 ``factorize`` returns ``(fact, ok)``, ``ok (B,)`` the per-lane replacement
 for the reference's FailedFactorization exception (qp.cc:303-307).
 """
@@ -22,12 +23,6 @@ from __future__ import annotations
 import torch
 
 SOLVERS = ("auto", "lu", "ldlt", "ldlt_ir", "pallas_ldlt")
-
-_RICCATI_TODO = (
-    "the riccati:* KKT backend is not ported yet (ROADMAP.md queue 1, slice 6: "
-    "ops/riccati.py)"
-)
-
 
 def is_valid_solver(name: str) -> bool:
     """Fixed names plus the parameterized ``"riccati:T:NX:NU"`` backend."""
@@ -132,7 +127,9 @@ def kkt_factorize(H, solver: str):
 
         return ldlt.factorize(H)
     if solver.startswith("riccati:"):
-        raise NotImplementedError(_RICCATI_TODO)
+        from . import riccati
+
+        return riccati.riccati_factorize(H, *riccati.parse(solver))
     raise ValueError(f"unknown kkt solver: {solver!r}")
 
 
@@ -149,5 +146,7 @@ def kkt_solve(fact, rhs, solver: str):
 
         return ldlt.solve(fact, rhs)
     if solver.startswith("riccati:"):
-        raise NotImplementedError(_RICCATI_TODO)
+        from . import riccati
+
+        return riccati.riccati_solve(fact, rhs, *riccati.parse(solver))
     raise ValueError(f"unknown kkt solver: {solver!r}")

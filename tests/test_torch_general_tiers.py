@@ -230,17 +230,20 @@ NOT_PORTED = {
     "log_qp_eigenvalues": (dict(log_qp_eigenvalues=True), {}),
     "exit_callback": ({}, dict(exit_callback=lambda row: True)),
     "axis_name": ({}, dict(axis_name="mp")),
-    "riccati": (dict(kkt_solver="riccati:4:2:1"), {}),
+    # Ported since: the Riccati backend now runs and refuses a condensed
+    # system that is not a horizon-4 MPC transcription.
+    "riccati": (dict(kkt_solver="riccati:4:2:1"), {}, ValueError, "expects a"),
 }
 
 
 @pytest.mark.parametrize("case", list(NOT_PORTED))
 def test_unported_options_raise(case):
-    fields, kwargs = NOT_PORTED[case]
+    fields, kwargs, *expect = NOT_PORTED[case]
+    exc, match = expect or (NotImplementedError, "ROADMAP")
     params = port.NLSParams(max_iterations=2, **fields)
     chain = port.make_planar_chain(2, dtype=torch.float64, device="cpu")
     targets, x0 = planar_instances(2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         port.nls_solve(
             lambda t: port.make_ik_problem(chain, t), params, torch.as_tensor(x0),
             data=torch.as_tensor(targets), **kwargs,

@@ -52,7 +52,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, mini_opt_tpu_torch, mini_opt_tpu_torch.instances, "
         "mini_opt_tpu_torch.utils.numerical, mini_opt_tpu_torch.utils.tol, "
-        "mini_opt_tpu_torch.ops.pose_ring, mini_opt_tpu_torch.models.pose_graph; "
+        "mini_opt_tpu_torch.ops.pose_ring, mini_opt_tpu_torch.models.pose_graph, "
+        "mini_opt_tpu_torch.ops.mpc, mini_opt_tpu_torch.ops.riccati, mini_opt_tpu_torch.models.mpc; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -136,7 +137,7 @@ def test_sources_present_and_build_dir_ignored():
     csrc = REPO / "mini_opt_tpu_torch" / "csrc"
     for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu", "blocked_sqp.cuh", "blocked.cu",
                  "blocked_kkt.cu", "ldlt.cu", "fused_qp.cu", "pose_ring.cuh", "pose_ring.cu",
-                 "pose_ring_f64.cu"):
+                 "pose_ring_f64.cu", "mpc.cuh", "mpc.cu", "mpc_f64.cu"):
         assert (csrc / name).is_file(), name
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
@@ -341,3 +342,32 @@ def test_general_path_launches_its_kernels(route):
     assert launched == ((70, 70, 0) if route == "pallas_ldlt" else (0, 0, 10))
     assert res.x.is_cuda
     assert (effector_error("planar", res.x.cpu().numpy(), targets) < 1e-3).mean() >= 0.99
+
+
+@pytest.mark.cuda
+@needs_cuda
+def test_mpc_entry_points_launch_or_raise():
+    """fused_mpc_solve_batch and fused_mpc_servo_batch launch kernels 8 and 9
+    once per call on CUDA tensors (numpy inputs go to the card), run the
+    plain version only for backend="xla", and raise for a family without a
+    device functor."""
+    import dataclasses
+
+    from mini_opt_tpu_torch.instances import cartpole_mpc_instances
+    from mini_opt_tpu_torch.models import mpc
+    from mini_opt_tpu_torch.ops import mpc as pm
+
+    fam = pm.cartpole_mpc_family(20, 0.05)
+    x0 = cartpole_mpc_instances(256, 0).astype(np.float32)
+    z0 = mpc.initial_guess(mpc.CartPole(), torch.as_tensor(x0), 20, 0.05).numpy()
+    before = (pm.KERNEL_LAUNCHES, pm.SERVO_LAUNCHES)
+    z = port.fused_mpc_solve_batch(fam, x0, z0, 8, 3, 2)
+    xf, zf, stats = port.fused_mpc_servo_batch(fam, x0, z.cpu().numpy(), 5)
+    torch.cuda.synchronize()
+    assert z.is_cuda and xf.is_cuda and (pm.KERNEL_LAUNCHES, pm.SERVO_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    zx = port.fused_mpc_solve_batch(fam, torch.as_tensor(x0, device="cuda"), torch.as_tensor(z0, device="cuda"),
+                                    8, 3, 2, backend="xla")
+    assert zx.is_cuda and pm.KERNEL_LAUNCHES == before[0] + 1
+    assert bool(((zx == z) | (zx.isnan() & z.isnan())).all())
+    with pytest.raises(NotImplementedError, match="functor"):
+        port.fused_mpc_solve_batch(dataclasses.replace(fam, cuda_functor=None), x0, z0)
