@@ -87,14 +87,19 @@ Phases, each of which exits non-zero on failure:
    the kernel's (reported, not gated);
 17. the MPC kernels (csrc/mpc.cu, mpc_f64.cu), built in phase 2's parallel
    nvcc pass: ptxas registers, spill stores and stack frame per instance
-   (solve and servo, float and double, cart-pole and quadrotor);
-18. kernels 8 and 9 against their plain versions, B = 8192 + 13 with one
-   NaN-state lane and one NaN-warm-start lane, float64 and float32: kernel 8
-   on the cart-pole at T = 20 at the cold budget 8/3/2 and at 2/2/1 with
-   history, and on the quadrotor at T = 12, 8/3/2; kernel 9 on the
-   cart-pole at 1/1/1 and the quadrotor at 2/1/1, 8 periods each. float64
-   within 1e-9 with identical flags, float32 phase 3's shares; the NaN lanes
-   flagged, every other lane finite;
+   (solve and servo, float and double, cart-pole and quadrotor), and the
+   launch plan at the main path's horizon (and the quadrotor at T = 128):
+   warps (instances) per CTA, dynamic shared memory per CTA, CTAs per SM;
+18. kernels 8 and 9 against their plain versions, bit for bit, float64
+   and float32: at B = 8192 + 13 with one NaN-state lane and one
+   NaN-warm-start lane, kernel 8 on the cart-pole at T = 20 at the cold
+   budget 8/3/2 and at 2/2/1 with history, and on the quadrotor at T = 12,
+   8/3/2; kernel 9 on the cart-pole at 1/1/1 and the quadrotor at 2/1/1, 8
+   periods each; then both plants at B = 1 and at B = W + 1 (a ragged last
+   CTA of W warps), and the quadrotor at T = 128, B = 67, 1/1/1 (kernel 9
+   for 2 periods), where float64 takes the global-scratch route and
+   float32 one warp per CTA; the NaN lanes flagged, every other lane
+   finite;
 19. the MPC main path in float32 at B = 1024 (scripts/bench_extras.py's
    fleet) and B = 8192, every launch counter set to 0 just before and read
    just after: the cart-pole at mpc_servo_bench's settings (T = 20,
@@ -106,9 +111,10 @@ Phases, each of which exits non-zero on failure:
    kernel-8 launches, its stabilized share reported); the quadrotor at
    mpc_quadrotor_bench's settings (T = 12, cold 8/3/2, servo 2/1/1 for 64
    periods, one launch each; hover share at least 0.99);
-20. timings (held): kernel 8 at the cold budget at B = 1024 and B = 1,
-   kernel 9 per period as (servo(65) - servo(1)) / 64 (the bench's
-   difference method) and its control solves/s, the entry points as a caller
+20. timings (held): kernel 8 at the cold budget at B = 1024, B = 1 and
+   B = 8192, kernel 9 per period as (servo(65) - servo(1)) / 64 (the bench's
+   difference method) at the same three widths and its control solves/s,
+   the entry points as a caller
    issues them, each plain version once, the bounds; and the general twin,
    solve_mpc batched through nls_solve with kkt_solver="riccati:20:4:1" at
    B = 1024 and 2/2/1 (Mehrotra), ms per call and its cost median beside the
@@ -120,9 +126,8 @@ versions' order and build without FMA contraction, so they are expected to
 agree bit for bit (each comparison prints whether they did); the gates
 allow float64 1e-9 and, in float32, where a chaotic lane may flip with one
 rounding, the slice-1 shares. Kernels 4-6 and the general path (phases
-10-12) are held bit for bit in both types. Kernels 7-9 (phases 14-15,
-18-19) keep phase 3's gates: their float32 solves run sin and cos in every
-iteration.
+10-12) and kernels 8-9 (phases 18-19) are held bit for bit in both types.
+Kernel 7 (phases 14-15) keeps phase 3's gates.
 """
 
 import contextlib
@@ -1084,14 +1089,51 @@ QUAD_T, QUAD_PERIODS, QUAD_SERVO = 12, 64, (2, 1, 1)  # bench_extras.py:1195-119
 CART = mpcm.CartPole()
 
 
-def mpc_inputs(kind, B, seed, dtype, poison=False):
+# The global-scratch route: at this horizon one float64 quadrotor slab
+# (247,808 B) exceeds a CTA's 232,448 B of shared memory; float32 (123,904
+# B) stays in shared memory, one warp per CTA.
+SLAB_T, SLAB_B = 128, 67
+
+
+def mpc_family(kind, T=None):
+    if kind == "cartpole":
+        return pm.cartpole_mpc_family(T or MPC_T, MPC_DT)
+    return pm.quadrotor_mpc_family(T or QUAD_T, MPC_DT)
+
+
+def mpc_build_report(text):
+    """Phase 17: per MPC kernel instance, ptxas's registers, spill stores
+    and stack frame, and at the main path's horizon (and the global-scratch
+    one) the launch plan: warps (instances) per CTA, dynamic shared memory
+    per CTA, CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = _build.load_library()
+    dtypes = {"f": torch.float32, "d": torch.float64}
+    for name, nreg, spill, _, stack in ptxas_report(text):
+        m = re.search(r"mpc_(solve|servo)_kernelI([fd])NS0_\d+(CartPole|Quadrotor)", name)
+        if not m:
+            continue
+        which, t, plant = m.groups()
+        kind = "cartpole" if plant == "CartPole" else "quadrotor"
+        dtype = dtypes[t]
+        plans = []
+        for T in ((MPC_T,) if kind == "cartpole" else (QUAD_T, SLAB_T)):
+            plan = pm.launch_plan(mpc_family(kind, T), 1024, dtype)
+            ctas = lib.mo_mpc_occupancy(pm._CUDA_DTYPE_IDS[dtype], pm._CUDA_PLANTS[kind], T, int(which == "servo"),
+                                        plan.warps, int(plan.storage == "global"))
+            if ctas < 1:
+                fail(f"phase17: mpc_{which}<{t}, {plant}> at T={T}: occupancy query returned {ctas}")
+            plans.append(f"T={T}: {plan.warps} warps/CTA, {plan.cta_bytes} B {plan.storage}, {ctas} CTAs/SM "
+                         f"({ctas * plan.warps} instances/SM)")
+        print(f"# phase17 ptxas mpc_{which}<{'float' if t == 'f' else 'double'}, {plant}>: {nreg} "
+              f"registers, {spill} bytes spill stores, {stack} bytes stack frame; " + "; ".join(plans), flush=True)
+
+
+def mpc_inputs(kind, B, seed, dtype, poison=False, T=None):
     """(family, x (nx, B), z (dim, B)): the bench's fleet as feature-major
     CUDA tensors and the cold initial guess; ``poison`` makes lane 5's
     state and lane 9's warm start NaN."""
-    if kind == "cartpole":
-        fam, x = pm.cartpole_mpc_family(MPC_T, MPC_DT), cartpole_mpc_instances(B, seed)
-    else:
-        fam, x = pm.quadrotor_mpc_family(QUAD_T, MPC_DT), quadrotor_mpc_instances(B, seed)
+    fam = mpc_family(kind, T)
+    x = (cartpole_mpc_instances if kind == "cartpole" else quadrotor_mpc_instances)(B, seed)
     z = mpcm.family_initial_guess(fam, torch.as_tensor(x)).numpy()
     if poison:
         x[5, 2] = np.nan
@@ -1101,10 +1143,10 @@ def mpc_inputs(kind, B, seed, dtype, poison=False):
 
 def check_mpc(tag, got, want, flag_row, max_err, nan_lanes=()):
     """Kernel 8's or 9's feature-major outputs against the plain version's:
-    float64 within 1e-9 with identical flags (row 2 of ``got[flag_row]``),
-    float32 flags on >= 99.9% of lanes and every output within 1e-3 on
-    >= 99.5% of the lanes with finite inputs; the NaN lanes flagged and every other lane finite. Records the
-    largest |kernel - plain| per dtype."""
+    bit for bit in both types (the kernels sum in the plain versions' order
+    and build without FMA contraction); the NaN lanes flagged and every
+    other lane finite. Also reports the float64 1e-9 and float32 share
+    measures of phase 3. Records the largest |kernel - plain| per dtype."""
     pairs = [(g, w) for g, w in zip(got, want) if w is not None]
     dtype = str(got[0].dtype).replace("torch.", "")
     same = bit_identical(*pairs)
@@ -1127,6 +1169,8 @@ def check_mpc(tag, got, want, flag_row, max_err, nan_lanes=()):
           f"{finite}, lanes flagged {int((fk != 0).sum())}", flush=True)
     if nan_lanes and not (flagged and finite):
         fail(f"{tag} {dtype}: NaN lanes not flagged or their neighbours not finite")
+    if not same:
+        fail(f"{tag} {dtype}: kernel and plain version are not bit-identical (max diff {err})")
     if dtype == "float64" and (err > 1e-9 or flags_agree != 1.0):
         fail(f"{tag}: kernel disagrees with the plain version ({err}, flags {flags_agree})")
     if dtype == "float32" and (flags_agree < 0.999 or z_agree < 0.995):
@@ -1134,7 +1178,7 @@ def check_mpc(tag, got, want, flag_row, max_err, nan_lanes=()):
 
 
 def mpc_vs_plain(err8, err9):
-    """Phase 18: kernels 8 and 9 against their plain versions."""
+    """Phase 18: kernels 8 and 9 against their plain versions, bit for bit."""
     B = 8192 + 13
     solves = [("cart-pole T=20 8/3/2", "cartpole", MPC_COLD, False),
               ("cart-pole T=20 2/2/1 +history", "cartpole", (2, 2, 1), True),
@@ -1142,25 +1186,50 @@ def mpc_vs_plain(err8, err9):
     for name, kind, bud, hist in solves:
         for dtype in (torch.float64, torch.float32):
             fam, x_t, z_t = mpc_inputs(kind, B, 1, dtype, poison=True)
-            before = pm.KERNEL_LAUNCHES
-            got = pm._mpc_cuda(fam, x_t, z_t, *bud, hist)
-            torch.cuda.synchronize()
-            if pm.KERNEL_LAUNCHES != before + 1:
-                fail(f"{name}: the kernel-8 wrapper did not count its launch")
-            want = pm._mpc_plain(fam, x_t, z_t, *bud, hist)
-            check_mpc(f"phase18 kernel 8 {name} B={B}", got, want, 1, err8, nan_lanes=(5, 9))
+            solve_vs_plain(f"phase18 kernel 8 {name} B={B}", fam, x_t, z_t, bud, hist, err8, (5, 9))
     servos = [("cart-pole T=20 1/1/1 x 8 periods", "cartpole", MPC_SERVO),
               ("quadrotor T=12 2/1/1 x 8 periods", "quadrotor", QUAD_SERVO)]
     for name, kind, bud in servos:
         for dtype in (torch.float64, torch.float32):
             fam, x_t, z_t = mpc_inputs(kind, B, 2, dtype, poison=True)
-            before = pm.SERVO_LAUNCHES
-            got = pm._mpc_servo_cuda(fam, x_t, z_t, 8, *bud)
-            torch.cuda.synchronize()
-            if pm.SERVO_LAUNCHES != before + 1:
-                fail(f"{name}: the kernel-9 wrapper did not count its launch")
-            want = pm._mpc_servo_plain(fam, x_t, z_t, 8, *bud)
-            check_mpc(f"phase18 kernel 9 {name} B={B}", got, want, 2, err9, nan_lanes=(5, 9))
+            servo_vs_plain(f"phase18 kernel 9 {name} B={B}", fam, x_t, z_t, 8, bud, err9, (5, 9))
+
+    # One instance, and a ragged last CTA (W + 1 instances for W warps per
+    # CTA), on both plants at the main path's budgets.
+    for kind, bud9 in (("cartpole", MPC_SERVO), ("quadrotor", QUAD_SERVO)):
+        for dtype in (torch.float64, torch.float32):
+            for Bs in (1, pm.launch_plan(mpc_family(kind), 1, dtype).warps + 1):
+                fam, x_t, z_t = mpc_inputs(kind, Bs, 3, dtype)
+                solve_vs_plain(f"phase18 kernel 8 {kind} 8/3/2 +history B={Bs}", fam, x_t, z_t, MPC_COLD, True, err8)
+                servo_vs_plain(f"phase18 kernel 9 {kind} {bud9} x 8 periods B={Bs}", fam, x_t, z_t, 8, bud9, err9)
+
+    # The global-scratch route (float64) and one warp per CTA (float32).
+    for dtype, storage in ((torch.float64, "global"), (torch.float32, "shared")):
+        fam, x_t, z_t = mpc_inputs("quadrotor", SLAB_B, 4, dtype, poison=True, T=SLAB_T)
+        plan = pm.launch_plan(fam, SLAB_B, dtype)
+        if plan.storage != storage:
+            fail(f"phase18: quadrotor T={SLAB_T} {dtype} plans {plan}, not the {storage} route")
+        tag = f"quadrotor T={SLAB_T} B={SLAB_B} ({plan.storage}, {plan.warps} warps/CTA)"
+        solve_vs_plain(f"phase18 kernel 8 {tag} 1/1/1", fam, x_t, z_t, (1, 1, 1), False, err8, (5, 9))
+        servo_vs_plain(f"phase18 kernel 9 {tag} 1/1/1 x 2 periods", fam, x_t, z_t, 2, (1, 1, 1), err9, (5, 9))
+
+
+def solve_vs_plain(tag, fam, x_t, z_t, bud, hist, err8, nan_lanes=()):
+    before = pm.KERNEL_LAUNCHES
+    got = pm._mpc_cuda(fam, x_t, z_t, *bud, hist)
+    torch.cuda.synchronize()
+    if pm.KERNEL_LAUNCHES != before + 1:
+        fail(f"{tag}: the kernel-8 wrapper did not count its launch")
+    check_mpc(tag, got, pm._mpc_plain(fam, x_t, z_t, *bud, hist), 1, err8, nan_lanes=nan_lanes)
+
+
+def servo_vs_plain(tag, fam, x_t, z_t, periods, bud, err9, nan_lanes=()):
+    before = pm.SERVO_LAUNCHES
+    got = pm._mpc_servo_cuda(fam, x_t, z_t, periods, *bud)
+    torch.cuda.synchronize()
+    if pm.SERVO_LAUNCHES != before + 1:
+        fail(f"{tag}: the kernel-9 wrapper did not count its launch")
+    check_mpc(tag, got, pm._mpc_servo_plain(fam, x_t, z_t, periods, *bud), 2, err9, nan_lanes=nan_lanes)
 
 
 def expect_launches(tag, want_nonzero):
@@ -1247,9 +1316,23 @@ def mpc_paths(card, kind):
     k8_one = lambda: pm._mpc_cuda(fam, xt[:, :1].contiguous(), zt[:, :1].contiguous(), *MPC_COLD)  # noqa: E731
     k8_one_ms, _ = time_ms(k8_one, launches=10, held=True)
     K = 65
-    s1_ms, _ = time_ms(lambda: pm._mpc_servo_cuda(fam, x1t, z1t, 1, *MPC_SERVO), launches=10, held=True)
-    sK_ms, sK_all = time_ms(lambda: pm._mpc_servo_cuda(fam, x1t, z1t, K, *MPC_SERVO), launches=3, held=True)
-    per_period = (sK_ms - s1_ms) / (K - 1)
+
+    def period_ms(x1t_, z1t_):
+        """Kernel 9 per period at these inputs, (servo(K) - servo(1)) / (K - 1)
+        held; with servo(1), servo(K) and servo(K)'s repeats."""
+        s1, _ = time_ms(lambda: pm._mpc_servo_cuda(fam, x1t_, z1t_, 1, *MPC_SERVO), launches=10, held=True)
+        sK, sK_all = time_ms(lambda: pm._mpc_servo_cuda(fam, x1t_, z1t_, K, *MPC_SERVO), launches=3, held=True)
+        return (sK - s1) / (K - 1), s1, sK, sK_all
+
+    per_period, s1_ms, sK_ms, sK_all = period_ms(x1t, z1t)
+    # One instance and the large fleet: B = 1 (lane 0) and B = 8192.
+    per_period_one = period_ms(x1t[:, :1].contiguous(), z1t[:, :1].contiguous())[0]
+    m8 = main[8192]
+    xt8, zt8, x1t8, z1t8 = (a.T.contiguous() for a in (m8["x0"], m8["z0"], m8["x1"], m8["z1"]))
+    k8_big_ms, _ = time_ms(lambda: pm._mpc_cuda(fam, xt8, zt8, *MPC_COLD), launches=10, held=True)
+    per_period_big = period_ms(x1t8, z1t8)[0]
+    plan = pm.launch_plan(fam, B, torch.float32)
+    plan_txt = f"{plan.warps} warps/CTA, {plan.cta_bytes} B {plan.storage} per CTA"
     e8_ms, _ = time_ms(lambda: mot.fused_mpc_solve_batch(fam, x0, z0, *MPC_COLD), launches=10)
     e9_ms, _ = time_ms(lambda: mot.fused_mpc_servo_batch(fam, x1, z1, MPC_GATE_PERIODS - 1, *MPC_SERVO),
                        launches=3)
@@ -1268,13 +1351,16 @@ def mpc_paths(card, kind):
           f"{k8_ms:.4f} ms ({B / k8_ms * 1e3:.4e} solves/s), at B=1 {k8_one_ms:.4f} ms; fused_mpc_solve_batch "
           f"issued back to back {e8_ms:.4f} ms/call; plain {plain8_ms:.1f} ms; {ops8 / B:.0f} elementwise ops "
           f"per instance -> bound {bound8_ms:.6f} ms ({bound8_by}), kernel = {k8_ms / bound8_ms:.1f}x bound; "
-          f"library none; repeats {k8_all}", flush=True)
+          f"library none; repeats {k8_all}; at B=8192 {k8_big_ms:.4f} ms ({8192 / k8_big_ms * 1e3:.4e} solves/s, "
+          f"{k8_big_ms / (8 * bound8_ms):.1f}x its bound); {plan_txt}", flush=True)
     print(f"# phase20 kernel 9 cart-pole T={MPC_T} B={B} float32 {MPC_SERVO} on {kind} ({card}): servo(1) "
           f"{s1_ms:.4f} ms, servo({K}) {sK_ms:.4f} ms -> {per_period:.5f} ms per period "
           f"({B / per_period * 1e3:.4e} control solves/s); fused_mpc_servo_batch x {MPC_GATE_PERIODS - 1} "
           f"issued back to back {e9_ms:.4f} ms/call; plain {plain9_ms:.1f} ms per period; {ops9 / B:.0f} "
           f"elementwise ops per instance-period -> bound {bound9_ms:.6f} ms ({bound9_by}), kernel = "
-          f"{per_period / bound9_ms:.1f}x bound; library none; repeats servo({K}) {sK_all}", flush=True)
+          f"{per_period / bound9_ms:.1f}x bound; library none; repeats servo({K}) {sK_all}; per period at B=1 "
+          f"{per_period_one:.5f} ms, at B=8192 {per_period_big:.5f} ms ({8192 / per_period_big * 1e3:.4e} "
+          f"control solves/s); {plan_txt}", flush=True)
 
     # The general twin: solve_mpc batched through nls_solve on the Riccati
     # KKT backend at 2/2/1, Mehrotra, on the same lanes (reported).
@@ -1303,14 +1389,16 @@ def mpc_paths(card, kind):
              function="_make_mpc_kernel (launched :1268)", launches=m["launches"]["mpc"],
              max_abs_err=max(err8.values()), max_abs_diff_f64=err8["float64"], ms=k8_ms, plain_ms=plain8_ms,
              bound_ms=bound8_ms, bound_by=bound8_by, shape=f"B={B} cart-pole T={MPC_T} float32 8/3/2",
-             ops_per_instance=ops8 / B, ms_at_B1=k8_one_ms, entry_ms=e8_ms, general_twin_ms_221=gen_ms),
+             ops_per_instance=ops8 / B, ms_at_B1=k8_one_ms, ms_at_B8192=k8_big_ms, entry_ms=e8_ms,
+             general_twin_ms_221=gen_ms, launch_plan=plan_txt),
         dict(common, name="mpc_servo", replaces="mini_opt_tpu/ops/pallas_mpc.py:992",
              function="_make_mpc_servo_kernel (launched :1131)", launches=m["launches"]["mpc_servo"],
              max_abs_err=max(err9.values()), max_abs_diff_f64=err9["float64"], ms=per_period,
              plain_ms=plain9_ms, bound_ms=bound9_ms, bound_by=bound9_by,
              shape=f"B={B} cart-pole T={MPC_T} float32 1/1/1, per period of a {K}-period launch",
              ops_per_instance=ops9 / B, control_solves_per_s=B / per_period * 1e3,
-             stabilized_share=m["share"], entry_ms_29_periods=e9_ms),
+             stabilized_share=m["share"], entry_ms_29_periods=e9_ms, ms_at_B1=per_period_one,
+             ms_at_B8192=per_period_big, launch_plan=plan_txt),
     ]
 
 
@@ -1354,12 +1442,7 @@ def main():
                 label = f"{kernel}<{'float' if t == 'f' else 'double'}" + (f", N={n}, K={k}>" if n else ">")
                 print(f"# phase9 ptxas {label}: {nreg} registers, {spill} bytes spill stores", flush=True)
         # Phase 17: the MPC kernels, from the same build.
-        for name, nreg, spill, _, stack in ptxas_report(text):
-            m = re.search(r"mpc_(solve|servo)_kernelI([fd])NS0_\d+(CartPole|Quadrotor)", name)
-            if m:
-                which, t, plant = m.groups()
-                print(f"# phase17 ptxas mpc_{which}<{'float' if t == 'f' else 'double'}, {plant}>: {nreg} "
-                      f"registers, {spill} bytes spill stores, {stack} bytes stack frame", flush=True)
+        mpc_build_report(text)
         # Phase 13: the pose-ring kernel, from the same build.
         for name, nreg, spill, _, stack in ptxas_report(text):
             m = re.search(r"pose_ring_kernelI([fd])Li(\d+)E", name)

@@ -2,6 +2,7 @@
 // source file of their own so that nvcc builds them beside the float ones.
 #include "mpc.cuh"
 
-int mo::mpc::launch_double(int plant, const double* consts, const Cost& cs, const LaunchArgs& a) {
-  return dispatch_plant<double>(plant, consts, cs, a);
+int mo::mpc::launch_double(int plant, const double* consts, const Cost& cs, const LaunchArgs& a,
+                           bool occupancy_only) {
+  return dispatch_plant<double>(plant, consts, cs, a, occupancy_only);
 }

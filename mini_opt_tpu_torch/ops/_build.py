@@ -183,8 +183,9 @@ def load_library():
                 i, i,  # dtype, plant
                 p, p,  # plant constants, cost constants (double arrays)
                 i,  # horizon
-                p, p, p, p, p, p,  # x0, z0, z_out, stat, history (or NULL), scratch
-                i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
+                p, p, p, p, p, p,  # x0, z0, z_out, stat, history (or NULL), scratch (or NULL)
+                i, i,  # B, warps per CTA
+                i, i, i,  # max_iterations, qp_iterations, ls_iterations
                 p,  # cudaStream_t
             ]
             lib.mo_mpc_launch.restype = i
@@ -192,11 +193,14 @@ def load_library():
                 i, i,  # dtype, plant
                 p, p,  # plant constants, cost constants (double arrays)
                 i,  # horizon
-                p, p, p, p, p, p,  # x0, z0, x_out, z_out, stats, scratch
-                i, i, i, i, i,  # B, periods, max_iterations, qp_iterations, ls_iterations
+                p, p, p, p, p, p,  # x0, z0, x_out, z_out, stats, scratch (or NULL)
+                i, i, i,  # B, warps per CTA, periods
+                i, i, i,  # max_iterations, qp_iterations, ls_iterations
                 p,  # cudaStream_t
             ]
             lib.mo_mpc_servo_launch.restype = i
+            lib.mo_mpc_occupancy.argtypes = [i, i, i, i, i, i]  # dtype, plant, horizon, servo, warps, global
+            lib.mo_mpc_occupancy.restype = i
             lib.mo_cuda_error_string.argtypes = [i]
             lib.mo_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

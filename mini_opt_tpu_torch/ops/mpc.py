@@ -14,7 +14,7 @@ min 1e-12, failure init 1e-3) and the best-merit return.
 
 Two kernels, one device skeleton (``csrc/mpc.cuh``, float instances and C
 launchers in ``mpc.cu``, double instances in ``mpc_f64.cu``), one instance
-per CUDA thread:
+per warp with its stage arrays in shared memory (``launch_plan``):
 
 * kernel 8, ``fused_mpc_solve_batch``: one period; replaces
   ``pallas_mpc.py::_make_mpc_kernel``;
@@ -812,6 +812,55 @@ def _budget_args(max_iterations, qp_iterations, ls_iterations):
     return max_iterations, qp_iterations, ls_iterations
 
 
+# The launch plan of kernels 8 and 9 (csrc/mpc.cuh): one warp per instance,
+# WARPS_PER_CTA instances per CTA, each warp's Layout slots a slab of the
+# CTA's dynamic shared memory; fewer warps where WARPS_PER_CTA slabs do not
+# fit one CTA, and an instance-major global scratch array where one slab
+# does not.
+WARPS_PER_CTA = 4
+MAX_CTA_SMEM = 232_448  # bytes of dynamic shared memory one H100 CTA may hold
+
+
+def layout_slots(horizon: int, nx: int, nu: int) -> int:
+    """Slots of one instance's slab at this horizon: csrc/mpc.cuh's
+    ``Layout(T, nx, nu).total`` (four trajectories, the stage Jacobians,
+    defects and gradients, the Riccati factors, 26 per-input and 7
+    per-state arrays of the interior point)."""
+    dim, tu, tx = horizon * (nu + nx), horizon * nu, horizon * nx
+    return 4 * dim + tx * nx + tx * nu + tx + tu + tx + tu * nu + tu + tu * nx + tx * nx + 26 * tu + 7 * tx
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How kernels 8 and 9 launch for B instances: ``warps`` per CTA,
+    ``cta_bytes`` of dynamic shared memory per CTA (0 on the global route),
+    ``storage`` "shared" or "global", ``grid`` CTAs, ``slots`` per
+    instance."""
+
+    warps: int
+    cta_bytes: int
+    storage: str
+    grid: int
+    slots: int
+
+
+def launch_plan(fam: MPCFamily, B: int, dtype: torch.dtype) -> LaunchPlan:
+    """The launch plan of ``fam`` at B instances of ``dtype``."""
+    slots = layout_slots(fam.horizon, fam.nx, fam.nu)
+    slab = slots * torch.empty((), dtype=dtype).element_size()
+    if slab <= MAX_CTA_SMEM:
+        warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // slab)
+        storage, cta_bytes = "shared", warps * slab
+    else:
+        warps, storage, cta_bytes = WARPS_PER_CTA, "global", 0
+    return LaunchPlan(warps, cta_bytes, storage, -(-B // warps), slots)
+
+
+def _scratch(plan: LaunchPlan, B, kw):
+    """The global route's (B, slots) scratch, or None on the shared route."""
+    return torch.empty((B, plan.slots), **kw) if plan.storage == "global" else None
+
+
 def _mpc_cuda(fam, x0_t, z0_t, max_iterations, qp_iterations, ls_iterations, debug_history=False):
     """Launch kernel 8 (``csrc/mpc.cu``) on feature-major CUDA tensors; same
     contract as ``_mpc_plain``. Raises on anything the kernel does not take
@@ -829,14 +878,15 @@ def _mpc_cuda(fam, x0_t, z0_t, max_iterations, qp_iterations, ls_iterations, deb
     if B == 0:
         return z_out, stat, hist
     lib = _build.load_library()
-    scratch = torch.empty((lib.mo_mpc_scratch_slots(plant, fam.horizon), B), **kw)
+    plan = launch_plan(fam, B, dtype)
+    scratch = _scratch(plan, B, kw)
     with torch.cuda.device(x0_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mo_mpc_launch(
             _CUDA_DTYPE_IDS[dtype], plant, consts, cost, fam.horizon,
             x0_t.data_ptr(), z0_t.data_ptr(), z_out.data_ptr(), stat.data_ptr(),
-            hist.data_ptr() if debug_history else None, scratch.data_ptr(),
-            B, *budget, stream,
+            hist.data_ptr() if debug_history else None, None if scratch is None else scratch.data_ptr(),
+            B, plan.warps, *budget, stream,
         )
     if rc != 0:
         raise RuntimeError(f"mpc kernel launch failed: {_build.error_string(rc)}")
@@ -862,13 +912,14 @@ def _mpc_servo_cuda(fam, x_t, z0_t, periods, max_iterations, qp_iterations, ls_i
     if B == 0:
         return x_out, z_out, stats
     lib = _build.load_library()
-    scratch = torch.empty((lib.mo_mpc_scratch_slots(plant, fam.horizon), B), **kw)
+    plan = launch_plan(fam, B, dtype)
+    scratch = _scratch(plan, B, kw)
     with torch.cuda.device(x_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mo_mpc_servo_launch(
             _CUDA_DTYPE_IDS[dtype], plant, consts, cost, fam.horizon,
             x_t.data_ptr(), z0_t.data_ptr(), x_out.data_ptr(), z_out.data_ptr(), stats.data_ptr(),
-            scratch.data_ptr(), B, periods, *budget, stream,
+            None if scratch is None else scratch.data_ptr(), B, plan.warps, periods, *budget, stream,
         )
     if rc != 0:
         raise RuntimeError(f"mpc servo kernel launch failed: {_build.error_string(rc)}")

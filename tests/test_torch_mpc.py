@@ -193,46 +193,97 @@ needs_cuda = pytest.mark.skipif(
 )
 
 
-def _card_fleet(kind, dtype):
+# The global-scratch horizons: one float64 slab there exceeds a CTA's
+# 232,448 bytes of shared memory (the float32 one runs one warp per CTA).
+SLAB_T = {"cartpole": 240, "quadrotor": 128}
+
+
+def _card_fleet(kind, dtype, B=300, T=None):
     if kind == "cartpole":
-        fam, x = pm.cartpole_mpc_family(20, DT), cartpole_mpc_instances(300, 1)
+        fam, x = pm.cartpole_mpc_family(T or 20, DT), cartpole_mpc_instances(B, 1)
     else:
-        fam, x = pm.quadrotor_mpc_family(12, DT), quadrotor_mpc_instances(300, 1)
+        fam, x = pm.quadrotor_mpc_family(T or 12, DT), quadrotor_mpc_instances(B, 1)
     z = mpc.family_initial_guess(fam, torch.as_tensor(x)).numpy()
-    x[5, 2] = np.nan
-    z[9, 1] = np.nan
+    if B > 9:
+        x[5, 2] = np.nan
+        z[9, 1] = np.nan
     return (fam,) + port.batch_from_numpy(x, z, "cuda", dtype)
+
+
+def _width(kind, dtype, width):
+    """The fleet's size: 300 lanes with two NaN lanes, one instance, or one
+    more than a CTA's warps (a ragged last CTA)."""
+    fam = (pm.cartpole_mpc_family if kind == "cartpole" else pm.quadrotor_mpc_family)(20 if kind == "cartpole" else 12, DT)
+    return {"fleet": 300, "one": 1, "ragged": pm.launch_plan(fam, 1, dtype).warps + 1}[width]
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
 @needs_cuda
+@pytest.mark.parametrize("width", ["fleet", "one", "ragged"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("kind", ["cartpole", "quadrotor"])
-def test_solve_kernel_matches_plain_on_card(kind, dtype):
+def test_solve_kernel_matches_plain_on_card(kind, dtype, width):
     """Kernel 8 is built without FMA contraction and runs the plain
     version's operations in the same order: bit for bit, NaN lanes
     included."""
-    fam, x_t, z_t = _card_fleet(kind, dtype)
+    fam, x_t, z_t = _card_fleet(kind, dtype, _width(kind, dtype, width))
     before = pm.KERNEL_LAUNCHES
     got = pm._mpc_cuda(fam, x_t, z_t, 8, 3, 2, True)
     torch.cuda.synchronize()
     assert pm.KERNEL_LAUNCHES == before + 1
-    for g, w in zip(got, pm._mpc_plain(fam, x_t, z_t, 8, 3, 2, True)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    _same(got, pm._mpc_plain(fam, x_t, z_t, 8, 3, 2, True))
+
+
+@pytest.mark.cuda
+@needs_cuda
+@pytest.mark.parametrize("width", ["fleet", "one", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", ["cartpole", "quadrotor"])
+def test_servo_kernel_matches_plain_on_card(kind, dtype, width):
+    fam, x_t, z_t = _card_fleet(kind, dtype, _width(kind, dtype, width))
+    before = pm.SERVO_LAUNCHES
+    got = pm._mpc_servo_cuda(fam, x_t, z_t, 4, 1, 1, 1)
+    torch.cuda.synchronize()
+    assert pm.SERVO_LAUNCHES == before + 1
+    _same(got, pm._mpc_servo_plain(fam, x_t, z_t, 4, 1, 1, 1))
 
 
 @pytest.mark.cuda
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 @pytest.mark.parametrize("kind", ["cartpole", "quadrotor"])
-def test_servo_kernel_matches_plain_on_card(kind, dtype):
-    fam, x_t, z_t = _card_fleet(kind, dtype)
-    before = pm.SERVO_LAUNCHES
-    got = pm._mpc_servo_cuda(fam, x_t, z_t, 4, 1, 1, 1)
+def test_kernels_match_plain_at_the_global_scratch_horizon(kind, dtype):
+    """Past one CTA's shared memory the same kernel code runs on a global
+    scratch slab (float64 here); float32 fits one warp per CTA."""
+    fam, x_t, z_t = _card_fleet(kind, dtype, 67, SLAB_T[kind])
+    plan = pm.launch_plan(fam, 67, dtype)
+    assert (plan.storage, plan.warps) == (("global", 4) if dtype == torch.float64 else ("shared", 1))
+    got = pm._mpc_cuda(fam, x_t, z_t, 1, 1, 1)
     torch.cuda.synchronize()
-    assert pm.SERVO_LAUNCHES == before + 1
-    for g, w in zip(got, pm._mpc_servo_plain(fam, x_t, z_t, 4, 1, 1, 1)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    _same(got, pm._mpc_plain(fam, x_t, z_t, 1, 1, 1))
+    got = pm._mpc_servo_cuda(fam, x_t, z_t, 2, 1, 1, 1)
+    torch.cuda.synchronize()
+    _same(got, pm._mpc_servo_plain(fam, x_t, z_t, 2, 1, 1, 1))
+
+
+@pytest.mark.cuda
+@needs_cuda
+def test_refused_launch_raises(monkeypatch):
+    """Eight float32 quadrotor slabs at T = 128 exceed a CTA's shared
+    memory: the launcher refuses and the wrapper raises; nothing runs the
+    plain version instead."""
+    fam, x_t, z_t = _card_fleet("quadrotor", torch.float32, 16, 128)
+    plan = pm.launch_plan(fam, 16, torch.float32)
+    monkeypatch.setattr(pm, "launch_plan", lambda *a: dataclasses.replace(plan, warps=8, grid=2))
+    before = pm.KERNEL_LAUNCHES
+    with pytest.raises(RuntimeError, match="does not fit"):
+        pm._mpc_cuda(fam, x_t, z_t, 1, 1, 1)
+    assert pm.KERNEL_LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -566,3 +566,89 @@ def test_float32_general_path_keeps_its_dtype(problem):
 
 def _problem_fn_family(fam):
     return lambda xr: mpc.make_family_mpc_problem(fam, xr)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 8 and 9's launch plan: one warp per instance, its Layout slots a
+# slab of the CTA's shared memory, or of a global scratch array past one
+# CTA's 232,448 bytes.
+# ---------------------------------------------------------------------------
+
+needs_cuda = pytest.mark.skipif(
+    "not torch.cuda.is_available()",
+    reason="needs a CUDA device: the layout is read from the kernel library",
+)
+PLAN_FAMILIES = {"cartpole": pm.cartpole_mpc_family, "quadrotor": pm.quadrotor_mpc_family}
+# Slots per stage: 4 (nx + nu) trajectory slots, A, B, r, cu, cx, F's L and
+# d, K, V_{t+1}, 26 per-input and 7 per-state interior-point arrays.
+SLOTS_PER_STAGE = {"cartpole": 4 * 5 + 16 + 4 + 4 + 1 + 4 + 1 + 1 + 4 + 16 + 26 + 28,
+                   "quadrotor": 4 * 8 + 36 + 12 + 6 + 2 + 6 + 4 + 2 + 12 + 36 + 52 + 42}
+
+
+@pytest.mark.parametrize("kind, T_, slots", [("cartpole", 20, 2500), ("quadrotor", 12, 2904)])
+def test_layout_slots_at_the_main_path_horizons(kind, T_, slots):
+    fam = PLAN_FAMILIES[kind](T_, DT)
+    assert pm.layout_slots(T_, fam.nx, fam.nu) == slots
+
+
+@pytest.mark.parametrize("T_", [1, 2, 7, 64, 500])
+@pytest.mark.parametrize("kind", list(PLAN_FAMILIES))
+def test_layout_slots_grow_by_stage(kind, T_):
+    fam = PLAN_FAMILIES[kind](T_, DT)
+    assert pm.layout_slots(T_, fam.nx, fam.nu) == SLOTS_PER_STAGE[kind] * T_
+
+
+@pytest.mark.parametrize("B", [1, 5, 1024, 8192, 8205])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind, T_", [("cartpole", 20), ("quadrotor", 12)])
+def test_launch_plan_at_the_main_path_shapes(kind, T_, dtype, B):
+    """Shared memory, 4 warps per CTA, the grid covering B with at most one
+    ragged CTA."""
+    fam = PLAN_FAMILIES[kind](T_, DT)
+    plan = pm.launch_plan(fam, B, dtype)
+    slab = plan.slots * torch.empty((), dtype=dtype).element_size()
+    assert plan.storage == "shared" and plan.warps == pm.WARPS_PER_CTA == 4
+    assert plan.cta_bytes == plan.warps * slab <= pm.MAX_CTA_SMEM
+    assert plan.grid * plan.warps >= B > (plan.grid - 1) * plan.warps
+
+
+@pytest.mark.parametrize(
+    "kind, T_, dtype, storage, warps",
+    [("quadrotor", 128, torch.float64, "global", 4), ("quadrotor", 128, torch.float32, "shared", 1),
+     ("quadrotor", 240, torch.float32, "shared", 1), ("quadrotor", 241, torch.float32, "global", 4),
+     ("cartpole", 232, torch.float64, "shared", 1), ("cartpole", 233, torch.float64, "global", 4),
+     ("cartpole", 464, torch.float32, "shared", 1), ("cartpole", 465, torch.float32, "global", 4),
+     ("cartpole", 116, torch.float64, "shared", 2), ("cartpole", 117, torch.float64, "shared", 1)],
+)
+def test_launch_plan_past_the_shared_limit(kind, T_, dtype, storage, warps):
+    """Fewer warps where four slabs do not fit a CTA, the global route
+    where one does not."""
+    plan = pm.launch_plan(PLAN_FAMILIES[kind](T_, DT), 67, dtype)
+    assert (plan.storage, plan.warps) == (storage, warps)
+    assert plan.cta_bytes == (0 if storage == "global" else warps * plan.slots * torch.empty((), dtype=dtype).element_size())
+    assert plan.grid == -(-67 // warps)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", list(PLAN_FAMILIES))
+def test_every_cta_fits_and_the_grid_covers_b(kind, dtype):
+    size = torch.empty((), dtype=dtype).element_size()
+    for T_ in range(1, 600, 7):
+        fam = PLAN_FAMILIES[kind](T_, DT)
+        for B in (1, 3, 4, 5, 1000):
+            plan = pm.launch_plan(fam, B, dtype)
+            assert plan.cta_bytes <= pm.MAX_CTA_SMEM and 1 <= plan.warps <= 8
+            assert (plan.storage == "shared") == (plan.slots * size <= pm.MAX_CTA_SMEM)
+            assert plan.grid * plan.warps >= B > (plan.grid - 1) * plan.warps
+
+
+@pytest.mark.cuda
+@needs_cuda
+def test_layout_mirror_matches_the_kernel_library():
+    from mini_opt_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    for T_ in (1, 2, 12, 20, 128, 240, 500):
+        for kind, plant in (("cartpole", 0), ("quadrotor", 1)):
+            fam = PLAN_FAMILIES[kind](T_, DT)
+            assert lib.mo_mpc_scratch_slots(plant, T_) == pm.layout_slots(T_, fam.nx, fam.nu)

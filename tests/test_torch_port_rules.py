@@ -63,7 +63,7 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize(
     "path",
-    sorted((REPO / "mini_opt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted((REPO / "mini_opt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "scripts" / "mpc_kernel_times.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import_in_source(path):
