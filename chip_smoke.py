@@ -22,11 +22,15 @@ Phases, each of which exits non-zero on failure:
    (median of 5 repeats of 20 calls) of the entry point as a caller issues
    it, of its device work, and of the kernel alone on the card, and the
    plain version's time at B = 8192;
-5. the blocked-tier kernel (csrc/blocked.cu) against its plain version,
-   B = 2048 + 7 with one NaN-target lane, on the medium-N warm-start
-   distribution: planar n=33 (D = 34) at 4/2/2 complementarity + polynomial
-   and n=48 (D = 49) at the example's 6/3/2 Mehrotra + Armijo, float64 and
-   float32, with phase 3's tolerances;
+5. kernel 2, the blocked-tier fused SQP (csrc/blocked.cu, blocked_f64.cu),
+   against its plain version, bit for bit in float64 and float32, on the
+   medium-N warm-start distribution: planar n=33 (D = 34) at 4/2/2
+   complementarity + polynomial and n=48 (D = 49) at the example's 6/3/2
+   Mehrotra + Armijo at B = 2048 + 7 with one NaN-target lane (flagged,
+   every other lane finite); n=48 at B = 1 and at B = W + 1 (a ragged last
+   CTA of W warps); at 2/1/1 the largest n whose float64 launch plan keeps
+   W > 1 warps per CTA (B = W + 1), the next n, where W falls to 1 (B =
+   2W + 1, a NaN lane), and each type's largest n (6 rows per lane);
 6. the blocked KKT kernel (csrc/blocked_kkt.cu) against its plain version
    on quasi-definite KKT systems at D = 49 and D = 120, B = 1037, float64
    (within 1e-9 of max|x| + 1, and the float64 kernel within 1e-8 of
@@ -35,10 +39,14 @@ Phases, each of which exits non-zero on failure:
    (examples/blocked_medium_n.py) at B = 8192 in float32 with the example's
    budget, every launch counter set to 0 just before and read just after
    (parity, effector error < 1e-3, must exceed 0.9, the example's gate), its
-   outputs against the plain version's; and the standalone path,
+   outputs bit for bit against the plain version's; and the standalone path,
    blocked_kkt_solve at B = 8192, D = 49, float32, counted the same way;
-8. timings of both blocked kernels at those shapes (held and unheld as in
-   phase 4; the blocked kernel also at B = 1, one instance's latency), their
+8. the blocked kernels' ptxas registers, spill stores and stack frame per
+   instance (from phase 2's build), kernel 2's launch plan at the main
+   path's shape in both types (warps per CTA, rows per lane, bytes per warp
+   and per CTA, CTAs per SM from mo_blocked_occupancy); timings of both
+   blocked kernels at the main path's shapes (held and unheld as in phase
+   4; kernel 2 also at B = 1, one instance's latency, and B = 1024), their
    plain versions, and for the KKT solve torch.linalg.ldl_factor_ex +
    ldl_solve as its library yardstick;
 9. the general path's kernels (csrc/ldlt.cu, csrc/fused_qp.cu), built in
@@ -123,11 +131,12 @@ Phases, each of which exits non-zero on failure:
 
 Tolerances, kernel against plain version: the kernels sum in the plain
 versions' order and build without FMA contraction, so they are expected to
-agree bit for bit (each comparison prints whether they did); the gates
-allow float64 1e-9 and, in float32, where a chaotic lane may flip with one
-rounding, the slice-1 shares. Kernels 4-6 and the general path (phases
-10-12) and kernels 8-9 (phases 18-19) are held bit for bit in both types.
-Kernel 7 (phases 14-15) keeps phase 3's gates.
+agree bit for bit (each comparison prints whether they did). Kernel 2 and
+the blocked main path (phases 5 and 7), kernels 4-6 and the general path
+(phases 10-12) and kernels 8-9 (phases 18-19) are held bit for bit in both
+types. Kernels 1 and 7 (phases 3-4, 14-15) keep gates that allow float64
+1e-9 and, in float32, where a chaotic lane may flip with one rounding, the
+slice-1 shares; kernel 3 (phase 6) its relative tolerances.
 """
 
 import contextlib
@@ -356,31 +365,94 @@ def kkt_systems(B, D, seed, dtype):
             torch.as_tensor(rhs, dtype=dtype, device="cuda"))
 
 
+def check_blocked(tag, got, want, max_err, nan_lanes=()):
+    """Kernel 2's feature-major (x, state) against the plain version's: bit
+    for bit in both types (the kernel sums in the plain version's order and
+    builds without FMA contraction), NaN with NaN; the NaN-target lanes
+    flagged and every other lane finite. Records the largest |kernel -
+    plain| per dtype."""
+    dtype = str(got[0].dtype).replace("torch.", "")
+    same = bit_identical(*zip(got, want))
+    err = max(max_abs_diff(g, w) for g, w in zip(got, want))
+    max_err[dtype] = max(max_err[dtype], err)
+    xk, sk = got
+    others = torch.ones_like(sk[2], dtype=torch.bool)
+    others[list(nan_lanes)] = False
+    flagged = all(bool(sk[2, lane] != 0) for lane in nan_lanes)
+    finite = bool(torch.isfinite(xk[:, others]).all() and torch.isfinite(sk[:, others]).all())
+    print(f"# {tag} {dtype}: bit-identical {same}, max|kernel - plain| {err:.3e}, NaN lanes flagged "
+          f"{flagged}, others finite {finite}, lanes flagged {int((sk[2] != 0).sum())} of {sk.shape[1]}",
+          flush=True)
+    if nan_lanes and not (flagged and finite):
+        fail(f"{tag} {dtype}: NaN lanes not flagged or their neighbours not finite")
+    if not same:
+        fail(f"{tag} {dtype}: kernel 2 and its plain version are not bit-identical (max diff {err})")
+
+
+def plan_bounds():
+    """(the largest n whose float64 plan keeps more than one warp per CTA,
+    the largest n of each type's plan): where W falls to 1 and the sizes
+    past which kernel 2 raises."""
+    last, wide = {}, None
+    for dtype in (torch.float64, torch.float32):
+        for n in range(33, 400):
+            try:
+                plan = blk.launch_plan(n, 1, dtype)
+            except ValueError:
+                break
+            last[dtype] = n
+            if dtype == torch.float64 and plan.warps > 1:
+                wide = n
+    return wide, last
+
+
 def blocked_vs_plain(max_err):
-    """Phase 5: csrc/blocked.cu against _blocked_solve_plain."""
+    """Phase 5: kernel 2 (csrc/blocked.cu) against _blocked_solve_plain, bit
+    for bit, in both types."""
     B = 2048 + 7
+    poly = dict(max_iterations=4, qp_iterations=2, ls_iterations=2, barrier="complementarity",
+                line_search="polynomial")
+    short = dict(max_iterations=2, qp_iterations=1, ls_iterations=1, barrier="mpc", line_search="armijo")
+    wide, last = plan_bounds()
+    per_dtype = (torch.float64, torch.float32)
+
+    def ragged(dtype, n):  # a last CTA with one instance of its W
+        return blk.launch_plan(n, 1, dtype).warps + 1
+
     cases = [
-        ("planar n=33 (D=34) 4/2/2 complementarity polynomial", 33,
-         dict(max_iterations=4, qp_iterations=2, ls_iterations=2,
-              barrier="complementarity", line_search="polynomial")),
-        ("planar n=48 (D=49) 6/3/2 mpc armijo", ARM_N, ARM),
+        ("planar n=33 (D=34) 4/2/2 complementarity polynomial", 33, poly, lambda dt, n: B, (5,), per_dtype),
+        ("planar n=48 (D=49) 6/3/2 mpc armijo", ARM_N, ARM, lambda dt, n: B, (5,), per_dtype),
+        ("planar n=48 (D=49) 6/3/2 mpc armijo, one instance", ARM_N, ARM, lambda dt, n: 1, (), per_dtype),
+        ("planar n=48 (D=49) 6/3/2 mpc armijo, B = W + 1", ARM_N, ARM, ragged, (), per_dtype),
+        (f"planar n={wide} 2/1/1 (the last float64 plan with W > 1), B = W + 1", wide, short, ragged, (),
+         per_dtype),
+        (f"planar n={wide + 1} 2/1/1 (float64: W falls to 1), B = 2W + 1", wide + 1, short,
+         lambda dt, n: 2 * ragged(dt, n) - 1, (1,), per_dtype),
+        (f"planar n={last[torch.float64]} 2/1/1 (the float64 limit), B = 3", last[torch.float64], short,
+         lambda dt, n: 3, (), per_dtype),
+        (f"planar n={last[torch.float32]} 2/1/1 (the float32 limit), B = 3", last[torch.float32], short,
+         lambda dt, n: 3, (), (torch.float32,)),
     ]
-    for name, n, kw in cases:
-        data, x0 = medium_n_planar_instances(B, n, seed=n)
-        data[5, 0] = np.nan
+    for name, n, kw, batch, nan_lanes, dtypes in cases:
         family = fik.planar_family(n, LINK)
-        for dtype in (torch.float64, torch.float32):
+        for dtype in dtypes:
+            Bc = batch(dtype, n)
+            data, x0 = medium_n_planar_instances(Bc, n, seed=n)
+            for lane in nan_lanes:
+                data[lane, 0] = np.nan
             data_t, x0_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
             args = (family, data_t, x0_t, kw["max_iterations"], kw["qp_iterations"],
                     kw["ls_iterations"], kw["line_search"], kw["barrier"])
             before = blk.BLOCKED_LAUNCHES
-            xk, sk = blk._blocked_solve_cuda(*args)
+            got = blk._blocked_solve_cuda(*args)
             torch.cuda.synchronize()
             if blk.BLOCKED_LAUNCHES != before + 1:
                 fail(f"{name}: the blocked kernel wrapper did not count its launch")
-            xp, sp = blk._blocked_solve_plain(*args)
+            want = blk._blocked_solve_plain(*args)
             torch.cuda.synchronize()
-            check_against_plain(f"phase5 {name}", "planar", data, (xk, sk, None), (xp, sp, None), max_err)
+            plan = blk.launch_plan(n, Bc, dtype)
+            check_blocked(f"phase5 {name} B={Bc} ({plan.warps} warps/CTA, {plan.rows_per_lane} rows/lane)",
+                          got, want, max_err, nan_lanes)
 
 
 def check_kkt(tag, H, rhs, xk, xp, max_err):
@@ -474,8 +546,7 @@ def blocked_paths(card, kind):
     plain_arm = lambda: blk._blocked_solve_plain(arm, data_t, x0_t, *ARM_ARGS)  # noqa: E731
     xp, sp = plain_arm()
     torch.cuda.synchronize()
-    check_against_plain(f"phase7 main path B={B}", "planar", targets,
-                        (x_arm.T, state_arm.T, None), (xp, sp, None), max_err_blk)
+    check_blocked(f"phase7 main path fused_solve_batch B={B}", (x_arm.T, state_arm.T), (xp, sp), max_err_blk)
 
     # The standalone path: blocked_kkt_solve at the main path's D and B.
     D = ARM_N + 1
@@ -498,16 +569,30 @@ def blocked_paths(card, kind):
     dev_ms, dev_all = time_ms(entry, launches=10, held=True)
     k2_ms, k2_all = time_ms(kern, launches=10, held=True)
     k2_unheld_ms, _ = time_ms(kern, launches=10)
-    # One instance alone: the latency of one CTA's dependent chain.
-    one = lambda: blk._blocked_solve_cuda(  # noqa: E731
-        arm, data_t[:, :1].contiguous(), x0_t[:, :1].contiguous(), *ARM_ARGS)
-    k2_one_ms, _ = time_ms(one, launches=10, held=True)
+    # One instance alone (the latency of one warp's dependent chain), and
+    # 1024 instances (1024 / W CTAs, under one wave).
+    k2_at = {}
+    for Bs in (1, 1024):
+        d_s, x_s = data_t[:, :Bs].contiguous(), x0_t[:, :Bs].contiguous()
+        k2_at[Bs], _ = time_ms(lambda: blk._blocked_solve_cuda(arm, d_s, x_s, *ARM_ARGS), launches=10, held=True)
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = []
+    for dtype in (torch.float32, torch.float64):
+        plan = blk.launch_plan(ARM_N, B, dtype)
+        ctas = lib.mo_blocked_occupancy(0, ARM_N, blk._CUDA_DTYPE_IDS[dtype], plan.warps)
+        if ctas < 1:
+            fail(f"phase8: occupancy query for n={ARM_N} {dtype} returned {ctas}")
+        plans.append(f"{str(dtype).replace('torch.', '')}: {plan.warps} warps/CTA, {plan.rows_per_lane} rows/lane, "
+                     f"{plan.warp_bytes} B/warp, {plan.cta_bytes} B/CTA, grid {plan.grid}, {ctas} CTAs/SM "
+                     f"({ctas * plan.warps} instances/SM, {ctas * plan.warps * sms} on {sms} SMs)")
+    print(f"# phase8 kernel 2 launch plan n={ARM_N} (D=49) B={B}: " + "; ".join(plans), flush=True)
     plain2_ms, _ = event_ms(plain_arm)
     ops2 = count_ops(plain_arm)
     bound2_ms, bound2_by = roofline(ops2, B * (2 + ARM_N + ARM_N + 3) * 4)
     print(f"# phase8 blocked kernel B={B} D=49 float32 on {kind} ({card}): kernel alone on the card "
           f"{k2_ms:.4f} ms ({B / k2_ms * 1e3:.4e} solves/s), unheld {k2_unheld_ms:.4f} ms, "
-          f"at B=1 {k2_one_ms:.4f} ms, "
+          f"at B=1 {k2_at[1]:.4f} ms, at B=1024 {k2_at[1024]:.4f} ms, "
           f"entry point issued back to back "
           f"{e2e_ms:.4f} ms/call, its device work {dev_ms:.4f} ms; plain {plain2_ms:.3f} ms; "
           f"{ops2 / B:.0f} elementwise ops per instance -> bound {bound2_ms:.6f} ms ({bound2_by}), "
@@ -557,6 +642,9 @@ def blocked_paths(card, kind):
             "library_ms": None,
             "shape": f"B={B} n=48 (D=49) float32 6/3/2 mpc armijo",
             "ops_per_instance": ops2 / B,
+            "ms_at_B1": k2_at[1],
+            "ms_at_B1024": k2_at[1024],
+            "launch_plan": plans[0],
             "parity": parity,
             "card": card,
         },
@@ -1430,10 +1518,14 @@ def main():
         spilling = sum(int(b) > 0 for b in re.findall(r"(\d+) bytes spill stores", text))
         print(f"# ptxas: {len(regs)} kernel instances, registers max {max(regs, default=0)}, "
               f"{spilling} with spill stores", flush=True)
-        for name, nreg, spill, smem, _ in ptxas_report(text):
-            if "blocked" in name:
-                print(f"# ptxas {name}: {nreg} registers, {spill} bytes spill stores, "
-                      f"{smem} bytes static smem", flush=True)
+        # Phase 8's build lines: the blocked kernels, from the same build.
+        for name, nreg, spill, _, stack in ptxas_report(text):
+            m = re.search(r"blocked_(sqp|kkt)_kernelI([fd])(?:Li(\d+)E)?", name)
+            if m:
+                kernel, t, rows = m.groups()
+                label = f"blocked_{kernel}<{'float' if t == 'f' else 'double'}" + (f", R={rows}>" if rows else ">")
+                print(f"# phase8 ptxas {label}: {nreg} registers, {spill} bytes spill stores, {stack} bytes "
+                      f"stack frame", flush=True)
         # Phase 9: the general path's kernels, from the same build.
         for name, nreg, spill, _, _ in ptxas_report(text):
             m = re.search(r"(ldlt_factor|ldlt_solve|fused_qp)_kernelI([fd])(?:Li(\d+)ELi(\d+)E)?", name)

@@ -13,7 +13,7 @@
 //
 // PlanarChain at the end is the blocked tier's planar family
 // (blocked_sqp.cuh): the same arithmetic with the chain length a runtime
-// value, evaluated by a whole CTA.
+// value, evaluated by the instance's warp.
 #pragma once
 
 #include <cmath>
@@ -22,6 +22,15 @@ namespace mo {
 
 // The JAX package's literal (pallas_ik.py:70), not M_PI.
 constexpr double kPi = 3.14159265358979;
+
+// The row of slot p of a lower triangle packed by rows (row i at
+// i (i + 1) / 2): i (i + 1) / 2 <= p < (i + 1) (i + 2) / 2.
+__host__ __device__ inline int packed_row(int p) {
+  int i = static_cast<int>((sqrtf(8.0f * p + 1.0f) - 1.0f) * 0.5f);
+  i -= i * (i + 1) / 2 > p ? 1 : 0;
+  i += (i + 1) * (i + 2) / 2 <= p ? 1 : 0;
+  return i;
+}
 
 // Joints 1..N-1 limited to [0, pi], joint 0 free (both families).
 template <int N_>
@@ -215,15 +224,18 @@ struct Spatial : JointLimits<N_> {
 };
 
 // Planar chain with a runtime number of joints n, for the blocked tier
-// (blocked_sqp.cuh; D = n + 1 runs to 120, past what one template per N
+// (blocked_sqp.cuh; D = n + 1 runs to 192, past what one template per N
 // would reasonably instance). The cooperative members are called by every
-// thread of the CTA after a barrier that published th and tgt; thread i < n
-// handles joint i; each ends with a barrier after which its shared-memory
-// outputs are visible, and each returns its uniform outputs (f, eq) to
-// every thread. Arithmetic and operand order are Planar's.
+// lane of the instance's warp after a __syncwarp that published th and tgt;
+// lane l handles joints l, l + 32, ...; each ends with a __syncwarp after
+// which its shared-memory outputs are visible, and each returns its uniform
+// outputs (f, eq) to every lane. Arithmetic and operand order are Planar's:
+// the angles' prefix sums and the Jacobian's suffix sums run in index order
+// on each lane.
 struct PlanarChain {
   static constexpr int M = 1;
   static constexpr int ROWS = 2;
+  static constexpr int kLanes = 32;
   int n;
   double link;
 
@@ -235,8 +247,9 @@ struct PlanarChain {
   __device__ int hi_slot(int i) const { return i - 1; }
   __device__ double lo_val(int) const { return 0.0; }
   __device__ double hi_val(int) const { return kPi; }
-  // Scratch: cos and sin of the cumulative angles, then J_x and J_y.
-  __host__ __device__ int scratch() const { return 4 * n; }
+  // Scratch: cos and sin of the cumulative angles, then J_y (J_x goes
+  // straight to J_eq).
+  __host__ __device__ int scratch() const { return 3 * n; }
 
   template <typename T>
   __device__ __forceinline__ T retract(T a) const {
@@ -244,16 +257,22 @@ struct PlanarChain {
     return a - two_pi * floor((a + T(kPi)) / two_pi);
   }
 
-  // cs[i], sn[i] = cos, sin of th[0] + ... + th[i] (summed in index order).
+  // cs[i], sn[i] = cos, sin of th[0] + ... + th[i] (summed in index order):
+  // each lane runs the prefix sum up to its last joint, parking its angles
+  // in cs, then takes their cos and sin.
   template <typename T>
-  __device__ void angles(int tid, const T* th, T* cs, T* sn) const {
-    if (tid < n) {
-      T phi = th[0];
-      for (int k = 1; k <= tid; ++k) phi = phi + th[k];
-      cs[tid] = cos(phi);
-      sn[tid] = sin(phi);
+  __device__ void angles(int lane, const T* th, T* cs, T* sn) const {
+    T phi = th[0];
+    for (int i = lane, k = 0; i < n; i += kLanes) {
+      while (k < i) phi = phi + th[++k];
+      cs[i] = phi;
     }
-    __syncthreads();
+    for (int i = lane; i < n; i += kLanes) {
+      const T a = cs[i];
+      cs[i] = cos(a);
+      sn[i] = sin(a);
+    }
+    __syncwarp();
   }
 
   template <typename T>
@@ -268,51 +287,55 @@ struct PlanarChain {
   }
 
   // G: packed lower triangle (row i at i (i + 1) / 2), Jeq (1, n), c (n),
-  // req (1) in shared memory; f to every thread.
+  // req (1) in shared memory; f to every lane.
   template <typename T>
-  __device__ void linearize(int tid, const T* th, const T* tgt, T* scr, T* G, T* Jeq, T* c,
+  __device__ void linearize(int lane, const T* th, const T* tgt, T* scr, T* G, T* Jeq, T* c,
                             T* req, T& f) const {
     T* cs = scr;
     T* sn = scr + n;
-    T* jx = scr + 2 * n;
-    T* jy = scr + 3 * n;
-    angles(tid, th, cs, sn);
+    T* jy = scr + 2 * n;
+    angles(lane, th, cs, sn);
     T px, py;
     effector(cs, sn, px, py);
-    if (tid < n) {
-      // dpx/dth_a = -L sum_{i>=a} s_i ; dpy/dth_a = L sum_{i>=a} c_i
+    // dpx/dth_a = -L sum_{i>=a} s_i ; dpy/dth_a = L sum_{i>=a} c_i: one
+    // suffix sum per lane, from joint n-1 down to its lowest joint.
+    if (lane < n) {
       T sx = sn[n - 1], sy = cs[n - 1];
-      for (int a = n - 2; a >= tid; --a) {
-        sx = sx + sn[a];
-        sy = sy + cs[a];
+      for (int a = n - 1;; --a) {
+        if (a < n - 1) {
+          sx = sx + sn[a];
+          sy = sy + cs[a];
+        }
+        if ((a - lane) % kLanes == 0) {
+          Jeq[a] = T(-link) * sx;
+          jy[a] = T(link) * sy;
+        }
+        if (a == lane) break;
       }
-      jx[tid] = T(-link) * sx;
-      jy[tid] = T(link) * sy;
     }
-    __syncthreads();
+    __syncwarp();
     const T ry = py - tgt[1];
     const T rx = px - tgt[0];
     f = T(0.5) * ry * ry;
-    if (tid < n) {
-      const T jyi = jy[tid];
-      T* row = G + tid * (tid + 1) / 2;
-      for (int j = 0; j <= tid; ++j) row[j] = jyi * jy[j];
-      c[tid] = jyi * ry;
-      Jeq[tid] = jx[tid];
+    // G = J_y J_y^T, its slots spread over the lanes.
+    for (int p = lane; p < n * (n + 1) / 2; p += kLanes) {
+      const int i = packed_row(p);
+      G[p] = jy[i] * jy[p - i * (i + 1) / 2];
     }
-    if (tid == 0) req[0] = rx;
-    __syncthreads();
+    for (int a = lane; a < n; a += kLanes) c[a] = jy[a] * ry;
+    if (lane == 0) req[0] = rx;
+    __syncwarp();
   }
 
   template <typename T>
-  __device__ void errors(int tid, const T* th, const T* tgt, T* scr, T& f, T& eq) const {
-    angles(tid, th, scr, scr + n);
+  __device__ void errors(int lane, const T* th, const T* tgt, T* scr, T& f, T& eq) const {
+    angles(lane, th, scr, scr + n);
     T px, py;
     effector(scr, scr + n, px, py);
     const T ey = py - tgt[1];
     f = T(0.5) * (ey * ey);
     eq = fabs(px - tgt[0]);
-    __syncthreads();
+    __syncwarp();
   }
 };
 

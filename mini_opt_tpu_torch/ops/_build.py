@@ -128,12 +128,15 @@ def load_library():
             lib.mo_blocked_launch.argtypes = [
                 i, i, i,  # family, n, dtype
                 p, p, p, p,  # data, x0, x_out, state
-                i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
+                i, i,  # B, warps per CTA
+                i, i, i,  # max_iterations, qp_iterations, ls_iterations
                 i, i,  # polynomial line search, Mehrotra barrier
                 ctypes.c_double,  # link length
                 p,  # cudaStream_t
             ]
             lib.mo_blocked_launch.restype = i
+            lib.mo_blocked_occupancy.argtypes = [i, i, i, i]  # family, n, dtype, warps
+            lib.mo_blocked_occupancy.restype = i
             lib.mo_blocked_kkt_launch.argtypes = [
                 i, i,  # dtype, D
                 p, p, p,  # H, rhs, x

@@ -6,9 +6,12 @@ unrolled solver stops, and ``fused_solve_batch`` hands the family to
 ``blocked_solve_batch`` here. Two CUDA kernels replace the two TPU kernels
 of ``pallas_blocked.py``:
 
-* ``csrc/blocked.cu`` (skeleton ``csrc/blocked_sqp.cuh``): the whole fused
-  SQP of one instance per CTA, its (D, D) KKT matrix factored in shared
-  memory. It replaces ``_make_blocked_kernel``.
+* ``csrc/blocked.cu`` and ``blocked_f64.cu`` (device code
+  ``csrc/blocked_sqp.cuh``): the whole fused SQP, one warp per instance and
+  ``launch_plan(n, B, dtype).warps`` instances per CTA, the instance's
+  KKT matrix (its lower triangle in 4-row tiles) factored in its slab of
+  shared memory. It replaces
+  ``_make_blocked_kernel``.
 * ``csrc/blocked_kkt.cu``: one dense LDL^T factor and solve per CTA. It
   replaces the kernel of ``blocked_kkt_solve``.
 
@@ -24,6 +27,7 @@ CUDA tensors launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -53,6 +57,86 @@ KKT_LAUNCHES = 0
 
 # Families with a blocked-tier device functor (csrc/families.cuh).
 _CUDA_FAMILY_IDS = {"planar": 0}
+
+# Kernel 2's launch (csrc/blocked_sqp.cuh): one warp per instance, up to
+# WARPS_PER_CTA instances per CTA, each instance's slab in the CTA's dynamic
+# shared memory; lane l owns KKT rows l, l + 32, ..., up to
+# MAX_ROWS_PER_LANE of them.
+WARPS_PER_CTA = 4
+MAX_CTA_SMEM = 232_448  # bytes of dynamic shared memory one H100 CTA may hold
+MAX_ROWS_PER_LANE = 6
+
+
+def _tri(k):
+    return k * (k + 1) // 2
+
+
+def kkt_slots(D: int) -> int:
+    """Slots of the D x D KKT matrix in kernel 2's tiled layout
+    (csrc/blocked_sqp.cuh ``colA``): its lower triangle by columns, column
+    j holding rows (j & ~3) .. Dp - 1 with Dp = D rounded up to 4."""
+    Dp = -(-D // 4) * 4
+    return sum(Dp - (j & ~3) for j in range(D))
+
+
+def slab_slots(n: int, dtype: torch.dtype) -> int:
+    """Slots (of ``dtype``) of one planar-chain instance's slab at n joints
+    (D = n + 1): csrc/blocked_sqp.cuh's ``carve`` -- the tiled KKT matrix
+    (``kkt_slots(D)``), the factor's w / the published vector (D), the
+    packed Gauss-Newton Hessian (tri(n)), J_eq (n), c (n), r_eq (1), the
+    iterate (n), the two targets, the scratch area (the largest of the
+    family's 3n, the four arrays of n - 1 step candidates each padded to
+    whole tiles of 4, and n terms of a sum; in whole tiles), and the 2-byte
+    table of the KKT matrix's tiles."""
+    D = n + 1
+
+    def round4(k):
+        return -(-k // 4) * 4
+
+    scratch = round4(max(3 * n, 4 * round4(n - 1), n))
+    table = -(-2 * (kkt_slots(D) // 4) // torch.empty((), dtype=dtype).element_size())
+    return kkt_slots(D) + D + _tri(n) + n + n + 1 + n + 2 + scratch + table
+
+
+def rows_per_lane(D: int) -> int:
+    """KKT rows a lane owns in the kernel instance that takes D rows:
+    csrc/blocked_sqp.cuh's ``rows_per_lane`` (0: no instance)."""
+    return 2 if D <= 64 else 4 if D <= 128 else 6 if D <= 32 * MAX_ROWS_PER_LANE else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How kernel 2 launches for B planar-chain instances: ``warps``
+    (instances) per CTA, ``rows_per_lane`` of the KKT system, ``slots`` of
+    one instance's slab and its ``warp_bytes`` (rounded up to 16),
+    ``cta_bytes`` of dynamic shared memory per CTA, ``grid`` CTAs."""
+
+    warps: int
+    rows_per_lane: int
+    slots: int
+    warp_bytes: int
+    cta_bytes: int
+    grid: int
+
+
+def launch_plan(n: int, B: int, dtype: torch.dtype) -> LaunchPlan:
+    """The launch plan of kernel 2 for B instances of the n-joint planar
+    chain in ``dtype``: WARPS_PER_CTA instances per CTA, fewer where that
+    many slabs do not fit MAX_CTA_SMEM. Raises ValueError where one slab
+    does not fit a CTA or D = n + 1 exceeds 32 * MAX_ROWS_PER_LANE: the
+    kernel has no route for those sizes (the CPU path takes them)."""
+    slots = slab_slots(n, dtype)
+    # Whole 16-byte units, so that every slab is aligned alike.
+    warp_bytes = -(-slots * torch.empty((), dtype=dtype).element_size() // 16) * 16
+    rows = rows_per_lane(n + 1)
+    if rows == 0 or warp_bytes > MAX_CTA_SMEM:
+        raise ValueError(
+            f"the blocked kernel takes no n = {n} in {dtype}: one instance's slab "
+            f"({warp_bytes} B, D = {n + 1}) does not fit a CTA ({MAX_CTA_SMEM} B, D <= "
+            f"{32 * MAX_ROWS_PER_LANE})"
+        )
+    warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // warp_bytes)
+    return LaunchPlan(warps, rows, slots, warp_bytes, warps * warp_bytes, -(-B // warps))
 
 
 # ---------------------------------------------------------------------------
@@ -478,6 +562,7 @@ def _blocked_solve_cuda(
     state = torch.empty((3, B), **kw)
     if B == 0:
         return x_out, state
+    plan = launch_plan(n, B, data_t.dtype)
     lib = _build.load_library()
     with torch.cuda.device(data_t.device):
         rc = lib.mo_blocked_launch(
@@ -489,6 +574,7 @@ def _blocked_solve_cuda(
             x_out.data_ptr(),
             state.data_ptr(),
             B,
+            plan.warps,
             max_iterations,
             qp_iterations,
             ls_iterations,
@@ -523,7 +609,7 @@ def blocked_solve_batch(
     also the (B, 3) ``(f, |eq|_1, flags)`` channel that
     ``fused_termination_status`` reads. ``lanes`` is the TPU tile width of
     the JAX package (a multiple of 128); it is checked and changes no
-    result: the kernel runs one instance per CTA. Tensors run where they lie
+    result: the kernel runs one instance per warp. Tensors run where they lie
     (CPU: the plain version; CUDA: the kernel); numpy inputs go to
     ``device``, which is "cuda" unless the caller passes "cpu"."""
     _check_options(max_iterations, qp_iterations, ls_iterations, line_search, barrier)

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Held times of kernel 2 of the PyTorch port (the blocked-tier fused SQP,
+``mini_opt_tpu_torch/ops/blocked.py``) on one CUDA card, at B = 1, 1024 and
+8192, so that two trees can be compared on one card; kernel 3 (the
+standalone KKT solve) beside it as the control.
+
+    python3 scripts/blocked_kernel_times.py [--tree DIR] [--label NAME]
+
+DIR (default: this checkout) is the root of the tree whose
+``mini_opt_tpu_torch`` is timed; its kernels build into ``DIR/build/kernels``.
+The timer is ``chip_smoke.time_ms`` of this checkout (held: a device-side
+sleep holds the stream while the calls are issued). Settings are
+chip_smoke.py phase 8's: the 48-joint arm of examples/blocked_medium_n.py
+(D = 49, link 0.4), float32, on ``instances.medium_n_planar_instances(B,
+48, seed=0)``, at the example's budget 6/3/2 with the Mehrotra barrier and
+the Armijo line search; then, at B = 1 and 8192, the same solve under
+budgets that part its time: 6 outer iterations with 0, 1 or 3 QP
+iterations and 0 or 2 line-search probes, and 6/3/2 with the
+complementarity barrier; and kernel 3 at B = 8192, D = 49, float32, on
+chip_smoke.kkt_systems(8192, 49, seed=7). Prints the card's name and power
+limit, then one JSON object per measurement. Exits non-zero without a CUDA
+card."""
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+ARM_N, LINK = 48, 0.4
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(ROOT), help="root of the tree to time")
+    ap.add_argument("--label", default=None, help="name printed with each row (default: the tree)")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("blocked_kernel_times: torch.cuda.is_available() is False")
+    import mini_opt_tpu_torch
+
+    if Path(mini_opt_tpu_torch.__file__).resolve().parents[1] != tree:
+        sys.exit(f"blocked_kernel_times: imported {mini_opt_tpu_torch.__file__}, not the tree {tree}")
+    from mini_opt_tpu_torch import batch_from_numpy
+    from mini_opt_tpu_torch.instances import medium_n_planar_instances
+    from mini_opt_tpu_torch.ops import blocked as blk
+    from mini_opt_tpu_torch.ops import fused_ik as fik
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_timer", ROOT / "chip_smoke.py")
+    timer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timer)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    label = args.label or str(tree)
+
+    def row(**kw):
+        print(json.dumps(dict(tree=label, card=card, **kw)), flush=True)
+
+    arm = fik.planar_family(ARM_N, LINK)
+    inputs = {}
+    for B in (1, 1024, 8192):
+        data, x0 = medium_n_planar_instances(B, ARM_N, seed=0)
+        inputs[B] = batch_from_numpy(data, x0, "cuda", torch.float32)
+
+    def solve(B, budget, barrier="mpc"):
+        data_t, x0_t = inputs[B]
+        return lambda: blk._blocked_solve_cuda(arm, data_t, x0_t, *budget, "armijo", barrier)
+
+    plan = getattr(blk, "launch_plan", None)
+    for B in (1, 1024, 8192):
+        ms, repeats = timer.time_ms(solve(B, (6, 3, 2)), launches=10, held=True)
+        extra = {}
+        if plan is not None:
+            p = plan(ARM_N, B, torch.float32)
+            extra = dict(warps_per_cta=p.warps, cta_bytes=p.cta_bytes, grid=p.grid)
+        row(kernel=2, B=B, D=ARM_N + 1, budget="6/3/2 mpc armijo", ms=ms, repeats=repeats, **extra)
+
+    # Where kernel 2's time goes: per outer iteration, one factor and solve
+    # of the equality-constrained guess, then per QP iteration one factor
+    # and two (Mehrotra) or one (complementarity) solves; then the probes.
+    for B in (1, 8192):
+        sweep = {}
+        for budget in ((6, 0, 0), (6, 1, 0), (6, 3, 0), (6, 3, 2)):
+            sweep["/".join(map(str, budget))], _ = timer.time_ms(solve(B, budget), launches=5, held=True)
+        sweep["6/3/2 complementarity"], _ = timer.time_ms(solve(B, (6, 3, 2), "complementarity"),
+                                                          launches=5, held=True)
+        row(kernel=2, B=B, D=ARM_N + 1, budget_sweep_ms=sweep,
+            ms_per_qp_iteration=(sweep["6/3/0"] - sweep["6/0/0"]) / 18,
+            ms_per_line_search_probe=(sweep["6/3/2"] - sweep["6/3/0"]) / 12,
+            ms_per_outer_iteration_without_qp_iterations=sweep["6/0/0"] / 6)
+
+    H, rhs = timer.kkt_systems(8192, ARM_N + 1, seed=7, dtype=torch.float32)
+    ms, repeats = timer.time_ms(lambda: blk._blocked_kkt_solve_cuda(H, rhs), held=True)
+    row(kernel=3, B=8192, D=ARM_N + 1, ms=ms, repeats=repeats)
+
+
+if __name__ == "__main__":
+    main()

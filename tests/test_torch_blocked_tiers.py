@@ -20,6 +20,11 @@ same code against the JAX package).
   at small B on the CPU: every lane reaches its target, as
   examples/blocked_medium_n.py asserts for the JAX package.
 * The argument checks of both public entry points.
+* Kernel 2's launch plan (``ops/blocked.py::launch_plan``, the mirror of
+  csrc/blocked_sqp.cuh's ``carve``): bytes per warp against a count of the
+  slab's arrays, warps per CTA against the 232,448 bytes of a CTA, every
+  size the first design launched, the grid. The ``cuda``-marked cases hold
+  kernel 2 to its plain version bit for bit on a card; they skip here.
 """
 
 import numpy as np
@@ -212,3 +217,135 @@ def test_blocked_kkt_solve_takes_any_lanes():
     x = port.blocked_kkt_solve(torch.as_tensor(H), torch.as_tensor(rhs), lanes=64)
     resid = np.abs(np.einsum("bij,bj->bi", H, x.numpy()) - rhs).max()
     assert resid <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2's launch plan.
+# ---------------------------------------------------------------------------
+
+DTYPES = [torch.float64, torch.float32]
+DTYPE_IDS = ["f64", "f32"]
+CTA_SMEM = 232_448
+
+
+def _slab_arrays(n, dtype):
+    """One planar-chain instance's slab, array by array (csrc/blocked_sqp.cuh
+    Slab): slots of each."""
+    D, nlo, nhi = n + 1, n - 1, n - 1
+    size = torch.empty((), dtype=dtype).element_size()
+    # Column j of the KKT lower triangle from row 4 (j // 4) to the next
+    # multiple of 4 at or past D: whole 4-row tiles.
+    kkt = sum(-(-(D - 4 * (j // 4)) // 4) * 4 for j in range(D))
+    return {
+        "A: KKT lower triangle by columns, in 4-row tiles": kkt,
+        "vec: the factor's w, the published vector": D,
+        "G: Gauss-Newton lower triangle packed by rows": n * (n + 1) // 2,
+        "J_eq": 1 * n,
+        "c": n,
+        "r_eq": 1,
+        "th": n,
+        "targets": 2,
+        # Four candidate arrays, each from a 4-slot boundary; whole tiles.
+        "scratch: family (cos, sin, J_y), step candidates, terms":
+            -(-max(3 * n, 2 * (-(-nlo // 4) * 4 + -(-nhi // 4) * 4), n) // 4) * 4,
+        # 2 bytes per KKT tile, in whole slots of the dtype.
+        "tiles: the KKT matrix's tile table": -(-2 * (kkt // 4) // size),
+    }
+
+
+# The first design (one CTA per instance, a full (D, D) matrix, 256 threads)
+# launched n <= 190 in float32 and n <= 132 in float64; this one takes
+# n <= 191 (D <= 192, 6 rows a lane) and n <= 161 (one slab per CTA).
+PARENT_LIMIT = {torch.float32: 190, torch.float64: 132}
+LIMIT = {torch.float32: 191, torch.float64: 161}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("n", [1, 2, 33, 48, 63, 64, 111, 127, 161])
+def test_launch_plan_bytes_per_warp_count_the_slab(n, dtype):
+    plan = blk.launch_plan(n, 8192, dtype)
+    size = torch.empty((), dtype=dtype).element_size()
+    assert plan.slots == sum(_slab_arrays(n, dtype).values())
+    # Whole 16-byte units, so that every slab is aligned alike.
+    assert plan.warp_bytes % 16 == 0 and 0 <= plan.warp_bytes - plan.slots * size < 16
+    assert plan.cta_bytes == plan.warps * plan.warp_bytes <= CTA_SMEM
+    # The main path's width.
+    if n == 48:
+        assert plan.warp_bytes == {torch.float32: 12_768, torch.float64: 24_800}[dtype]
+        assert plan.rows_per_lane == 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_launch_plan_warps_fall_where_slabs_pass_a_cta(dtype):
+    """4 warps per CTA while 4 slabs fit, else the most that fit: W slabs
+    within 232,448 B and W + 1 past it."""
+    seen = set()
+    for n in range(1, LIMIT[dtype] + 1):
+        plan = blk.launch_plan(n, 1, dtype)
+        seen.add(plan.warps)
+        assert 1 <= plan.warps <= blk.WARPS_PER_CTA
+        assert plan.warps * plan.warp_bytes <= CTA_SMEM
+        if plan.warps < blk.WARPS_PER_CTA:
+            assert (plan.warps + 1) * plan.warp_bytes > CTA_SMEM
+    assert seen == {1, 2, 3, 4}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_every_size_the_first_design_launched_gets_a_plan(dtype):
+    for n in range(33, PARENT_LIMIT[dtype] + 1):
+        plan = blk.launch_plan(n, 8192, dtype)
+        assert plan.rows_per_lane == blk.rows_per_lane(n + 1)
+        assert 32 * plan.rows_per_lane >= n + 1 > 32 * (plan.rows_per_lane - 2)
+    blk.launch_plan(LIMIT[dtype], 1, dtype)
+    with pytest.raises(ValueError, match="does not fit a CTA"):
+        blk.launch_plan(LIMIT[dtype] + 1, 1, dtype)
+
+
+@pytest.mark.parametrize("case", [(48, torch.float32, 4), (48, torch.float64, 4), (111, torch.float64, 2),
+                                  (112, torch.float64, 1), (159, torch.float32, 2), (191, torch.float32, 1)],
+                         ids=["n48-f32", "n48-f64", "n111-f64", "n112-f64", "n159-f32", "n191-f32"])
+def test_launch_plan_grid(case):
+    n, dtype, W = case
+    assert blk.launch_plan(n, 1, dtype).warps == W
+    for B, grid in ((1, 1), (W, 1), (W + 1, 2), (8192, -(-8192 // W))):
+        plan = blk.launch_plan(n, B, dtype)
+        assert (plan.warps, plan.grid) == (W, grid)
+        assert plan.grid * plan.warps >= B > (plan.grid - 1) * plan.warps
+
+
+# ---------------------------------------------------------------------------
+# On a card: kernel 2 against its plain version. The skip condition is a
+# string, so pytest evaluates it when each test is set up.
+# ---------------------------------------------------------------------------
+
+needs_cuda = pytest.mark.skipif(
+    "not torch.cuda.is_available()",
+    reason="needs a CUDA device: kernel 2 (csrc/blocked.cu) has no CPU mode",
+)
+
+
+@pytest.mark.cuda
+@needs_cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("batch", ["one", "ragged", "full"])
+def test_kernel_2_bit_identical_to_plain_on_card(batch, dtype):
+    """One instance, a ragged last CTA (W + 1 instances) and 8192 + 13 with
+    a NaN-target lane, at the main path's width and budget: bit for bit,
+    the NaN lane flagged."""
+    n = 48
+    W = blk.launch_plan(n, 1, dtype).warps
+    B = {"one": 1, "ragged": W + 1, "full": 8192 + 13}[batch]
+    data, x0 = medium_n_planar_instances(B, n, seed=3)
+    if B > 5:
+        data[5, 0] = np.nan
+    d_t, x_t = port.batch_from_numpy(data, x0, "cuda", dtype)
+    args = (port.planar_family(n, 0.4), d_t, x_t, 6, 3, 2, "armijo", "mpc")
+    before = blk.BLOCKED_LAUNCHES
+    got = blk._blocked_solve_cuda(*args)
+    torch.cuda.synchronize()
+    assert blk.BLOCKED_LAUNCHES == before + 1
+    want = blk._blocked_solve_plain(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    if B > 5:
+        assert got[1][2, 5] != 0

@@ -136,7 +136,7 @@ def test_blocked_tier_and_bad_options_raise():
 def test_sources_present_and_build_dir_ignored():
     csrc = REPO / "mini_opt_tpu_torch" / "csrc"
     for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu", "blocked_sqp.cuh", "blocked.cu",
-                 "blocked_kkt.cu", "ldlt.cu", "fused_qp.cu", "pose_ring.cuh", "pose_ring.cu",
+                 "blocked_f64.cu", "blocked_kkt.cu", "ldlt.cu", "fused_qp.cu", "pose_ring.cuh", "pose_ring.cu",
                  "pose_ring_f64.cu", "mpc.cuh", "mpc.cu", "mpc_f64.cu"):
         assert (csrc / name).is_file(), name
     ignored = (REPO / ".gitignore").read_text().split()
