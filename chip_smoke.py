@@ -31,10 +31,13 @@ Phases, each of which exits non-zero on failure:
    CTA of W warps); at 2/1/1 the largest n whose float64 launch plan keeps
    W > 1 warps per CTA (B = W + 1), the next n, where W falls to 1 (B =
    2W + 1, a NaN lane), and each type's largest n (6 rows per lane);
-6. the blocked KKT kernel (csrc/blocked_kkt.cu) against its plain version
-   on quasi-definite KKT systems at D = 49 and D = 120, B = 1037, float64
-   (within 1e-9 of max|x| + 1, and the float64 kernel within 1e-8 of
-   torch.linalg.solve) and float32 (within 1e-3 of max|x| + 1);
+6. the blocked KKT kernel (csrc/blocked_kkt.cu, kernel 3) against its
+   plain version, bit for bit in float64 and float32, on quasi-definite KKT
+   systems at B = 1037 and D = 1, 2, 7, 31, 33, 49, 64, 65, 120, 128, 129,
+   169, 192 (the warp route: 2, 4 and 6 rows a lane) and, in float32,
+   D = 193 and 239 (the CTA route and its limit; float64 refuses D = 193,
+   as it did before); at D = 49 also B = 1 and B = W + 1 (a ragged last
+   CTA); the float64 kernel also within 1e-8 of torch.linalg.solve;
 7. the blocked tier's main path: fused_solve_batch on the 48-joint arm
    (examples/blocked_medium_n.py) at B = 8192 in float32 with the example's
    budget, every launch counter set to 0 just before and read just after
@@ -42,13 +45,14 @@ Phases, each of which exits non-zero on failure:
    outputs bit for bit against the plain version's; and the standalone path,
    blocked_kkt_solve at B = 8192, D = 49, float32, counted the same way;
 8. the blocked kernels' ptxas registers, spill stores and stack frame per
-   instance (from phase 2's build), kernel 2's launch plan at the main
-   path's shape in both types (warps per CTA, rows per lane, bytes per warp
-   and per CTA, CTAs per SM from mo_blocked_occupancy); timings of both
-   blocked kernels at the main path's shapes (held and unheld as in phase
-   4; kernel 2 also at B = 1, one instance's latency, and B = 1024), their
-   plain versions, and for the KKT solve torch.linalg.ldl_factor_ex +
-   ldl_solve as its library yardstick;
+   instance (from phase 2's build), kernel 2's and kernel 3's launch plans
+   at the main paths' shapes in both types (warps per CTA, rows per lane,
+   bytes per warp and per CTA, CTAs per SM from mo_blocked_occupancy and
+   mo_blocked_kkt_occupancy); timings of both blocked kernels at the main
+   paths' shapes (held and unheld as in phase 4; both also at B = 1, one
+   instance's latency, and kernel 2 at B = 1024), their plain versions,
+   and for the KKT solve torch.linalg.ldl_factor_ex + ldl_solve as its
+   library yardstick;
 9. the general path's kernels (csrc/ldlt.cu, csrc/fused_qp.cu), built in
    phase 2's parallel nvcc pass: ptxas registers and spills per instance;
 10. the LDL^T factor and solve kernels (kernels 4 and 5) against their plain
@@ -72,20 +76,26 @@ Phases, each of which exits non-zero on failure:
    and 5, torch.linalg.ldl_factor_ex / ldl_solve;
 13. the pose-ring kernel (csrc/pose_ring.cu), built in phase 2's parallel
    nvcc pass: ptxas registers, spill stores and stack frame per instance;
-14. kernel 7 against its plain version, B = 8192 + 13 with one
-   NaN-measurement lane and one NaN-start lane, float64 and float32, on
-   the canonical ring N = 16 at 6/2 (scripts/bench_extras.py's
-   pose_ring_bench distribution), the chain with the closure (12, 4) and
-   the closures ((15, 0), (4, 11)) at N = 16, 5/2 (its
-   pose_ring_chain_closure_bench distribution), and the ring N = 32 at
-   6/2. float64: x and state within 1e-9, flags identical; float32: phase
-   3's shares; the NaN lanes flagged, their neighbours finite;
+   kernel 7's launch plan at the main path's shape and at each type's
+   smallest global-route ring in both types (graphs per CTA, bytes per
+   graph and per CTA, the route, CTAs per SM from mo_pose_ring_occupancy);
+14. kernel 7 against its plain version, bit for bit in float64 and
+   float32, with one NaN-measurement lane and one NaN-start lane (flagged,
+   every other lane finite): at B = 8192 + 13 on the canonical ring N = 16
+   at 6/2 (scripts/bench_extras.py's pose_ring_bench distribution), the
+   chain with the closure (12, 4) (k = 1) and the closures ((15, 0),
+   (4, 11)) (k = 4) at N = 16, 5/2 (its pose_ring_chain_closure_bench
+   distribution), and the ring N = 32 at 6/2; at B = 1037 one topology for
+   each other border count k = 2, 3, 5, 6 at N = 16, 5/2; the ring N = 16
+   at B = 1 and B = W + 1 (a ragged last CTA); and in each type the
+   smallest ring N whose slab does not fit one CTA (the global-scratch
+   route) at B = 67, 2/1;
 15. the pose-ring main path, models.pose_graph.solve_pose_graph_rings on
    the N = 16 ring, float32, B = 8192, 6/2, with every launch counter set
    to 0 just before and read just after (exactly one pose-ring launch per
    call), the converged share (final cost < 2e-3 N, the bench's noise
-   gate) at least 0.99, its outputs against the plain version's; then the
-   two closure topologies through the same entry point (converged share,
+   gate) at least 0.99, its outputs against the plain version's, bit for
+   bit; then the two closure topologies through the same entry point (converged share,
    flags);
 16. timings at the main path's shape: the entry point as a caller issues
    it, its device work and the kernel alone (held), the kernel at B = 1
@@ -131,15 +141,16 @@ Phases, each of which exits non-zero on failure:
 
 Tolerances, kernel against plain version: the kernels sum in the plain
 versions' order and build without FMA contraction, so they are expected to
-agree bit for bit (each comparison prints whether they did). Kernel 2 and
-the blocked main path (phases 5 and 7), kernels 4-6 and the general path
-(phases 10-12) and kernels 8-9 (phases 18-19) are held bit for bit in both
-types. Kernels 1 and 7 (phases 3-4, 14-15) keep gates that allow float64
-1e-9 and, in float32, where a chaotic lane may flip with one rounding, the
-slice-1 shares; kernel 3 (phase 6) its relative tolerances.
+agree bit for bit (each comparison prints whether they did). Kernels 2 and
+3 and the blocked main paths (phases 5-7), kernels 4-6 and the general
+path (phases 10-12), kernel 7 and the pose-ring main path (phases 14-15)
+and kernels 8-9 (phases 18-19) are held bit for bit in both types. Kernel
+1 (phases 3-4) keeps gates that allow float64 1e-9 and, in float32, where
+a chaotic lane may flip with one rounding, the slice-1 shares.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import re
@@ -349,10 +360,11 @@ def roofline(ops, bytes_moved):
 
 def kkt_systems(B, D, seed, dtype):
     """B random quasi-definite KKT systems, the class qp.cc factors (a
-    positive definite (1,1) block, m = D // 12 equality rows, a zero (2,2)
-    block: indefinite), and right-hand sides, as CUDA tensors."""
+    positive definite (1,1) block, m = D // 12 equality rows (at least one
+    past D = 1), a zero (2,2) block: indefinite), and right-hand sides, as
+    CUDA tensors."""
     rng = np.random.default_rng(seed)
-    m = max(1, D // 12)
+    m = max(1, D // 12) if D > 1 else 0
     n = D - m
     A = rng.normal(size=(B, n, n))
     H = np.zeros((B, D, D))
@@ -456,15 +468,15 @@ def blocked_vs_plain(max_err):
 
 
 def check_kkt(tag, H, rhs, xk, xp, max_err):
-    """The KKT kernel's x against the plain version's: within 1e-9 (float64)
-    or 1e-3 (float32) of max|x| + 1; float64 also within 1e-8 of
-    torch.linalg.solve."""
+    """The KKT kernel's x against the plain version's: bit for bit in both
+    types (the kernel keeps the plain version's order of operations and
+    builds without FMA contraction); float64 also within 1e-8 of
+    torch.linalg.solve, relative to max|x| + 1."""
     dtype = str(H.dtype).replace("torch.", "")
-    scale = xp.abs().max().item() + 1.0
+    same = bit_identical((xk, xp))
     err = max_abs_diff(xk, xp)
     max_err[dtype] = max(max_err[dtype], err)
-    line = (f"# {tag} {dtype}: max|kernel - plain| {err:.3e} (scale {scale:.3e}), "
-            f"bit-identical {bit_identical((xk, xp))}")
+    line = f"# {tag} {dtype}: bit-identical {same}, max|kernel - plain| {err:.3e}"
     if H.dtype == torch.float64:
         ref = torch.linalg.solve(H, rhs)
         ref_err = (xk - ref).abs().max().item() / (ref.abs().max().item() + 1.0)
@@ -472,24 +484,44 @@ def check_kkt(tag, H, rhs, xk, xp, max_err):
         if not ref_err <= 1e-8:
             fail(f"{tag}: the float64 kernel is {ref_err} from torch.linalg.solve")
     print(line, flush=True)
-    if not err <= (1e-9 if H.dtype == torch.float64 else 1e-3) * scale:
-        fail(f"{tag} {dtype}: the KKT kernel disagrees with the plain version ({err})")
+    if not same:
+        fail(f"{tag} {dtype}: kernel 3 and its plain version are not bit-identical (max diff {err})")
+
+
+# Kernel 3's sizes in phase 6: the warp route from D = 1 (R = 2, 4 and 6
+# rows a lane, each side of every boundary), then past D = 192 the CTA route
+# (float32 to D = 239; float64 takes D <= 192, all on the warp route, and
+# refuses D = 193 as before this route existed, when its CTA route stopped
+# at D = 169).
+KKT_SIZES = (1, 2, 7, 31, 33, 49, 64, 65, 120, 128, 129, 169, 192, 193, 239)
 
 
 def kkt_vs_plain(max_err):
-    """Phase 6: csrc/blocked_kkt.cu against _blocked_kkt_solve_plain."""
-    B = 1037
-    for D in (49, 120):
+    """Phase 6: csrc/blocked_kkt.cu against _blocked_kkt_solve_plain, bit
+    for bit, at every size of KKT_SIZES in both types where the kernel has
+    a route, at B = 1037 (B = 1 and W + 1 at D = 49)."""
+    for D in KKT_SIZES:
         for dtype in (torch.float64, torch.float32):
-            H, rhs = kkt_systems(B, D, seed=D, dtype=dtype)
-            before = blk.KKT_LAUNCHES
-            xk = blk._blocked_kkt_solve_cuda(H, rhs)
-            torch.cuda.synchronize()
-            if blk.KKT_LAUNCHES != before + 1:
-                fail(f"D={D}: the KKT kernel wrapper did not count its launch")
-            xp = blk._blocked_kkt_solve_plain(H, rhs)
-            torch.cuda.synchronize()
-            check_kkt(f"phase6 blocked KKT D={D} B={B}", H, rhs, xk, xp, max_err)
+            batches = (1037, 1, blk.kkt_launch_plan(D, 1, dtype).warps + 1) if D == 49 else (1037,)
+            try:
+                plan = blk.kkt_launch_plan(D, 1037, dtype)
+            except ValueError as e:
+                if not (D > 192 and dtype == torch.float64):
+                    fail(f"phase6 D={D} {dtype}: no launch plan ({e})")
+                print(f"# phase6 blocked KKT D={D} {str(dtype).replace('torch.', '')}: no route, as before "
+                      f"(ValueError: {e})", flush=True)
+                continue
+            for B in batches:
+                H, rhs = kkt_systems(B, D, seed=D, dtype=dtype)
+                before = blk.KKT_LAUNCHES
+                xk = blk._blocked_kkt_solve_cuda(H, rhs)
+                torch.cuda.synchronize()
+                if blk.KKT_LAUNCHES != before + 1:
+                    fail(f"D={D}: the KKT kernel wrapper did not count its launch")
+                xp = blk._blocked_kkt_solve_plain(H, rhs)
+                torch.cuda.synchronize()
+                check_kkt(f"phase6 blocked KKT D={D} B={B} ({plan.route} route, {plan.warps} systems/CTA)",
+                          H, rhs, xk, xp, max_err)
 
 
 def reset_counts():
@@ -602,6 +634,18 @@ def blocked_paths(card, kind):
     kern3 = lambda: blk._blocked_kkt_solve_cuda(H, rhs)  # noqa: E731
     k3_ms, k3_all = time_ms(kern3, held=True)
     k3_unheld_ms, _ = time_ms(kern3)
+    H1, rhs1 = H[:1].contiguous(), rhs[:1].contiguous()
+    k3_one_ms, _ = time_ms(lambda: blk._blocked_kkt_solve_cuda(H1, rhs1), held=True)
+    kplans = []
+    for dtype in (torch.float32, torch.float64):
+        plan = blk.kkt_launch_plan(D, B, dtype)
+        ctas = lib.mo_blocked_kkt_occupancy(blk._CUDA_DTYPE_IDS[dtype], D, plan.warps)
+        if ctas < 1:
+            fail(f"phase8: occupancy query for the KKT kernel at D={D} {dtype} returned {ctas}")
+        kplans.append(f"{str(dtype).replace('torch.', '')}: {plan.route} route, {plan.warps} systems/CTA, "
+                      f"{plan.rows_per_lane} rows/lane, {plan.system_bytes} B/system, {plan.cta_bytes} B/CTA, "
+                      f"grid {plan.grid}, {ctas} CTAs/SM ({ctas * plan.warps} systems/SM)")
+    print(f"# phase8 kernel 3 launch plan D={D} B={B}: " + "; ".join(kplans), flush=True)
     e3_ms, _ = time_ms(lambda: mot.blocked_kkt_solve(H, rhs))
     plain3_ms, _ = event_ms(plain_kkt)
     ops3 = count_ops(plain_kkt)
@@ -620,7 +664,7 @@ def blocked_paths(card, kind):
     lib_note = (f"library ldl_factor_ex + ldl_solve {lib3_ms:.4f} ms (one call), "
                 f"max|kernel - library| {max_abs_diff(x_kkt, lib_x):.3e}")
     print(f"# phase8 blocked KKT kernel B={B} D={D} float32 on {kind} ({card}): kernel alone "
-          f"{k3_ms:.4f} ms, unheld {k3_unheld_ms:.4f} ms, blocked_kkt_solve issued back to back {e3_ms:.4f} ms/call; plain "
+          f"{k3_ms:.4f} ms, at B=1 {k3_one_ms:.4f} ms, unheld {k3_unheld_ms:.4f} ms, blocked_kkt_solve issued back to back {e3_ms:.4f} ms/call; plain "
           f"{plain3_ms:.3f} ms; {ops3 / B:.0f} elementwise ops per system -> bound {bound3_ms:.6f} ms "
           f"({bound3_by}), kernel = {k3_ms / bound3_ms:.1f}x bound; {lib_note}; repeats {k3_all}",
           flush=True)
@@ -664,6 +708,8 @@ def blocked_paths(card, kind):
             "library_ms": lib3_ms,
             "shape": f"B={B} D={D} float32",
             "ops_per_instance": ops3 / B,
+            "ms_at_B1": k3_one_ms,
+            "launch_plan": kplans[0],
             "card": card,
         },
     ]
@@ -1003,6 +1049,26 @@ RING_CASES = [
 ]
 
 
+# Phase 14's other topologies at N = 16, 5/2: one for each border count the
+# cases above leave out (k = 2, 3, 5, 6; the closures valid, k = 2 two
+# closures between the same poses).
+RING_EXTRA_CASES = [
+    ("closures ((2, 9), (9, 2)) N=16 5/2 (k=2)", RING_N, ((2, 9), (9, 2)), (5, 2)),
+    ("closures ((2, 9), (9, 13)) N=16 5/2 (k=3)", RING_N, ((2, 9), (9, 13)), (5, 2)),
+    ("closures ((1, 5), (5, 9), (11, 14)) N=16 5/2 (k=5)", RING_N, ((1, 5), (5, 9), (11, 14)), (5, 2)),
+    ("closures ((0, 4), (6, 9), (11, 15)) N=16 5/2 (k=6)", RING_N, ((0, 4), (6, 9), (11, 15)), (5, 2)),
+]
+
+
+def global_ring_n(dtype):
+    """The smallest ring N whose slab does not fit one CTA in ``dtype``:
+    kernel 7's global-scratch route."""
+    n = 2
+    while pr.launch_plan(n, 1, 1, dtype).storage != "global":
+        n += 1
+    return n
+
+
 def ring_case(n, closures, B, seed):
     """The family and float64 (B, 3E) measurements, (B, 3N) starts of one
     configuration, from the JAX repo's bench distributions."""
@@ -1012,42 +1078,53 @@ def ring_case(n, closures, B, seed):
 
 
 def check_ring(tag, got, want, max_err, nan_lanes=()):
-    """Kernel 7's feature-major (x, state) against the plain version's:
-    float64 within 1e-9 with identical flags, float32 flags on >= 99.9% of
-    lanes and x within 1e-3 on >= 99.5%; the NaN lanes flagged and every
-    other lane finite. Records the largest |kernel - plain| per dtype."""
+    """Kernel 7's feature-major (x, state) against the plain version's: bit
+    for bit in both types (the kernel keeps the plain version's order of
+    operations and builds without FMA contraction), NaN with NaN; the NaN
+    lanes flagged and every other lane finite. Records the largest |kernel -
+    plain| per dtype."""
     (xk, sk), (xp, sp) = got, want
     dtype = str(xk.dtype).replace("torch.", "")
     same = bit_identical((xk, xp), (sk, sp))
-    diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk[:2], sp[:2])}
+    diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk, sp)}
     err = max(diffs.values())
     max_err[dtype] = max(max_err[dtype], err)
-    flags_agree = (sk[2] == sp[2]).double().mean().item()
-    x_agree = lanes_agree(xk, xp, 1e-3).double().mean().item()
     others = torch.ones(xk.shape[1], dtype=torch.bool, device=xk.device)
     others[list(nan_lanes)] = False
     flagged = all(bool(sk[2, lane] != 0) for lane in nan_lanes)
     finite = bool(torch.isfinite(xk[:, others]).all() and torch.isfinite(sk[:, others]).all())
-    print(f"# {tag} {dtype} (bit-identical {same}): max|kernel - plain| {diffs}, flags agree "
-          f"{flags_agree:.6f}, x within 1e-3 {x_agree:.6f}, NaN lanes flagged {flagged}, others finite "
-          f"{finite}, lanes flagged {int((sk[2] != 0).sum())}", flush=True)
+    print(f"# {tag} {dtype}: bit-identical {same}, max|kernel - plain| {diffs}, NaN lanes flagged {flagged}, "
+          f"others finite {finite}, lanes flagged {int((sk[2] != 0).sum())} of {sk.shape[1]}", flush=True)
     if not (flagged and finite):
         fail(f"{tag} {dtype}: NaN lanes not flagged or their neighbours not finite")
-    if dtype == "float64" and (err > 1e-9 or flags_agree != 1.0):
-        fail(f"{tag}: kernel disagrees with the plain version ({diffs}, flags {flags_agree})")
-    if dtype == "float32" and (flags_agree < 0.999 or x_agree < 0.995):
-        fail(f"{tag}: float32 agreement below threshold")
+    if not same:
+        fail(f"{tag} {dtype}: kernel 7 and its plain version are not bit-identical ({diffs})")
 
 
-def pose_ring_paths(card, kind):
-    """Phases 14-16; returns kernel 7's row."""
-    max_err = {"float64": 0.0, "float32": 0.0}
-    B = 8192 + 13
-    for name, n, closures, (iters, ls) in RING_CASES:
-        fam, data, x0 = ring_case(n, closures, B, seed=n)
-        data[5, 4] = np.nan
-        x0[9, 2] = np.nan
-        for dtype in (torch.float64, torch.float32):
+def ring_vs_plain(max_err):
+    """Phase 14: kernel 7 (csrc/pose_ring.cu) against _pose_ring_plain, bit
+    for bit, in both types."""
+    def ragged(dtype):  # a last CTA with one graph of its W
+        return pr.launch_plan(RING_N, 1, 1, dtype).warps + 1
+
+    nan = (5, 9)
+    cases = [(name, n, cl, bud, lambda dt: 8192 + 13, nan, None) for name, n, cl, bud in RING_CASES]
+    cases += [(name, n, cl, bud, lambda dt: 1037, nan, None) for name, n, cl, bud in RING_EXTRA_CASES]
+    cases += [
+        ("ring N=16 6/2, one graph", RING_N, None, RING_BUDGET, lambda dt: 1, (), None),
+        ("ring N=16 6/2, B = W + 1", RING_N, None, RING_BUDGET, ragged, (), None),
+    ]
+    for dtype in (torch.float64, torch.float32):
+        n = global_ring_n(dtype)
+        cases.append((f"ring N={n} 2/1 (the smallest global-route N in {str(dtype).replace('torch.', '')})", n,
+                      None, (2, 1), lambda dt: 67, nan, dtype))
+    for name, n, closures, (iters, ls), batch, nan_lanes, only in cases:
+        for dtype in (torch.float64, torch.float32) if only is None else (only,):
+            B = batch(dtype)
+            fam, data, x0 = ring_case(n, closures, B, seed=n)
+            if nan_lanes:
+                data[5, 4] = np.nan  # a NaN measurement
+                x0[9, 2] = np.nan  # a NaN start
             d_t, x_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
             before = pr.KERNEL_LAUNCHES
             got = pr._pose_ring_cuda(fam, d_t, x_t, iters, ls)
@@ -1055,7 +1132,36 @@ def pose_ring_paths(card, kind):
             if pr.KERNEL_LAUNCHES != before + 1:
                 fail(f"{name}: the pose-ring wrapper did not count its launch")
             want = pr._pose_ring_plain(fam, d_t, x_t, iters, ls)
-            check_ring(f"phase14 {name} B={B}", got, want, max_err, nan_lanes=(5, 9))
+            plan = pr.launch_plan(n, len(fam.closure_list), B, dtype)
+            check_ring(f"phase14 {name} B={B} ({plan.storage}, {plan.warps} graphs/CTA)", got, want, max_err,
+                       nan_lanes)
+
+
+def ring_plan_lines():
+    """Phase 13's plan lines: kernel 7's launch plan at the main path's
+    shape and at each type's global-route N, with CTAs per SM."""
+    lib = _build.load_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ring = (ctypes.c_int * 2)(RING_N - 1, 0)
+    for dtype in (torch.float32, torch.float64):
+        for n in (RING_N, global_ring_n(dtype)):
+            plan = pr.launch_plan(n, 1, RING_B, dtype)
+            closure = (ctypes.c_int * 2)(n - 1, 0) if n != RING_N else ring
+            ctas = lib.mo_pose_ring_occupancy(pr._CUDA_DTYPE_IDS[dtype], n, 1, closure, plan.warps,
+                                              int(plan.storage == "global"))
+            if ctas < 1:
+                fail(f"phase13: occupancy query for ring N={n} {dtype} returned {ctas}")
+            print(f"# phase13 kernel 7 launch plan ring N={n} B={RING_B} {str(dtype).replace('torch.', '')}: "
+                  f"{plan.warps} graphs/CTA, {plan.warp_bytes} B/graph, {plan.cta_bytes} B/CTA ({plan.storage}), "
+                  f"grid {plan.grid}, {ctas} CTAs/SM ({ctas * plan.warps} graphs/SM, {ctas * plan.warps * sms} on "
+                  f"{sms} SMs)", flush=True)
+
+
+def pose_ring_paths(card, kind):
+    """Phases 13 (the plan lines) to 16; returns kernel 7's row."""
+    max_err = {"float64": 0.0, "float32": 0.0}
+    ring_plan_lines()
+    ring_vs_plain(max_err)
 
     # Phase 15: the main path, solve_pose_graph_rings at full width.
     iters, ls = RING_BUDGET
@@ -1159,6 +1265,9 @@ def pose_ring_paths(card, kind):
         "library_ms": None,
         "shape": f"B={RING_B} ring N={RING_N} float32 {iters}/{ls}",
         "ops_per_instance": ops / RING_B,
+        "ms_at_B1": k_one_ms,
+        "launch_plan": (lambda p: f"{p.warps} graphs/CTA, {p.cta_bytes} B/CTA ({p.storage}), grid {p.grid}")(
+            pr.launch_plan(RING_N, 1, RING_B, torch.float32)),
         "converged_share": converged[RING_CASES[0][0]],
         "entry_ms": e2e_ms,
         "general_twin_ms_B1024": gen_ms,
@@ -1520,7 +1629,7 @@ def main():
               f"{spilling} with spill stores", flush=True)
         # Phase 8's build lines: the blocked kernels, from the same build.
         for name, nreg, spill, _, stack in ptxas_report(text):
-            m = re.search(r"blocked_(sqp|kkt)_kernelI([fd])(?:Li(\d+)E)?", name)
+            m = re.search(r"blocked_(sqp|kkt_warp|kkt)_kernelI([fd])(?:Li(\d+)E)?", name)
             if m:
                 kernel, t, rows = m.groups()
                 label = f"blocked_{kernel}<{'float' if t == 'f' else 'double'}" + (f", R={rows}>" if rows else ">")

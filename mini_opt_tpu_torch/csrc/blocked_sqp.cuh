@@ -9,9 +9,10 @@
 // line search with retraction, the lambda machine, the best-merit return
 // with f_best starting at +inf, and the (f, |eq|_1, flags) write-out -- for
 // systems of D = n + m rows past the register tier's 32. ldlt_factor_cta /
-// ldlt_solve_cta at the top are kernel 3's routines (blocked_kkt.cu, the
-// kernel of pallas_blocked.py::blocked_kkt_solve): one CTA per system, one
-// thread per row.
+// ldlt_solve_cta at the top are kernel 3's routines past D = 192
+// (blocked_kkt.cu, the kernel of pallas_blocked.py::blocked_kkt_solve): one
+// CTA per system, one thread per row; below that kernel 3 takes the warp
+// routines that follow.
 //
 // What bounds it on this card: operations in principle, the shared-memory
 // instructions in practice. An instance reads and writes a few hundred
@@ -53,7 +54,9 @@
 //   predicated (store_if), because a branch the compiler cannot prove
 //   warp-uniform costs a reconvergence barrier per trip.
 // There is no __syncthreads in the solve: a warp past B exits whole before
-// its first __syncwarp. Kernel 3 keeps the CTA routines above.
+// its first __syncwarp. Kernel 3 (blocked_kkt.cu) runs the warp routines
+// below on one system per warp up to D = 192 and the CTA routines above past
+// it.
 //
 // Order of operations: every sum the JAX kernel takes with jnp.sum over a
 // stacked axis is taken here term by term in index order, the factor's
@@ -72,7 +75,7 @@ namespace mo {
 namespace blocked {
 
 // ---------------------------------------------------------------------------
-// Kernel 3's routines: one CTA per system, one thread per row.
+// Kernel 3's routines past D = 192: one CTA per system, one thread per row.
 // ---------------------------------------------------------------------------
 
 // Threads per CTA for a D-row system: one per row, whole warps.

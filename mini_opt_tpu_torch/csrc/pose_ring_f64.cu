@@ -2,4 +2,6 @@
 // source file of their own so that nvcc builds them beside the float ones.
 #include "pose_ring.cuh"
 
-int mo::ring::launch_double(const Topology& tp, const LaunchArgs& a) { return dispatch_k<double>(tp, a); }
+int mo::ring::launch_double(const Topology& tp, const LaunchArgs& a, bool occupancy_only) {
+  return dispatch_k<double>(tp, a, occupancy_only);
+}

@@ -140,10 +140,12 @@ def load_library():
             lib.mo_blocked_kkt_launch.argtypes = [
                 i, i,  # dtype, D
                 p, p, p,  # H, rhs, x
-                i,  # B
+                i, i,  # B, systems per CTA (warp route)
                 p,  # cudaStream_t
             ]
             lib.mo_blocked_kkt_launch.restype = i
+            lib.mo_blocked_kkt_occupancy.argtypes = [i, i, i]  # dtype, D, systems per CTA
+            lib.mo_blocked_kkt_occupancy.restype = i
             lib.mo_ldlt_factor_launch.argtypes = [
                 i, i,  # dtype, D
                 p, p, p,  # H, L, d
@@ -175,11 +177,18 @@ def load_library():
                 i, i, i,  # dtype, n poses, closures
                 ctypes.POINTER(i),  # the closures' (from, to) pairs
                 ctypes.c_double,  # anchor weight
-                p, p, p, p, p,  # data, x0, x_out, state, scratch
-                i, i, i,  # B, max_iterations, ls_iterations
+                p, p, p, p, p,  # data, x0, x_out, state, scratch (or NULL)
+                i, i,  # B, graphs per CTA
+                i, i,  # max_iterations, ls_iterations
                 p,  # cudaStream_t
             ]
             lib.mo_pose_ring_launch.restype = i
+            lib.mo_pose_ring_occupancy.argtypes = [
+                i, i, i,  # dtype, n poses, closures
+                ctypes.POINTER(i),  # the closures' (from, to) pairs
+                i, i,  # graphs per CTA, global scratch
+            ]
+            lib.mo_pose_ring_occupancy.restype = i
             lib.mo_mpc_scratch_slots.argtypes = [i, i]  # plant, horizon
             lib.mo_mpc_scratch_slots.restype = i
             lib.mo_mpc_launch.argtypes = [

@@ -12,8 +12,10 @@ of ``pallas_blocked.py``:
   KKT matrix (its lower triangle in 4-row tiles) factored in its slab of
   shared memory. It replaces
   ``_make_blocked_kernel``.
-* ``csrc/blocked_kkt.cu``: one dense LDL^T factor and solve per CTA. It
-  replaces the kernel of ``blocked_kkt_solve``.
+* ``csrc/blocked_kkt.cu``: one dense LDL^T factor and solve per system,
+  one warp per system up to D = 192 (kernel 2's routines, ``kkt_launch_plan``)
+  and one CTA per system past it. It replaces the kernel of
+  ``blocked_kkt_solve``.
 
 Beside each sits its plain PyTorch version on stacked feature-major tensors,
 ``_blocked_solve_plain`` (G as ``(n, n, B)``, J_eq ``(m, n, B)``, the KKT
@@ -137,6 +139,61 @@ def launch_plan(n: int, B: int, dtype: torch.dtype) -> LaunchPlan:
         )
     warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // warp_bytes)
     return LaunchPlan(warps, rows, slots, warp_bytes, warps * warp_bytes, -(-B // warps))
+
+
+def kkt_slab_slots(D: int, dtype: torch.dtype) -> int:
+    """Slots (of ``dtype``) of one system's slab on kernel 3's warp route
+    (csrc/blocked_kkt.cu ``warp_slab_bytes``): the tiled lower triangle
+    (``kkt_slots(D)``), the factor's w (D, in whole tiles of 4) and the
+    2-byte table of the triangle's tiles."""
+    size = torch.empty((), dtype=dtype).element_size()
+    a = kkt_slots(D)
+    return a + -(-D // 4) * 4 + -(-2 * (a // 4) // size)
+
+
+# Kernel 3's CTA route (past the warp route's D): one thread per row, at
+# most this many.
+KKT_CTA_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class KKTLaunchPlan:
+    """How kernel 3 launches for B systems of D rows: ``route`` "warp" (one
+    warp per system, ``warps`` systems per CTA, ``rows_per_lane`` rows a
+    lane) or "cta" (one CTA of ``threads`` threads per system, ``warps`` 1,
+    ``rows_per_lane`` 0); ``system_bytes`` of shared memory per system,
+    ``cta_bytes`` per CTA, ``grid`` CTAs."""
+
+    route: str
+    warps: int
+    rows_per_lane: int
+    threads: int
+    system_bytes: int
+    cta_bytes: int
+    grid: int
+
+
+def kkt_launch_plan(D: int, B: int, dtype: torch.dtype) -> KKTLaunchPlan:
+    """The launch plan of kernel 3 for B systems of D rows in ``dtype``:
+    the warp route up to D = 32 * MAX_ROWS_PER_LANE (WARPS_PER_CTA systems
+    per CTA, fewer where that many slabs do not fit MAX_CTA_SMEM), the CTA
+    route past it (PR 5's design: a (D, D | 1) matrix, d and w in one CTA's
+    shared memory). Raises ValueError where neither route takes D (the CPU
+    path takes any D)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    rows = rows_per_lane(D)
+    if rows:
+        slab = -(-kkt_slab_slots(D, dtype) * size // 16) * 16
+        warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // slab)
+        return KKTLaunchPlan("warp", warps, rows, 32 * warps, slab, warps * slab, -(-B // warps))
+    threads = -(-D // 32) * 32
+    cta = (D * (D | 1) + 2 * D) * size
+    if threads > KKT_CTA_THREADS or cta > MAX_CTA_SMEM:
+        raise ValueError(
+            f"the blocked KKT kernel takes no D = {D} in {dtype}: one system's matrix ({cta} B) "
+            f"does not fit a CTA ({MAX_CTA_SMEM} B, {KKT_CTA_THREADS} threads)"
+        )
+    return KKTLaunchPlan("cta", 1, 0, threads, cta, cta, B)
 
 
 # ---------------------------------------------------------------------------
@@ -649,14 +706,16 @@ def _blocked_kkt_solve_plain(H, rhs):
 
 
 def _blocked_kkt_solve_cuda(H, rhs):
-    """Launch ``csrc/blocked_kkt.cu``: one CTA per system. Raises on
-    anything the kernel does not take and on a refused launch."""
+    """Launch ``csrc/blocked_kkt.cu`` by ``kkt_launch_plan``: one warp per
+    system up to D = 192, one CTA per system past it. Raises on anything the
+    kernel does not take and on a refused launch."""
     global KKT_LAUNCHES
     B, D = rhs.shape
     _check_cuda_tensors((("H", H, (B, D, D)), ("rhs", rhs, (B, D))), H.dtype, H.device, B)
     x = torch.empty_like(rhs)
     if B == 0 or D == 0:
         return x
+    plan = kkt_launch_plan(D, B, H.dtype)
     lib = _build.load_library()
     with torch.cuda.device(H.device):
         rc = lib.mo_blocked_kkt_launch(
@@ -666,6 +725,7 @@ def _blocked_kkt_solve_cuda(H, rhs):
             rhs.data_ptr(),
             x.data_ptr(),
             B,
+            plan.warps,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

@@ -13,10 +13,15 @@ skeleton at ``NLSParams`` defaults: lambda machine (lambda_0 = 0, failure
 init 1e-2, x0.1 on success, x0.8 on restore, cap 1), Armijo backtracking
 with tau = 0.5, best-merit return.
 
-The whole solve of one instance runs as one CUDA kernel, one instance per
-thread: the device code is ``csrc/pose_ring.cuh``, its float and double
-instances are built from ``pose_ring.cu`` (with the C launcher) and
-``pose_ring_f64.cu``. It replaces the TPU kernel
+The whole solve of one instance runs as one CUDA kernel, one warp per
+graph (``launch_plan``: 4 graphs per CTA, each graph's slots a slab of the
+CTA's dynamic shared memory; fewer where 4 slabs do not fit 232,448 B, an
+instance-major global scratch array where one slab does not): the device
+code is ``csrc/pose_ring.cuh``, its float and double instances are built
+from ``pose_ring.cu`` (with the C launcher) and ``pose_ring_f64.cu``. Within
+a graph the edges, the poses, the line-search probes and the entries of each
+sweep step's 3x3 blocks are spread over the lanes; the sweep runs in pose
+order. It replaces the TPU kernel
 ``pallas_pose_ring.py::_make_ring_kernel``. Beside it sits
 ``_pose_ring_plain``, the same computation as plain PyTorch on lists of
 ``(B,)`` tensors, a line-by-line counterpart of ``_make_ring_kernel``. The
@@ -53,6 +58,59 @@ KERNEL_LAUNCHES = 0
 # this many border poses (k = 1 is the single-closure path).
 CUDA_MAX_BORDERS = 6
 CUDA_MAX_CLOSURES = 16
+
+# Kernel 7's launch (csrc/pose_ring.cuh): one warp per graph, up to
+# WARPS_PER_CTA graphs per CTA, each graph's Layout slots a slab of the
+# CTA's dynamic shared memory; fewer warps where that many slabs do not fit
+# MAX_CTA_SMEM, and an instance-major (B, slots) global scratch array where
+# one slab does not.
+WARPS_PER_CTA = 4
+MAX_CTA_SMEM = 232_448  # bytes of dynamic shared memory one H100 CTA may hold
+_EDGE_VALUES = 8  # per-edge values of the linearization (pose_ring.cuh kEdgeValues)
+
+
+def _round4(k):
+    return -(-k // 4) * 4
+
+
+def layout_slots(n_poses: int, n_closures: int) -> int:
+    """Slots of one graph's slab: csrc/pose_ring.cuh's ``Layout(n,
+    n_cl).total``, each array from a 4-slot boundary -- the iterate, its best
+    and blend, the step, the gradient and the sweep's z / y (3N each), the
+    diagonal blocks (9N), the chain blocks (9 (N - 1)), two border columns
+    per pose (18N), 9 per closure, the 3E measurements, and _EDGE_VALUES
+    rows of round4(E) terms."""
+    n, E = n_poses, n_poses - 1 + n_closures
+    sizes = [3 * n] * 6 + [9 * n, 9 * (n - 1), 18 * n, 9 * n_closures, 3 * E, _EDGE_VALUES * _round4(E)]
+    return sum(_round4(k) for k in sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How kernel 7 launches for B graphs: ``warps`` (graphs) per CTA,
+    ``slots`` of one graph's slab and its ``warp_bytes``, ``cta_bytes`` of
+    dynamic shared memory per CTA (0 on the global route), ``storage``
+    "shared" or "global", ``grid`` CTAs."""
+
+    warps: int
+    slots: int
+    warp_bytes: int
+    cta_bytes: int
+    storage: str
+    grid: int
+
+
+def launch_plan(n_poses: int, n_closures: int, B: int, dtype: torch.dtype) -> LaunchPlan:
+    """The launch plan of kernel 7 for B graphs of n_poses poses and
+    n_closures closures in ``dtype``."""
+    slots = layout_slots(n_poses, n_closures)
+    slab = slots * torch.empty((), dtype=dtype).element_size()  # whole 16-byte units
+    if slab <= MAX_CTA_SMEM:
+        warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // slab)
+        storage, cta_bytes = "shared", warps * slab
+    else:
+        warps, storage, cta_bytes = WARPS_PER_CTA, "global", 0
+    return LaunchPlan(warps, slots, slab, cta_bytes, storage, -(-B // warps))
 
 # math.pi, as pallas_pose_ring.py:48 (not the truncated literal of the IK
 # kernels).
@@ -543,14 +601,16 @@ def _pose_ring_cuda(family, data_t, x0_t, max_iterations, ls_iterations):
     if B == 0:
         return x_out, state
     lib = _build.load_library()
-    scratch = torch.empty((lib.mo_pose_ring_scratch_slots(N, len(cl)), B), **kw)
+    plan = launch_plan(N, len(cl), B, dtype)
+    scratch = torch.empty((B, plan.slots), **kw) if plan.storage == "global" else None
     flat = (ctypes.c_int * (2 * len(cl)))(*(v for c in cl for v in c))
     with torch.cuda.device(data_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mo_pose_ring_launch(
             _CUDA_DTYPE_IDS[dtype], N, len(cl), flat, ctypes.c_double(float(family.anchor_weight)),
-            data_t.data_ptr(), x0_t.data_ptr(), x_out.data_ptr(), state.data_ptr(), scratch.data_ptr(),
-            B, max_iterations, ls_iterations, stream,
+            data_t.data_ptr(), x0_t.data_ptr(), x_out.data_ptr(), state.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, plan.warps, max_iterations, ls_iterations,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"pose_ring kernel launch failed: {_build.error_string(rc)}")

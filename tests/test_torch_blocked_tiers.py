@@ -25,6 +25,10 @@ same code against the JAX package).
   slab's arrays, warps per CTA against the 232,448 bytes of a CTA, every
   size the first design launched, the grid. The ``cuda``-marked cases hold
   kernel 2 to its plain version bit for bit on a card; they skip here.
+* Kernel 3's launch plan (``ops/blocked.py::kkt_launch_plan``): the route
+  and systems per CTA at every D = 1..256, bytes per system against a
+  count of the slab's arrays, every size the first design launched, the
+  grid.
 """
 
 import numpy as np
@@ -311,6 +315,79 @@ def test_launch_plan_grid(case):
         plan = blk.launch_plan(n, B, dtype)
         assert (plan.warps, plan.grid) == (W, grid)
         assert plan.grid * plan.warps >= B > (plan.grid - 1) * plan.warps
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3's launch plan (ops/blocked.py::kkt_launch_plan, the mirror of
+# csrc/blocked_kkt.cu's warp_slab_bytes and kkt_smem_bytes): one warp per
+# system up to D = 192, one CTA per system past it.
+# ---------------------------------------------------------------------------
+
+# The largest D of the CTA route of the first design (one CTA per system, a
+# (D, D | 1) matrix, d and w in shared memory), which took every D from 1.
+KKT_PARENT_LIMIT = {torch.float32: 239, torch.float64: 169}
+
+
+def _kkt_slab(D, dtype):
+    """One system's slab on the warp route, array by array."""
+    size = torch.empty((), dtype=dtype).element_size()
+    kkt = sum(-(-(-(-D // 4) * 4 - 4 * (j // 4)) // 4) * 4 for j in range(D))
+    return {
+        "A: the lower triangle by columns, in 4-row tiles": kkt,
+        "w: the factor's scratch, in whole tiles": -(-D // 4) * 4,
+        "tiles: the table of A's tiles, 2 bytes each": -(-2 * (kkt // 4) // size),
+    }
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_kkt_launch_plan_routes_over_every_size(dtype):
+    """D = 1..256: the warp route up to 32 * MAX_ROWS_PER_LANE (rows a lane
+    as kernel 2's), W slabs within a CTA and W + 1 past it where W < 4; the
+    CTA route past it while (D, D | 1) + 2 D slots and ceil(D / 32) warps fit
+    one CTA; ValueError beyond. Every D the first design launched still
+    gets a plan."""
+    size = torch.empty((), dtype=dtype).element_size()
+    for D in range(1, 257):
+        cta = (D * (D | 1) + 2 * D) * size
+        if D > 32 * blk.MAX_ROWS_PER_LANE and (cta > CTA_SMEM or D > blk.KKT_CTA_THREADS):
+            assert D > KKT_PARENT_LIMIT[dtype]
+            with pytest.raises(ValueError, match="does not fit a CTA"):
+                blk.kkt_launch_plan(D, 1, dtype)
+            continue
+        plan = blk.kkt_launch_plan(D, 1, dtype)
+        if D <= 32 * blk.MAX_ROWS_PER_LANE:
+            assert (plan.route, plan.rows_per_lane) == ("warp", blk.rows_per_lane(D))
+            assert 1 <= plan.warps <= blk.WARPS_PER_CTA and plan.threads == 32 * plan.warps
+            assert plan.cta_bytes == plan.warps * plan.system_bytes <= CTA_SMEM
+            if plan.warps < blk.WARPS_PER_CTA:
+                assert (plan.warps + 1) * plan.system_bytes > CTA_SMEM
+        else:
+            assert (plan.route, plan.warps, plan.rows_per_lane) == ("cta", 1, 0)
+            assert plan.threads == -(-D // 32) * 32 and plan.cta_bytes == plan.system_bytes == cta
+    for D in range(1, KKT_PARENT_LIMIT[dtype] + 1):
+        blk.kkt_launch_plan(D, 8192, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("D", [1, 2, 7, 33, 49, 64, 65, 128, 129, 192])
+def test_kkt_launch_plan_bytes_count_the_slab(D, dtype):
+    plan = blk.kkt_launch_plan(D, 8192, dtype)
+    size = torch.empty((), dtype=dtype).element_size()
+    slots = sum(_kkt_slab(D, dtype).values())
+    assert blk.kkt_slab_slots(D, dtype) == slots
+    assert plan.system_bytes % 16 == 0 and 0 <= plan.system_bytes - slots * size < 16
+    if D == 49:  # the standalone path's width
+        assert (plan.warps, plan.system_bytes) == (4, {torch.float32: 6_720, torch.float64: 12_704}[dtype])
+
+
+@pytest.mark.parametrize("case", [(49, torch.float32), (128, torch.float64), (192, torch.float64), (200, torch.float32)],
+                         ids=["D49-f32", "D128-f64", "D192-f64", "D200-f32"])
+def test_kkt_launch_plan_grid(case):
+    D, dtype = case
+    W = blk.kkt_launch_plan(D, 1, dtype).warps
+    for B, grid in ((1, 1), (W, 1), (W + 1, 2), (8192, -(-8192 // W))):
+        plan = blk.kkt_launch_plan(D, B, dtype)
+        assert (plan.warps, plan.grid) == (W, grid)
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,9 @@ def test_import_leaves_jax_out():
 
 @pytest.mark.parametrize(
     "path",
-    sorted((REPO / "mini_opt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "scripts" / "mpc_kernel_times.py"],
+    sorted((REPO / "mini_opt_tpu_torch").rglob("*.py"))
+    + [REPO / "chip_smoke.py"]
+    + [REPO / "scripts" / f"{name}_kernel_times.py" for name in ("mpc", "blocked", "pose_ring")],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import_in_source(path):
@@ -234,20 +236,34 @@ def test_blocked_kernel_matches_plain_on_card():
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
 
 
+KKT_CARD_CASES = {
+    "D34-f64": (34, torch.float64),  # the warp route, R = 2
+    "D1-f64": (1, torch.float64),  # the smallest system
+    "D130-f64": (130, torch.float64),  # R = 6, 3 systems per CTA
+    "D200-f32": (200, torch.float32),  # the CTA route
+}
+
+
 @pytest.mark.cuda
 @needs_cuda
-def test_blocked_kkt_kernel_matches_plain_on_card():
-    """csrc/blocked_kkt.cu against _blocked_kkt_solve_plain at D = 34 on
-    quasi-definite KKT systems, B = 150 (no multiple of anything)."""
-    rng = np.random.default_rng(34)
-    B, n, m = 150, 31, 3
+@pytest.mark.parametrize("batch", ["one", "ragged", "full"])
+@pytest.mark.parametrize("case", list(KKT_CARD_CASES))
+def test_blocked_kkt_kernel_matches_plain_on_card(case, batch):
+    """csrc/blocked_kkt.cu against _blocked_kkt_solve_plain on
+    quasi-definite KKT systems, bit for bit: one system, a ragged last CTA
+    (W + 1 systems) and B = 150 (no multiple of anything)."""
+    D, dtype = KKT_CARD_CASES[case]
+    B = {"one": 1, "ragged": blk.kkt_launch_plan(D, 1, dtype).warps + 1, "full": 150}[batch]
+    rng = np.random.default_rng(D)
+    m = max(1, D // 12) if D > 1 else 0
+    n = D - m
     A = rng.normal(size=(B, n, n))
     H = np.zeros((B, n + m, n + m))
     H[:, :n, :n] = A @ A.transpose(0, 2, 1) + 2.0 * np.eye(n)
     H[:, n:, :n] = rng.normal(size=(B, m, n))
     H[:, :n, n:] = H[:, n:, :n].transpose(0, 2, 1)
-    H_t = torch.as_tensor(H, device="cuda")
-    rhs = torch.as_tensor(rng.normal(size=(B, n + m)), device="cuda")
+    H_t = torch.as_tensor(H, dtype=dtype, device="cuda")
+    rhs = torch.as_tensor(rng.normal(size=(B, n + m)), dtype=dtype, device="cuda")
     before = blk.KKT_LAUNCHES
     got = port.blocked_kkt_solve(H_t, rhs)
     torch.cuda.synchronize()

@@ -16,6 +16,10 @@ no JAX compile (float64, CPU tensors, so the plain version of kernel 7 runs).
 * NaN lanes are flagged and contained, a lane's answer does not depend on
   the rest of the batch, ``solve_pose_graph_rings`` is the kernel plus the
   (B, N, 3) reshape, and the argument checks raise.
+* Kernel 7's launch plan (``ops/pose_ring.py::launch_plan``, the mirror of
+  csrc/pose_ring.cuh's ``Layout``): bytes per graph against a count of the
+  slab's arrays, graphs per CTA against the 232,448 bytes of a CTA, the
+  global-scratch route's boundary in both types, the grid.
 """
 
 import dataclasses
@@ -260,3 +264,105 @@ def test_float32_general_twin_keeps_its_dtype():
     xk = pr.pose_ring_solve_batch(fam, data, x0, max_iterations=2, ls_iterations=1)
     assert r.x.dtype == torch.float32 and xk.dtype == torch.float32
     np.testing.assert_allclose(xk.numpy(), r.x.numpy(), rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7's launch plan (ops/pose_ring.py::launch_plan, the mirror of
+# csrc/pose_ring.cuh's Layout): one warp per graph, 4 graphs per CTA while 4
+# slabs fit 232,448 B, fewer past that, an instance-major global scratch
+# past one slab.
+# ---------------------------------------------------------------------------
+
+CTA_SMEM = 232_448
+PLAN_DTYPES = [torch.float64, torch.float32]
+PLAN_IDS = ["f64", "f32"]
+# The smallest canonical ring whose slab does not fit one CTA.
+GLOBAL_RING = {torch.float64: 447, torch.float32: 894}
+
+
+def _slab_arrays(n, n_cl):
+    """One graph's slab, array by array, each from a 4-slot boundary."""
+    E = n - 1 + n_cl
+
+    def r4(k):
+        return -(-k // 4) * 4
+
+    return {
+        "x, best, bx, dx, g, zy (3N each)": 6 * r4(3 * n),
+        "D: diagonal blocks": r4(9 * n),
+        "U: chain blocks": r4(9 * (n - 1)),
+        "ZW: two border columns per pose": r4(18 * n),
+        "Cb: closure blocks": r4(9 * n_cl),
+        "measurements": r4(3 * E),
+        "terms: 8 rows of round4(E)": 8 * r4(E),
+    }
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=PLAN_IDS)
+@pytest.mark.parametrize("graph", [(2, 1), (16, 1), (16, 2), (16, 4), (32, 1)], ids=lambda g: f"n{g[0]}-cl{g[1]}")
+def test_launch_plan_counts_the_slab(graph, dtype):
+    n, n_cl = graph
+    plan = pr.launch_plan(n, n_cl, 8192, dtype)
+    size = torch.empty((), dtype=dtype).element_size()
+    assert plan.slots == pr.layout_slots(n, n_cl) == sum(_slab_arrays(n, n_cl).values())
+    assert plan.warp_bytes == plan.slots * size and plan.warp_bytes % 16 == 0
+    assert (plan.storage, plan.warps) == ("shared", pr.WARPS_PER_CTA)
+    assert plan.cta_bytes == plan.warps * plan.warp_bytes <= CTA_SMEM
+    assert plan.grid == 8192 // pr.WARPS_PER_CTA
+    if (n, n_cl) == (16, 1):  # the main path's ring
+        assert plan.warp_bytes == {torch.float32: 4_176, torch.float64: 8_352}[dtype]
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=PLAN_IDS)
+def test_launch_plan_global_route_boundary(dtype):
+    """Below the boundary every slab sits in shared memory, W of them a CTA
+    (W + 1 would not fit); from it on, the instance-major global scratch,
+    4 graphs a CTA and no dynamic shared memory."""
+    n_g = GLOBAL_RING[dtype]
+    last = pr.launch_plan(n_g - 1, 1, 67, dtype)
+    assert last.storage == "shared" and last.warp_bytes <= CTA_SMEM
+    assert last.cta_bytes == last.warps * last.warp_bytes and (last.warps + 1) * last.warp_bytes > CTA_SMEM
+    first = pr.launch_plan(n_g, 1, 67, dtype)
+    assert first.storage == "global" and first.warp_bytes > CTA_SMEM
+    assert (first.warps, first.cta_bytes, first.grid) == (pr.WARPS_PER_CTA, 0, -(-67 // pr.WARPS_PER_CTA))
+
+
+@pytest.mark.parametrize("dtype", PLAN_DTYPES, ids=PLAN_IDS)
+def test_launch_plan_warps_fall_where_slabs_pass_a_cta(dtype):
+    seen = set()
+    for n in list(range(2, 40)) + list(range(100, GLOBAL_RING[dtype] + 1, 7)):
+        plan = pr.launch_plan(n, 1, 1, dtype)
+        if plan.storage == "global":
+            continue
+        seen.add(plan.warps)
+        assert plan.warps == min(pr.WARPS_PER_CTA, CTA_SMEM // plan.warp_bytes)
+    assert 1 in seen and pr.WARPS_PER_CTA in seen
+
+
+@pytest.mark.parametrize("case", [(16, torch.float32), (16, torch.float64), (446, torch.float64), (893, torch.float32)],
+                         ids=["n16-f32", "n16-f64", "n446-f64", "n893-f32"])
+def test_launch_plan_grid(case):
+    n, dtype = case
+    W = pr.launch_plan(n, 1, 1, dtype).warps
+    for B, grid in ((1, 1), (W, 1), (W + 1, 2), (8192, -(-8192 // W))):
+        plan = pr.launch_plan(n, 1, B, dtype)
+        assert (plan.warps, plan.grid) == (W, grid)
+        assert plan.grid * plan.warps >= B > (plan.grid - 1) * plan.warps
+
+
+needs_cuda = pytest.mark.skipif(
+    "not torch.cuda.is_available()",
+    reason="needs a CUDA device: the launcher is built only on a card's machine",
+)
+
+
+@pytest.mark.cuda
+@needs_cuda
+def test_layout_slots_match_the_launcher():
+    """ops/pose_ring.py::layout_slots mirrors csrc/pose_ring.cuh's Layout."""
+    from mini_opt_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    for n in (2, 3, 16, 17, 32, 447, 894):
+        for n_cl in (1, 2, 5, 16):
+            assert lib.mo_pose_ring_scratch_slots(n, n_cl) == pr.layout_slots(n, n_cl)
