@@ -54,10 +54,17 @@ Phases, each of which exits non-zero on failure:
    and for the KKT solve torch.linalg.ldl_factor_ex + ldl_solve as its
    library yardstick;
 9. the general path's kernels (csrc/ldlt.cu, csrc/fused_qp.cu), built in
-   phase 2's parallel nvcc pass: ptxas registers and spills per instance;
+   phase 2's parallel nvcc pass: ptxas registers, spills and stack frame per
+   instance (a spill in an instance of kernels 4 and 5's register route
+   fails the run), and the launch plan at D = 3;
 10. the LDL^T factor and solve kernels (kernels 4 and 5) against their plain
-   versions at D = 3, 5, 9, 17, 33, 40, B = 8192 + 13, float64 and float32,
-   with one NaN lane and one singular lane (the per-lane ``ok`` equal);
+   versions, bit for bit, on batch-major H and rhs as factorize and solve
+   give them: D = 1, 2, 3, 5, 9, 13 (the register route's largest), 14
+   (the generic route from here), 17, 33, 40, at B = 8192 + 13 (a ragged
+   last CTA, one NaN lane and one singular lane) and B = 1, both types,
+   L, d, x and the kernel's per-lane ``ok`` against ``_ok`` of the plain
+   factor; then one factorize + solve pair at D = 3, B = 8192 under
+   torch.profiler, which must show exactly two device kernels;
 11. the fused QP kernel (kernel 6) against its plain version on QPs from
    the port's own linearization of bench instances at n = 2, 4 and 8, both
    barriers, float64 and float32, one NaN-target lane;
@@ -71,9 +78,13 @@ Phases, each of which exits non-zero on failure:
    entry point with the kernels' plain versions swapped in, on the card,
    bit for bit; timings: the entry point per call, its device work and
    kernel share (torch.profiler) and the device's idle share of the
-   unprofiled call, each kernel alone on the inputs the main
-   path gave it (held), its bound, its plain version and, for kernels 4
-   and 5, torch.linalg.ldl_factor_ex / ldl_solve;
+   unprofiled call (its device-kernel count beside PERF.md's 50,532 for
+   the feature-major LDL^T wrappers), each kernel alone on the inputs the
+   main path gave it (held), its bound, its plain version and, for kernels
+   4 and 5, torch.linalg.ldl_factor_ex / ldl_solve, the launch floor (a
+   held torch.cuda._sleep(1) and a one-element add_) and the held
+   factorize + solve pair, and H's bytes read whole (B D^2) beside its
+   lower triangle's;
 13. the pose-ring kernel (csrc/pose_ring.cu), built in phase 2's parallel
    nvcc pass: ptxas registers, spill stores and stack frame per instance;
    kernel 7's launch plan at the main path's shape and at each type's
@@ -743,7 +754,7 @@ def plain_kernels():
     held to on the card."""
     saved = (ldlt._ldlt_factor_cuda, ldlt._ldlt_solve_cuda, fq._fused_qp_cuda)
     ldlt._ldlt_factor_cuda, ldlt._ldlt_solve_cuda, fq._fused_qp_cuda = (
-        ldlt._ldlt_factor_plain, ldlt._ldlt_solve_plain, fq._fused_qp_plain)
+        ldlt._factor_plain, ldlt._solve_plain, fq._fused_qp_plain)
     try:
         yield
     finally:
@@ -783,32 +794,77 @@ def check_bits(tag, got, want, max_err, ok_pair=None):
         fail(f"{tag} {dtype}: the kernel disagrees with its plain version")
 
 
-def ldlt_vs_plain(max_err):
-    """Phase 10: kernels 4 and 5 against their plain versions."""
-    B = 8192 + 13
-    for D in (3, 5, 9, 17, 33, 40):
-        rng = np.random.default_rng(D)
-        A = rng.normal(size=(B, D, D))
-        H = A @ A.transpose(0, 2, 1) / D + np.eye(D)
-        m = max(1, D // 6)  # a KKT-shaped zero block, as the QP gives
+def ldlt_systems(B, D, seed):
+    """B SPD systems with a KKT-shaped zero block (as the QP gives), garbage
+    above the diagonal (only the lower triangle is read), and right-hand
+    sides, float64 numpy; past B = 7 lane 5 NaN and lane 7 singular."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, D, D))
+    H = A @ A.transpose(0, 2, 1) / D + np.eye(D)
+    m = min(max(1, D // 6), D - 1)
+    if m:
         H[:, D - m:, D - m:] = 0.0
+    upper = np.triu_indices(D, 1)
+    H[:, upper[0], upper[1]] = rng.normal(size=(B, len(upper[0])))
+    if B > 7:
         H[5] = np.nan
         H[7] = 0.0
-        rhs = rng.normal(size=(D, B))
-        for dtype in (torch.float64, torch.float32):
-            Ht = torch.as_tensor(H, dtype=dtype, device="cuda").permute(1, 2, 0).contiguous()
-            rt = torch.as_tensor(rhs, dtype=dtype, device="cuda")
-            before = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES)
-            Lk, dk = ldlt._ldlt_factor_cuda(Ht)
-            Lp, dp = ldlt._ldlt_factor_plain(Ht)
-            xk = ldlt._ldlt_solve_cuda(Lp, dp, rt)
-            torch.cuda.synchronize()
-            if (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES) != (before[0] + 1, before[1] + 1):
-                fail(f"D={D}: an LDL^T wrapper did not count its launch")
-            xp = ldlt._ldlt_solve_plain(Lp, dp, rt)
-            check_bits(f"phase10 LDL^T factor D={D} B={B}", (Lk, dk), (Lp, dp), max_err["factor"],
-                       ok_pair=(ldlt._ok(Lk, dk), ldlt._ok(Lp, dp)))
-            check_bits(f"phase10 LDL^T solve D={D} B={B}", (xk,), (xp,), max_err["solve"])
+    return H, rng.normal(size=(B, D))
+
+
+def ldlt_vs_plain(max_err):
+    """Phase 10: kernels 4 and 5 against their plain versions on batch-major
+    H and rhs, as factorize and solve give them, on both routes; then one
+    factorize + solve pair under the profiler."""
+    cap = ldlt.REGISTER_MAX_D
+    for D in sorted({1, 2, 3, 5, cap, cap + 1, 9, 17, 33, 40}):
+        for B in (8192 + 13, 1):
+            H, rhs = ldlt_systems(B, D, seed=D)
+            for dtype in (torch.float64, torch.float32):
+                H_b = torch.as_tensor(H, dtype=dtype, device="cuda")
+                r_b = torch.as_tensor(rhs, dtype=dtype, device="cuda")
+                plan = ldlt.ldlt_launch_plan(D, B)
+                before = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES)
+                Lk, dk, okk = ldlt._ldlt_factor_cuda(H_b)
+                Lp, dp, okp = ldlt._factor_plain(H_b)
+                xk = ldlt._ldlt_solve_cuda(Lp, dp, r_b)
+                torch.cuda.synchronize()
+                if (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES) != (before[0] + 1, before[1] + 1):
+                    fail(f"D={D}: an LDL^T wrapper did not count its launch")
+                xp = ldlt._solve_plain(Lp, dp, r_b)
+                where = f"D={D} B={B} ({plan.route} route, {plan.threads} threads a CTA)"
+                check_bits(f"phase10 LDL^T factor {where}", (Lk, dk), (Lp, dp), max_err["factor"],
+                           ok_pair=(okk, okp))
+                check_bits(f"phase10 LDL^T solve {where}", (xk,), (xp,), max_err["solve"])
+
+    # One factorize + solve pair at the general path's D = 3, B = 8192, as
+    # ops/kkt.py calls it: the two kernels and nothing else on the card.
+    H, rhs = ldlt_systems(GENERAL_B, 3, seed=3)
+    H_b = torch.as_tensor(H, dtype=torch.float32, device="cuda")
+    r_b = torch.as_tensor(rhs, dtype=torch.float32, device="cuda")
+
+    def pair():
+        fact, _ = ldlt.factorize(H_b)
+        return ldlt.solve(fact, r_b)
+
+    pair()
+    torch.cuda.synchronize()
+    _, _, n_kernels, per_kernel = profile_call(pair)
+    print(f"# phase10 factorize + solve D=3 B={GENERAL_B} float32 under torch.profiler: {n_kernels} "
+          f"device kernels {sorted((k[:60], c) for k, (c, _) in per_kernel.items())} (the feature-major "
+          f"design before the register route issued 14)", flush=True)
+    if n_kernels != 2:
+        fail(f"phase10: a factorize + solve pair issued {n_kernels} device kernels, not 2")
+
+
+def launch_floor_ms():
+    """The least a held, back-to-back launch costs on the card in time_ms's
+    harness: torch.cuda._sleep(1) (a kernel that spins one cycle) and a
+    one-element add_; returns the smaller, in ms, and both."""
+    sleep_ms, _ = time_ms(lambda: torch.cuda._sleep(1), held=True)
+    one = torch.zeros(1, device="cuda")
+    add_ms, _ = time_ms(lambda: one.add_(1.0), held=True)
+    return min(sleep_ms, add_ms), dict(sleep1_ms=sleep_ms, add_ms=add_ms)
 
 
 def ik_qps(n, B, dtype, seed):
@@ -939,11 +995,13 @@ def general_paths(card, kind):
         with plain_kernels():
             plain_e2e_ms, _ = event_ms(entry)
         prof_wall, busy_ms, n_kernels, per_kernel = profile_call(entry)
-        ours = {k: v for k, v in per_kernel.items() if re.search(r"ldlt_(factor|solve)_kernel|fused_qp_kernel", k)}
+        ours = {k: v for k, v in per_kernel.items() if re.search(r"ldlt_(factor|solve)(_reg)?_kernel|fused_qp_kernel", k)}
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
         timing[route] = dict(e2e_ms=e2e_ms, busy_ms=busy_ms, parity=parity)
         dev_txt = "not measured (the profiler recorded no device activity)" if busy_ms is None else (
-            f"device busy {busy_ms:.3f} ms in {n_kernels} kernels, idle share {1 - busy_ms / e2e_ms:.4f} "
+            f"device busy {busy_ms:.3f} ms in {n_kernels} kernels"
+            f"{' (PERF.md §5: 50,532 with the feature-major LDL^T wrappers)' if route == 'pallas_ldlt' else ''}, "
+            f"idle share {1 - busy_ms / e2e_ms:.4f} "
             f"of the unprofiled call ({e2e_ms:.3f} ms; the profiled call's own wall is {prof_wall:.3f} ms, "
             f"idle share {1 - busy_ms / prof_wall:.4f} of it); this slice's kernels "
             f"{ {k[:48]: (c, round(ms, 5)) for k, (c, ms) in ours.items()} }; the largest "
@@ -954,14 +1012,12 @@ def general_paths(card, kind):
 
     rows = []
     # Each kernel alone, on the inputs the main path last gave it.
-    Ht = seen["_ldlt_factor_cuda"][0]
-    Lt, dt, rt = seen["_ldlt_solve_cuda"]
+    H_b = seen["_ldlt_factor_cuda"][0]  # (B, D, D), batch-major
+    Lt, dt, rhs_b = seen["_ldlt_solve_cuda"]  # (D, D, B), (D, B), rhs (B, D)
     qp_args = seen["_fused_qp_cuda"]
-    D, = Ht.shape[:1]
+    D = H_b.shape[-1]
     N, K, M = qp_args[1].shape[0], qp_args[3].shape[0], len(qp_args[6])
     f32 = 4
-    H_b = Ht.permute(2, 0, 1).contiguous()
-    rhs_b = rt.T.contiguous()
 
     # The library yardsticks, timed once each after a warm-up on 8 systems
     # (the port never calls them).
@@ -970,16 +1026,30 @@ def general_paths(card, kind):
     torch.linalg.ldl_solve(LD[:8], piv[:8], rhs_b[:8, :, None])
     lib_solve_ms, _ = event_ms(lambda: torch.linalg.ldl_solve(LD, piv, rhs_b[..., None]))
 
+    # The floor under any held launch, and kernels 4 and 5 as the general
+    # path pairs them (ops/kkt.py: factorize, then solve).
+    floor_ms, floor_parts = launch_floor_ms()
+
+    def ldlt_pair():
+        fact, _ = ldlt.factorize(H_b)
+        return ldlt.solve(fact, rhs_b)
+
+    pair_ms, pair_all = time_ms(ldlt_pair, held=True)
+    print(f"# phase12 launch floor on {kind} ({card}): {floor_ms:.5f} ms a held launch "
+          f"({floor_parts}); factorize + solve pair at B={B} D={D} float32 {pair_ms:.5f} ms (held; "
+          f"repeats {pair_all})", flush=True)
+
     kernels = [
         ("ldlt_factor", "mini_opt_tpu/ops/pallas_ldlt.py:47", "_ldlt_kernel (launched :115)",
-         lambda: ldlt._ldlt_factor_cuda(Ht), lambda: ldlt._ldlt_factor_plain(Ht),
-         # reads the lower triangle, writes L and d
-         B * (D * (D + 1) // 2 + D * D + D) * f32, lib_factor_ms, "pallas_ldlt", "ldlt_factor", err4,
+         lambda: ldlt._ldlt_factor_cuda(H_b), lambda: ldlt._factor_plain(H_b),
+         # reads the batch-major H whole, writes L, d and the one-byte flag
+         B * (D * D + D * D + D) * f32 + B, lib_factor_ms, "pallas_ldlt", "ldlt_factor", err4,
          f"B={B} D={D} float32",
-         # what a consumer reads of the output: L's strict lower triangle and d
-         B * (D * (D + 1) // 2 + D * (D - 1) // 2 + D) * f32),
+         # what a consumer needs: H's lower triangle read, L's strict lower
+         # triangle, d and the flag written
+         B * (D * (D + 1) // 2 + D * (D - 1) // 2 + D) * f32 + B),
         ("ldlt_solve", "mini_opt_tpu/ops/pallas_ldlt.py:70", "_solve_kernel (launched :155)",
-         lambda: ldlt._ldlt_solve_cuda(Lt, dt, rt), lambda: ldlt._ldlt_solve_plain(Lt, dt, rt),
+         lambda: ldlt._ldlt_solve_cuda(Lt, dt, rhs_b), lambda: ldlt._solve_plain(Lt, dt, rhs_b),
          # reads L's strict lower triangle, d and the rhs, writes x
          B * (D * (D - 1) // 2 + 3 * D) * f32, lib_solve_ms, "pallas_ldlt", "ldlt_solve", err5,
          f"B={B} D={D} float32", None),
@@ -996,17 +1066,21 @@ def general_paths(card, kind):
         plain_ms, _ = event_ms(plain)
         ops = count_ops(plain)
         bound_ms, bound_by = roofline(ops, nbytes)
+        beside = (f"; launch floor {floor_ms:.5f} ms, the factorize + solve pair {pair_ms:.5f} ms"
+                  if route == "pallas_ldlt" else "")
         print(f"# phase12 kernel {name} {shape} on {kind} ({card}): alone on the card {k_ms:.5f} ms "
-              f"(held; unheld {k_unheld_ms:.5f}), {launched[route][count_key]} "
+              f"(held; unheld {k_unheld_ms:.5f}{beside}), {launched[route][count_key]} "
               f"launches per call; plain {plain_ms:.3f} ms; {ops / B:.0f} elementwise ops per instance, "
               f"{nbytes / B:.0f} bytes -> bound {bound_ms:.6f} ms ({bound_by}), kernel = "
               f"{k_ms / bound_ms:.1f}x bound; library "
               f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; repeats {k_all}", flush=True)
         if needed_bytes is not None:
             tight_ms, tight_by = roofline(ops, needed_bytes)
-            print(f"# phase12 kernel {name}: counting only the output a consumer reads, "
-                  f"{needed_bytes / B:.0f} bytes -> bound {tight_ms:.6f} ms ({tight_by}), kernel = "
-                  f"{k_ms / tight_ms:.1f}x that bound", flush=True)
+            print(f"# phase12 kernel {name}: H read {B * D * D * f32} bytes (B D^2, batch-major, whole) "
+                  f"against {B * D * (D + 1) // 2 * f32} (B D (D + 1) / 2, its lower triangle); counting "
+                  f"only that triangle and the output a consumer reads, {needed_bytes / B:.0f} bytes a "
+                  f"system -> bound {tight_ms:.6f} ms ({tight_by}), kernel = {k_ms / tight_ms:.1f}x that "
+                  f"bound", flush=True)
         rows.append({
             "name": name,
             "route": "cuda",
@@ -1025,6 +1099,7 @@ def general_paths(card, kind):
             "ops_per_instance": ops / B,
             "entry_ms": timing[route]["e2e_ms"],
             "entry_device_busy_ms": timing[route]["busy_ms"],
+            **({"pair_ms": pair_ms, "launch_floor_ms": floor_ms} if route == "pallas_ldlt" else {}),
             "parity": timing[route]["parity"],
             "card": card,
         })
@@ -1635,13 +1710,19 @@ def main():
                 label = f"blocked_{kernel}<{'float' if t == 'f' else 'double'}" + (f", R={rows}>" if rows else ">")
                 print(f"# phase8 ptxas {label}: {nreg} registers, {spill} bytes spill stores, {stack} bytes "
                       f"stack frame", flush=True)
-        # Phase 9: the general path's kernels, from the same build.
-        for name, nreg, spill, _, _ in ptxas_report(text):
-            m = re.search(r"(ldlt_factor|ldlt_solve|fused_qp)_kernelI([fd])(?:Li(\d+)ELi(\d+)E)?", name)
+        # Phase 9: the general path's kernels, from the same build. Kernels
+        # 4 and 5's register route must not spill: its cap is set by that.
+        for name, nreg, spill, _, stack in ptxas_report(text):
+            m = re.search(r"(ldlt_factor_reg|ldlt_solve_reg|ldlt_factor|ldlt_solve|fused_qp)_kernelI([fd])"
+                          r"(?:Li(\d+)E)?(?:Li(\d+)E)?", name)
             if m:
                 kernel, t, n, k = m.groups()
-                label = f"{kernel}<{'float' if t == 'f' else 'double'}" + (f", N={n}, K={k}>" if n else ">")
-                print(f"# phase9 ptxas {label}: {nreg} registers, {spill} bytes spill stores", flush=True)
+                dims = "" if n is None else (f", D={n}" if k is None else f", N={n}, K={k}")
+                label = f"{kernel}<{'float' if t == 'f' else 'double'}{dims}>"
+                print(f"# phase9 ptxas {label}: {nreg} registers, {spill} bytes spill stores, {stack} bytes "
+                      f"stack frame", flush=True)
+                if kernel.endswith("_reg") and spill:
+                    fail(f"phase9: {label} spills {spill} bytes; lower ldlt.REGISTER_MAX_D")
         # Phase 17: the MPC kernels, from the same build.
         mpc_build_report(text)
         # Phase 13: the pose-ring kernel, from the same build.
@@ -1651,6 +1732,9 @@ def main():
                 t, k = m.groups()
                 print(f"# phase13 ptxas pose_ring<{'float' if t == 'f' else 'double'}, K={k}>: {nreg} "
                       f"registers, {spill} bytes spill stores, {stack} bytes stack frame", flush=True)
+
+    print(f"# phase9 LDL^T register route up to D = {ldlt.REGISTER_MAX_D}; launch plan at B = {GENERAL_B}, "
+          f"D = 3: {ldlt.ldlt_launch_plan(3, GENERAL_B)}", flush=True)
 
     # Phase 3: kernel vs plain version on the card.
     B3 = 8192 + 13

@@ -58,9 +58,17 @@ def _cu_sources():
     return cu
 
 
+def _flags():
+    """NVCC_FLAGS and the sizes the kernels take from the Python side: the
+    register route's largest D of csrc/ldlt.cu (ops/ldlt.py)."""
+    from . import ldlt
+
+    return (*NVCC_FLAGS, f"-DMO_LDLT_REGISTER_MAX_D={ldlt.REGISTER_MAX_D}")
+
+
 def library_path():
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for p in _cu_sources() + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -97,7 +105,7 @@ def build():
         objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
         outs = _run_all(
             [
-                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(p), "-o", o]
+                [nvcc, *_flags(), "-Xptxas", "-v", "-c", str(p), "-o", o]
                 for p, o in zip(cu, objs)
             ]
         )
@@ -148,7 +156,7 @@ def load_library():
             lib.mo_blocked_kkt_occupancy.restype = i
             lib.mo_ldlt_factor_launch.argtypes = [
                 i, i,  # dtype, D
-                p, p, p,  # H, L, d
+                p, p, p, p,  # H, L, d, ok
                 i,  # B
                 p,  # cudaStream_t
             ]

@@ -4,17 +4,25 @@ PyTorch port of ``mini_opt_tpu/ops/pallas_ldlt.py``.
 Two CUDA kernels in ``csrc/ldlt.cu`` replace the TPU kernels
 ``pallas_ldlt.py::_ldlt_kernel`` (launched at :115 by
 ``_batched_factorize``) and ``pallas_ldlt.py::_solve_kernel`` (launched at
-:155 by ``_batched_solve``): one instance per thread, feature-major
-``(D, D, B)`` / ``(D, B)`` tensors, so that a warp's loads of one matrix
-entry are coalesced. The unpivoted factorization ``H = L diag(d) L^T`` and
-the forward, ``1/d`` and back substitutions keep the Pallas kernels'
-association: ``c = H[:, j] - sum_k L[:, k] * (d[k] * L[j, k])`` with the sum
-taken in index order.
+:155 by ``_batched_solve``). Up to ``REGISTER_MAX_D`` (the register route,
+``ldlt_launch_plan``) each thread holds one system in registers: the
+factor reads ``H (B, D, D)`` batch-major, as the QP builds it, and writes
+the factor feature-major, ``(D, D, B)`` / ``(D, B)``, with the per-lane
+health flag ``ok``; the solve reads that factor and a batch-major ``rhs
+(B, D)`` and writes ``x (B, D)``. So one ``factorize`` + ``solve`` pair is
+two launches and nothing else on the card. Past the cap (the generic
+route) the wrappers copy ``H`` and ``rhs`` feature-major for the first
+design's kernels, which read L's earlier columns back from device memory.
+Both keep the Pallas kernels' association: ``c = H[:, j] - sum_k L[:, k] *
+(d[k] * L[j, k])`` with the sum taken in index order.
 
 Beside them sit ``_ldlt_factor_plain`` and ``_ldlt_solve_plain``, the same
-arithmetic as plain PyTorch. CPU tensors run them; CUDA tensors launch the
-kernels or raise. The kernels build without FMA contraction, so on the card
-kernel and plain version agree bit for bit.
+arithmetic as plain PyTorch on feature-major tensors, and ``_ok``, the
+flag's plain version; ``_factor_plain`` and ``_solve_plain`` put them
+behind the kernel wrappers' batch-major signatures. CPU tensors run them;
+CUDA tensors launch the kernels or raise. The kernels build without FMA
+contraction, so on the card kernel and plain version agree bit for bit,
+``ok`` included.
 
 ``factorize(H)`` / ``solve(fact, rhs)`` are the ``ops/kkt.py`` backend
 ``"pallas_ldlt"``: batch-first ``H (B, D, D)`` and ``rhs (B, D)``, with the
@@ -25,6 +33,8 @@ batch-major signatures.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import _build
@@ -34,6 +44,34 @@ from ._common import _CUDA_DTYPE_IDS, _check_cuda_tensors
 # they launch, and nowhere else.
 LDLT_FACTOR_LAUNCHES = 0
 LDLT_SOLVE_LAUNCHES = 0
+
+# The largest D of the register route, which ops/_build.py passes to
+# csrc/ldlt.cu: ptxas keeps every instance up to it free of spills in both
+# types. The general path's IK QPs give D = N + K (D = 3 at n = 2).
+REGISTER_MAX_D = 13
+# Threads (systems) per CTA on each route, as csrc/ldlt.cu launches them
+# (kRegisterThreads, kGenericThreads): B = 8192 makes 256 CTAs on the
+# register route for the H100's 132 SMs.
+_THREADS = {"register": 32, "generic": 128}
+
+
+@dataclasses.dataclass(frozen=True)
+class LDLTLaunchPlan:
+    """How kernels 4 and 5 launch for B systems of D rows: ``route``
+    "register" (batch-major H and rhs, a system per thread in registers) or
+    "generic" (feature-major copies of H and rhs); ``threads`` per CTA,
+    ``grid`` CTAs, no shared memory on either route."""
+
+    route: str
+    threads: int
+    grid: int
+
+
+def ldlt_launch_plan(D: int, B: int) -> LDLTLaunchPlan:
+    """The launch plan of kernels 4 and 5 for B systems of D rows, in either
+    type."""
+    route = "register" if D <= REGISTER_MAX_D else "generic"
+    return LDLTLaunchPlan(route, _THREADS[route], -(-B // _THREADS[route]))
 
 
 def _ldlt_factor_plain(Ht):
@@ -83,95 +121,108 @@ def _ldlt_solve_plain(Lt, dt, rt):
     return torch.stack(x)
 
 
-def _ldlt_factor_cuda(Ht):
+def _launch(name, *args):
+    lib = _build.load_library()
+    rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"LDL^T kernel launch failed ({name}): {_build.error_string(rc)}")
+
+
+def _ldlt_factor_cuda(H):
     """Launch the factor kernel of ``csrc/ldlt.cu`` on a contiguous
-    ``(D, D, B)`` CUDA tensor; same contract as ``_ldlt_factor_plain``."""
+    batch-major ``H (B, D, D)`` CUDA tensor (lower triangle read) ->
+    ``(Lt (D, D, B), dt (D, B), ok (B,))``, as ``_factor_plain``. Past
+    ``REGISTER_MAX_D`` the generic kernel gets a feature-major copy."""
     global LDLT_FACTOR_LAUNCHES
-    D, B = Ht.shape[0], Ht.shape[-1]
-    _check_cuda_tensors((("H", Ht, (D, D, B)),), Ht.dtype, Ht.device, B)
-    L = torch.empty_like(Ht)
-    d = torch.empty((D, B), dtype=Ht.dtype, device=Ht.device)
+    B, D = H.shape[0], H.shape[-1]
+    _check_cuda_tensors((("H", H, (B, D, D)),), H.dtype, H.device, B)
+    Lt = torch.empty((D, D, B), dtype=H.dtype, device=H.device)
+    dt = torch.empty((D, B), dtype=H.dtype, device=H.device)
+    ok = torch.empty((B,), dtype=torch.bool, device=H.device)
     if B == 0 or D == 0:
-        return L, d
-    lib = _build.load_library()
-    with torch.cuda.device(Ht.device):
-        rc = lib.mo_ldlt_factor_launch(
-            _CUDA_DTYPE_IDS[Ht.dtype], D, Ht.data_ptr(), L.data_ptr(), d.data_ptr(), B,
-            torch.cuda.current_stream().cuda_stream,
+        return Lt, dt, ok
+    src = H if D <= REGISTER_MAX_D else H.permute(1, 2, 0).contiguous()
+    with torch.cuda.device(H.device):
+        _launch(
+            "mo_ldlt_factor_launch", _CUDA_DTYPE_IDS[H.dtype], D, src.data_ptr(), Lt.data_ptr(), dt.data_ptr(),
+            ok.data_ptr(), B,
         )
-    if rc != 0:
-        raise RuntimeError(f"LDL^T factor kernel launch failed: {_build.error_string(rc)}")
     LDLT_FACTOR_LAUNCHES += 1
-    return L, d
+    return Lt, dt, ok
 
 
-def _ldlt_solve_cuda(Lt, dt, rt):
-    """Launch the solve kernel of ``csrc/ldlt.cu``; same contract as
-    ``_ldlt_solve_plain``."""
+def _ldlt_solve_cuda(Lt, dt, rhs):
+    """Launch the solve kernel of ``csrc/ldlt.cu``: feature-major ``Lt (D,
+    D, B)`` and ``dt (D, B)``, batch-major ``rhs (B, D)`` -> ``x (B, D)``,
+    as ``_solve_plain``. Past ``REGISTER_MAX_D`` the generic kernel gets a
+    feature-major copy of rhs and x is a view of its feature-major output."""
     global LDLT_SOLVE_LAUNCHES
-    D, B = rt.shape
+    B, D = rhs.shape
     _check_cuda_tensors(
-        (("L", Lt, (D, D, B)), ("d", dt, (D, B)), ("rhs", rt, (D, B))), rt.dtype, rt.device, B
+        (("L", Lt, (D, D, B)), ("d", dt, (D, B)), ("rhs", rhs, (B, D))), rhs.dtype, rhs.device, B
     )
-    x = torch.empty_like(rt)
+    register = D <= REGISTER_MAX_D
+    src = rhs if register else rhs.T.contiguous()
+    x = torch.empty_like(src)
     if B == 0 or D == 0:
-        return x
-    lib = _build.load_library()
-    with torch.cuda.device(rt.device):
-        rc = lib.mo_ldlt_solve_launch(
-            _CUDA_DTYPE_IDS[rt.dtype], D, Lt.data_ptr(), dt.data_ptr(), rt.data_ptr(),
-            x.data_ptr(), B, torch.cuda.current_stream().cuda_stream,
+        return x if register else x.T
+    with torch.cuda.device(rhs.device):
+        _launch(
+            "mo_ldlt_solve_launch", _CUDA_DTYPE_IDS[rhs.dtype], D, Lt.data_ptr(), dt.data_ptr(), src.data_ptr(),
+            x.data_ptr(), B,
         )
-    if rc != 0:
-        raise RuntimeError(f"LDL^T solve kernel launch failed: {_build.error_string(rc)}")
     LDLT_SOLVE_LAUNCHES += 1
-    return x
-
-
-def _factor_fm(Ht):
-    if Ht.is_cuda:
-        return _ldlt_factor_cuda(Ht)
-    if Ht.device.type == "cpu":
-        return _ldlt_factor_plain(Ht)
-    raise NotImplementedError(f"no LDL^T factor for device {Ht.device}")
-
-
-def _solve_fm(Lt, dt, rt):
-    if rt.is_cuda:
-        return _ldlt_solve_cuda(Lt, dt, rt)
-    if rt.device.type == "cpu":
-        return _ldlt_solve_plain(Lt, dt, rt)
-    raise NotImplementedError(f"no LDL^T solve for device {rt.device}")
+    return x if register else x.T
 
 
 def _ok(Lt, dt):
-    """Per-lane health of a factorization (pallas_ldlt.py:139-141): every
+    """Per-lane health of a factorization (pallas_ldlt.py:133-135): every
     entry of L finite and every pivot above the dtype's smallest normal."""
     tiny = torch.finfo(dt.dtype).tiny
     return torch.isfinite(Lt).all(0).all(0) & (dt.abs() > tiny).all(0)
 
 
-def _batched_factorize(H):
-    """``H (B, D, D)`` -> ``(L (B, D, D), d (B, D), ok (B,))``."""
-    Lt, dt = _factor_fm(H.permute(1, 2, 0).contiguous())
-    return Lt.permute(2, 0, 1), dt.T, _ok(Lt, dt)
+def _factor_plain(H):
+    """The plain counterpart of ``_ldlt_factor_cuda``: ``H (B, D, D)`` ->
+    ``(Lt (D, D, B), dt (D, B), ok (B,))``."""
+    Lt, dt = _ldlt_factor_plain(H.permute(1, 2, 0).contiguous())
+    return Lt, dt, _ok(Lt, dt)
 
 
-def _batched_solve(L, d, rhs):
-    """``(B, D, D), (B, D), (B, D)`` -> ``x (B, D)``."""
-    return _solve_fm(
-        L.permute(1, 2, 0).contiguous(), d.T.contiguous(), rhs.T.contiguous()
-    ).T
+def _solve_plain(Lt, dt, rhs):
+    """The plain counterpart of ``_ldlt_solve_cuda``: ``rhs (B, D)`` -> ``x
+    (B, D)``."""
+    return _ldlt_solve_plain(Lt, dt, rhs.T).T
 
 
 def factorize(H):
     """ops/kkt.py interface: ``H (B, D, D)`` -> ``(fact, ok (B,))``, the
     factor held feature-major in ``fact``."""
-    Lt, dt = _factor_fm(H.permute(1, 2, 0).contiguous())
-    return (Lt, dt), _ok(Lt, dt)
+    if H.is_cuda:
+        Lt, dt, ok = _ldlt_factor_cuda(H.contiguous())
+    elif H.device.type == "cpu":
+        Lt, dt, ok = _factor_plain(H)
+    else:
+        raise NotImplementedError(f"no LDL^T factor for device {H.device}")
+    return (Lt, dt), ok
 
 
 def solve(fact, rhs):
     """ops/kkt.py interface: ``rhs (B, D)`` -> ``x (B, D)``."""
     Lt, dt = fact
-    return _solve_fm(Lt, dt, rhs.T.contiguous()).T
+    if rhs.is_cuda:
+        return _ldlt_solve_cuda(Lt, dt, rhs.contiguous())
+    if rhs.device.type == "cpu":
+        return _solve_plain(Lt, dt, rhs)
+    raise NotImplementedError(f"no LDL^T solve for device {rhs.device}")
+
+
+def _batched_factorize(H):
+    """``H (B, D, D)`` -> ``(L (B, D, D), d (B, D), ok (B,))``."""
+    (Lt, dt), ok = factorize(H)
+    return Lt.permute(2, 0, 1), dt.T, ok
+
+
+def _batched_solve(L, d, rhs):
+    """``(B, D, D), (B, D), (B, D)`` -> ``x (B, D)``."""
+    return solve((L.permute(1, 2, 0).contiguous(), d.T.contiguous()), rhs)

@@ -22,47 +22,23 @@ limit, then one JSON object per measurement. Exits non-zero without a CUDA
 card."""
 
 import argparse
-import importlib.util
-import json
-import subprocess
-import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+from kernel_timing import add_tree_args, open_tree
 ARM_N, LINK = 48, 0.4
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=str(ROOT), help="root of the tree to time")
-    ap.add_argument("--label", default=None, help="name printed with each row (default: the tree)")
+    add_tree_args(ap)
     args = ap.parse_args()
-    tree = Path(args.tree).resolve()
-    sys.path.insert(0, str(tree))
+    timer, _, row = open_tree("blocked_kernel_times", args)
 
     import torch
 
-    if not torch.cuda.is_available():
-        sys.exit("blocked_kernel_times: torch.cuda.is_available() is False")
-    import mini_opt_tpu_torch
-
-    if Path(mini_opt_tpu_torch.__file__).resolve().parents[1] != tree:
-        sys.exit(f"blocked_kernel_times: imported {mini_opt_tpu_torch.__file__}, not the tree {tree}")
     from mini_opt_tpu_torch import batch_from_numpy
     from mini_opt_tpu_torch.instances import medium_n_planar_instances
     from mini_opt_tpu_torch.ops import blocked as blk
     from mini_opt_tpu_torch.ops import fused_ik as fik
-
-    spec = importlib.util.spec_from_file_location("chip_smoke_timer", ROOT / "chip_smoke.py")
-    timer = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(timer)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    label = args.label or str(tree)
-
-    def row(**kw):
-        print(json.dumps(dict(tree=label, card=card, **kw)), flush=True)
 
     arm = fik.planar_family(ARM_N, LINK)
     inputs = {}

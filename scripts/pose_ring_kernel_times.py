@@ -27,40 +27,14 @@ measurement. Exits non-zero without a CUDA card."""
 
 import argparse
 import ctypes
-import importlib.util
-import json
-import subprocess
 import sys
 import tempfile
-import types
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+from kernel_timing import ROOT, add_tree_args, bind_subset, open_tree
+
 RING_N = 16
 SPAN_NAMES = ("setup", "linearize", "solve", "step_dot", "line_search", "update", "write_out")
-
-
-class _PartialLibrary(ctypes.CDLL):
-    """A library with only some of the port's entry points: the names it
-    lacks absorb the argtypes the loader sets on them."""
-
-    def __getattr__(self, name):
-        try:
-            return super().__getattr__(name)
-        except AttributeError:
-            return types.SimpleNamespace()
-
-
-def bind_subset(build):
-    """Point the tree's ``_build`` at kernels 7 and 3's sources only."""
-    subset = ("blocked_kkt.cu", "pose_ring.cu", "pose_ring_f64.cu")
-    build._cu_sources = lambda: sorted(p for p in build.CSRC.glob("*.cu") if p.name in subset)
-    saved = ctypes.CDLL
-    ctypes.CDLL = _PartialLibrary
-    try:
-        build.load_library()
-    finally:
-        ctypes.CDLL = saved
 
 
 def span_cycles(build, fam, data_t, x0_t, budget):
@@ -109,40 +83,22 @@ def span_cycles(build, fam, data_t, x0_t, budget):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=str(ROOT), help="root of the tree to time")
-    ap.add_argument("--label", default=None, help="name printed with each row (default: the tree)")
+    add_tree_args(ap)
     ap.add_argument("--subset", action="store_true", help="build only kernels 7 and 3's sources")
     ap.add_argument("--spans", action="store_true", help="also print the phase cycles of one graph")
     args = ap.parse_args()
-    tree = Path(args.tree).resolve()
-    sys.path.insert(0, str(tree))
+    timer, _, row = open_tree("pose_ring_kernel_times", args)
 
     import torch
 
-    if not torch.cuda.is_available():
-        sys.exit("pose_ring_kernel_times: torch.cuda.is_available() is False")
-    import mini_opt_tpu_torch
-
-    if Path(mini_opt_tpu_torch.__file__).resolve().parents[1] != tree:
-        sys.exit(f"pose_ring_kernel_times: imported {mini_opt_tpu_torch.__file__}, not the tree {tree}")
     from mini_opt_tpu_torch import batch_from_numpy
     from mini_opt_tpu_torch.instances import chain_closure_instances, ring_instances
     from mini_opt_tpu_torch.ops import _build
     from mini_opt_tpu_torch.ops import blocked as blk
     from mini_opt_tpu_torch.ops import pose_ring as pr
 
-    spec = importlib.util.spec_from_file_location("chip_smoke_timer", ROOT / "chip_smoke.py")
-    timer = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(timer)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    label = args.label or str(tree)
     if args.subset:
-        bind_subset(_build)
-
-    def row(**kw):
-        print(json.dumps(dict(tree=label, card=card, **kw)), flush=True)
+        bind_subset(_build, ("blocked_kkt.cu", "pose_ring.cu", "pose_ring_f64.cu"))
 
     ring = pr.pose_ring_family(RING_N)
     closures = ((15, 0), (4, 11))
@@ -193,7 +149,7 @@ def main():
         row(kernel=3, B=B, D=49, ms=ms, repeats=repeats, **extra)
 
     if args.spans:
-        if tree != ROOT:
+        if Path(args.tree).resolve() != ROOT:
             sys.exit("pose_ring_kernel_times: --spans times this checkout's kernel only")
         data_t, x0_t = inputs["ring", 1]
         cycles = span_cycles(_build, ring, data_t, x0_t, (6, 2))

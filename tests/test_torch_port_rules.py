@@ -65,7 +65,8 @@ def test_import_leaves_jax_out():
     "path",
     sorted((REPO / "mini_opt_tpu_torch").rglob("*.py"))
     + [REPO / "chip_smoke.py"]
-    + [REPO / "scripts" / f"{name}_kernel_times.py" for name in ("mpc", "blocked", "pose_ring")],
+    + [REPO / "scripts" / f"{name}_kernel_times.py" for name in ("mpc", "blocked", "pose_ring", "ldlt")]
+    + [REPO / "scripts" / "kernel_timing.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import_in_source(path):
@@ -283,27 +284,34 @@ def _bit_equal(a, b):
 @pytest.mark.cuda
 @needs_cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("D", [3, 17, 40])
+@pytest.mark.parametrize("D", [1, 2, 3, ldlt.REGISTER_MAX_D, ldlt.REGISTER_MAX_D + 1, 17, 40])
 def test_ldlt_kernels_match_plain_on_card(D, dtype):
-    """Kernels 4 and 5 against their plain versions, bit for bit, on SPD
-    systems with one NaN lane and one singular lane (``ok`` equal)."""
+    """Kernels 4 and 5 against their plain versions, bit for bit, on
+    batch-major SPD systems and right-hand sides as ``factorize`` and
+    ``solve`` give them (the register route up to REGISTER_MAX_D, the
+    generic route past it), at B = 1, 33 (a ragged CTA) and 300 with one
+    NaN lane and one singular lane: L, d, x and the kernel's ``ok`` against
+    ``_ok`` of the plain factor; one launch counted for each."""
     rng = np.random.default_rng(D)
-    B = 300
-    A = rng.normal(size=(B, D, D))
-    H = A @ A.transpose(0, 2, 1) + D * np.eye(D)
-    H[5] = np.nan
-    H[7] = 0.0
-    Ht = torch.as_tensor(H, dtype=dtype, device="cuda").permute(1, 2, 0).contiguous()
-    rhs = torch.as_tensor(rng.normal(size=(D, B)), dtype=dtype, device="cuda")
-    before = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES)
-    Lk, dk = ldlt._ldlt_factor_cuda(Ht)
-    xk = ldlt._ldlt_solve_cuda(Lk, dk, rhs)
-    torch.cuda.synchronize()
-    assert (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    Lp, dp = ldlt._ldlt_factor_plain(Ht)
-    xp = ldlt._ldlt_solve_plain(Lp, dp, rhs)
-    assert _bit_equal(Lk, Lp) and _bit_equal(dk, dp) and _bit_equal(xk, xp)
-    assert torch.equal(ldlt._ok(Lk, dk), ldlt._ok(Lp, dp))
+    for B in (1, 33, 300):
+        A = rng.normal(size=(B, D, D))
+        H = A @ A.transpose(0, 2, 1) + D * np.eye(D)
+        if B > 7:
+            H[5] = np.nan
+            H[7] = 0.0
+        H_b = torch.as_tensor(H, dtype=dtype, device="cuda")
+        rhs = torch.as_tensor(rng.normal(size=(B, D)), dtype=dtype, device="cuda")
+        before = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES)
+        Lk, dk, okk = ldlt._ldlt_factor_cuda(H_b)
+        xk = ldlt._ldlt_solve_cuda(Lk, dk, rhs)
+        torch.cuda.synchronize()
+        assert (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        Lp, dp, okp = ldlt._factor_plain(H_b)
+        xp = ldlt._solve_plain(Lp, dp, rhs)
+        assert _bit_equal(Lk, Lp) and _bit_equal(dk, dp) and _bit_equal(xk, xp)
+        assert xk.shape == (B, D)
+        assert torch.equal(okk, ldlt._ok(Lp, dp)) and torch.equal(okk, okp)
+        assert bool(okk[:5].all()) and (B < 8 or not bool(okk[5] or okk[7]))
 
 
 @pytest.mark.cuda
