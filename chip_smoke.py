@@ -8,20 +8,25 @@ checkout; imports torch, numpy and the port, never jax or mini_opt_tpu.
 Phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-2. build csrc/ with nvcc for sm_90a, print the build seconds;
-3. the kernel against its plain PyTorch version on the card, B = 8192 + 13
-   (a ragged edge, one NaN-target lane and one NaN-start lane): planar n=2
-   at the bench budget, planar n=4 at 10/6/2 complementarity + polynomial
-   with history, spatial n=3 at 4/2/1. float64: x, state and history within
-   1e-9 and identical flags. float32: flags agree on >= 99.9% of lanes, x
-   within 1e-3 on >= 99.5%, parity fraction within 0.001 of the plain one;
+2. build csrc/ with nvcc for sm_90a, print the build seconds and kernel
+   1's ptxas registers, spill stores and stack frame per instance (planar
+   and spatial, n = 2..8, float and double);
+3. the kernel against its plain PyTorch version on batch-major card
+   tensors, bit for bit in float64 and float32, flags and history included
+   (the kernel's parity printed beside): at B = 8192 + 13 (a ragged
+   edge, one NaN-target lane and one NaN-start lane) planar n=2 at the
+   bench budget, planar n=4 at 10/6/2 complementarity + polynomial with
+   history, spatial n=3 at 4/2/1; planar n=2 at B = 1; planar n=4 with
+   history at B = 33 on non-contiguous caller tensors;
 4. the main path through the public entry point fused_ik_solve_batch at the
    bench budget in float32 at B = 8192 (parity must be 1.0) and B = 262144,
    with the launch counter set to 0 just before and read just after; its
    B = 8192 outputs against the plain version's; then CUDA-event timings
    (median of 5 repeats of 20 calls) of the entry point as a caller issues
-   it, of its device work, and of the kernel alone on the card, and the
-   plain version's time at B = 8192;
+   it, of its device work, and of the kernel alone on the card; one device
+   kernel a call on card tensors (one launch on the counter, and 20 calls
+   under torch.profiler record no other device kernel; kernels_a_call),
+   the kernel alone at B = 1, and the plain version's time at B = 8192;
 5. kernel 2, the blocked-tier fused SQP (csrc/blocked.cu, blocked_f64.cu),
    against its plain version, bit for bit in float64 and float32, on the
    medium-N warm-start distribution: planar n=33 (D = 34) at 4/2/2
@@ -53,21 +58,29 @@ Phases, each of which exits non-zero on failure:
    instance's latency, and kernel 2 at B = 1024), their plain versions,
    and for the KKT solve torch.linalg.ldl_factor_ex + ldl_solve as its
    library yardstick;
-9. the general path's kernels (csrc/ldlt.cu, csrc/fused_qp.cu), built in
-   phase 2's parallel nvcc pass: ptxas registers, spills and stack frame per
-   instance (a spill in an instance of kernels 4 and 5's register route
-   fails the run), and the launch plan at D = 3;
+9. the general path's kernels (csrc/ldlt.cu, csrc/fused_qp.cu,
+   fused_qp_pairs.cu), built in phase 2's parallel nvcc pass: ptxas
+   registers, spills and stack frame per instance (kernel 6's with its
+   route, PairRows or AnyRows; a spill in an instance of kernels 4 and 5's
+   register route fails the run), and the launch plan at D = 3;
 10. the LDL^T factor and solve kernels (kernels 4 and 5) against their plain
    versions, bit for bit, on batch-major H and rhs as factorize and solve
    give them: D = 1, 2, 3, 5, 9, 13 (the register route's largest), 14
    (the generic route from here), 17, 33, 40, at B = 8192 + 13 (a ragged
    last CTA, one NaN lane and one singular lane) and B = 1, both types,
    L, d, x and the kernel's per-lane ``ok`` against ``_ok`` of the plain
-   factor; then one factorize + solve pair at D = 3, B = 8192 under
-   torch.profiler, which must show exactly two device kernels;
-11. the fused QP kernel (kernel 6) against its plain version on QPs from
-   the port's own linearization of bench instances at n = 2, 4 and 8, both
-   barriers, float64 and float32, one NaN-target lane;
+   factor; then a factorize + solve pair at D = 3, B = 8192 must be two
+   device kernels (one launch of each on the counters, and 20 pairs under
+   torch.profiler record no other device kernel);
+11. the fused QP kernel (kernel 6) against its plain version, bit for
+   bit, on batch-major QPs from the port's own linearization of bench
+   instances at n = 2, 4 and 8, B = 8192 + 13 (one NaN-target lane), 33
+   and 1, both barriers, float64 and float32: as the linearization gives
+   them (the pairs route, ia a stride-0 broadcast), without the equality
+   row (K = 0), on the run-time route (one more row, the rows reversed),
+   and with every input a non-contiguous view; then a _fused_qp_batch call
+   must be one device kernel (one launch on the counter, and 20 calls under
+   torch.profiler record no other device kernel);
 12. the general main path, ``solve_ik_batch`` (bench.py --general: planar
    n = 2, float32, B = 8192, 10/6/2, complementarity, Armijo) on both
    inner-QP routes, kkt_solver="pallas_ldlt" (kernels 4 and 5) and
@@ -78,9 +91,11 @@ Phases, each of which exits non-zero on failure:
    entry point with the kernels' plain versions swapped in, on the card,
    bit for bit; timings: the entry point per call, its device work and
    kernel share (torch.profiler) and the device's idle share of the
-   unprofiled call (its device-kernel count beside PERF.md's 50,532 for
-   the feature-major LDL^T wrappers), each kernel alone on the inputs the
-   main path gave it (held), its bound, its plain version and, for kernels
+   unprofiled call (its device kernels a call beside PERF.md's 50,532 for
+   the feature-major LDL^T wrappers and 34,956 for the feature-major fused
+   QP wrapper), each kernel alone on the inputs the main path gave it
+   (held; kernel 6 also on the first of them, B = 1), its bound, its plain
+   version and, for kernels
    4 and 5, torch.linalg.ldl_factor_ex / ldl_solve, the launch floor (a
    held torch.cuda._sleep(1) and a one-element add_) and the held
    factorize + solve pair, and H's bytes read whole (B D^2) beside its
@@ -155,15 +170,15 @@ versions' order and build without FMA contraction, so they are expected to
 agree bit for bit (each comparison prints whether they did). Kernels 2 and
 3 and the blocked main paths (phases 5-7), kernels 4-6 and the general
 path (phases 10-12), kernel 7 and the pose-ring main path (phases 14-15)
-and kernels 8-9 (phases 18-19) are held bit for bit in both types. Kernel
-1 (phases 3-4) keeps gates that allow float64 1e-9 and, in float32, where
-a chaotic lane may flip with one rounding, the slice-1 shares.
+and kernels 8-9 (phases 18-19) are held bit for bit in both types, and so
+is kernel 1 (phases 3-4).
 """
 
 import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -238,35 +253,64 @@ def lanes_agree(a, b, tol):
 
 
 def check_against_plain(tag, fam_kind, data, got, want, max_err):
-    """Hold the kernel's feature-major (x, state, history) against the plain
-    version's on the same inputs; exit on disagreement. float64: x, state
-    and history within 1e-9, flags identical. float32: flags on >= 99.9% of
-    lanes, x within 1e-3 on >= 99.5%, parity within 0.001 (chaotic lanes may
-    flip with fp context in float32). Records the largest |kernel - plain|
-    per dtype in max_err."""
+    """Hold kernel 1's feature-major (x, state, history) against the plain
+    version's on the same inputs, bit for bit, flags and NaN lanes included;
+    exit on any difference. Prints the kernel's parity (effector error
+    < 1e-3) and records the largest |kernel - plain| per dtype in max_err."""
     (xk, sk, hk), (xp, sp, hp) = got, want
     dtype = str(xk.dtype).replace("torch.", "")
-    tag = f"{tag} {dtype}"
-    flags_agree = (sk[2] == sp[2]).double().mean().item()
     same = bit_identical((xk, xp), (sk, sp), *([(hk, hp)] if hp is not None else []))
-    tag = f"{tag} (bit-identical {same})"
-    diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk[:2], sp[:2])}
+    diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk, sp)}
     if hp is not None:
         diffs["history"] = max_abs_diff(hk, hp)
-    err = max(diffs.values())
-    max_err[dtype] = max(max_err[dtype], err)
-    if dtype == "float64":
-        print(f"# {tag}: max|kernel - plain| {diffs}, flags identical {flags_agree == 1.0}", flush=True)
-        if err > 1e-9 or flags_agree != 1.0:
-            fail(f"{tag}: kernel disagrees with the plain version ({diffs}, flags {flags_agree})")
-    else:
-        x_agree = lanes_agree(xk, xp, 1e-3).double().mean().item()
-        par_k = (effector_error(fam_kind, xk.T.cpu(), data) < 1e-3).mean()
-        par_p = (effector_error(fam_kind, xp.T.cpu(), data) < 1e-3).mean()
-        print(f"# {tag}: flags agree {flags_agree:.6f}, x within 1e-3 {x_agree:.6f}, "
-              f"parity kernel {par_k:.6f} plain {par_p:.6f}, max|kernel - plain| {diffs}", flush=True)
-        if flags_agree < 0.999 or x_agree < 0.995 or abs(par_k - par_p) > 0.001:
-            fail(f"{tag}: float32 agreement below threshold")
+    max_err[dtype] = max(max_err[dtype], max(diffs.values()))
+    parity = (effector_error(fam_kind, xk.T.cpu(), data) < 1e-3).mean()
+    print(f"# {tag} {dtype}: bit-identical {same}, max|kernel - plain| {diffs}, parity {parity:.6f}", flush=True)
+    if not same:
+        fail(f"{tag} {dtype}: the kernel disagrees with its plain version ({diffs})")
+
+
+# Phase 3's cases: (name, family, n, budget, history, B, strided inputs).
+IK_CASES = [
+    ("planar n=2 4/2/1 mpc armijo", "planar", 2, BENCH, False, 8192 + 13, False),
+    ("planar n=4 10/6/2 complementarity polynomial +history", "planar", 4,
+     dict(max_iterations=10, qp_iterations=6, ls_iterations=2, barrier="complementarity",
+          line_search="polynomial"), True, 8192 + 13, False),
+    ("spatial n=3 4/2/1 mpc armijo", "spatial", 3, BENCH, False, 8192 + 13, False),
+    ("planar n=2 4/2/1 mpc armijo, one instance", "planar", 2, BENCH, False, 1, False),
+    ("planar n=4 10/6/2 complementarity polynomial +history, strided inputs", "planar", 4,
+     dict(max_iterations=10, qp_iterations=6, ls_iterations=2, barrier="complementarity",
+          line_search="polynomial"), True, 33, True),
+]
+
+
+def ik_vs_plain(max_err):
+    """Phase 3: kernel 1 against its plain version on batch-major card
+    tensors, bit for bit: past B = 9 one NaN-target and one NaN-start lane;
+    the strided case reads data as every other column of a wider tensor and
+    x0 as a transposed view."""
+    for name, fam_kind, n, kw, hist, B, strided in IK_CASES:
+        data, x0 = (planar_instances if fam_kind == "planar" else spatial_instances)(B, n, seed=n)
+        if B > 9:
+            data[5, 0] = np.nan
+            x0[9, 1] = np.nan
+        family = (fik.planar_family if fam_kind == "planar" else fik.spatial_family)(n, LINK)
+        for dtype in (torch.float64, torch.float32):
+            d = torch.as_tensor(data, dtype=dtype, device="cuda")
+            x = torch.as_tensor(x0, dtype=dtype, device="cuda")
+            if strided:
+                d, x = torch.stack([d, d], 2)[:, :, 0], x.T.contiguous().T
+            args = (family, d, x, kw["max_iterations"], kw["qp_iterations"],
+                    kw["ls_iterations"], kw["line_search"], kw["barrier"], hist)
+            before = fik.KERNEL_LAUNCHES
+            got = fik._fused_solve_cuda(*args)
+            torch.cuda.synchronize()
+            if fik.KERNEL_LAUNCHES != before + 1:
+                fail(f"{name}: the kernel wrapper did not count its launch")
+            want = fik._fused_solve_plain_batch(*args)
+            torch.cuda.synchronize()
+            check_against_plain(f"phase3 {name} B={B}", fam_kind, data, *(
+                (r[0].T, r[1].T, None if r[2] is None else r[2].permute(1, 2, 0)) for r in (got, want)), max_err)
 
 
 def time_ms(fn, repeats=5, launches=20, warmup=3, held=False):
@@ -360,6 +404,12 @@ def ptxas_report(text):
             rows.append((name, int(m.group(1)), spill, int(m.group(2) or 0), stack))
             name = None
     return rows
+
+
+def stored(t):
+    """Elements of t that a kernel reading it at its strides touches: a
+    dimension of stride 0 (a broadcast) counts once."""
+    return math.prod(n for n, st in zip(t.shape, t.stride()) if st != 0)
 
 
 def roofline(ops, bytes_moved):
@@ -754,7 +804,7 @@ def plain_kernels():
     held to on the card."""
     saved = (ldlt._ldlt_factor_cuda, ldlt._ldlt_solve_cuda, fq._fused_qp_cuda)
     ldlt._ldlt_factor_cuda, ldlt._ldlt_solve_cuda, fq._fused_qp_cuda = (
-        ldlt._factor_plain, ldlt._solve_plain, fq._fused_qp_plain)
+        ldlt._factor_plain, ldlt._solve_plain, fq._fused_qp_plain_batch)
     try:
         yield
     finally:
@@ -847,14 +897,13 @@ def ldlt_vs_plain(max_err):
         fact, _ = ldlt.factorize(H_b)
         return ldlt.solve(fact, r_b)
 
+    before = (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES)
     pair()
     torch.cuda.synchronize()
-    _, _, n_kernels, per_kernel = profile_call(pair)
-    print(f"# phase10 factorize + solve D=3 B={GENERAL_B} float32 under torch.profiler: {n_kernels} "
-          f"device kernels {sorted((k[:60], c) for k, (c, _) in per_kernel.items())} (the feature-major "
-          f"design before the register route issued 14)", flush=True)
-    if n_kernels != 2:
-        fail(f"phase10: a factorize + solve pair issued {n_kernels} device kernels, not 2")
+    if (ldlt.LDLT_FACTOR_LAUNCHES, ldlt.LDLT_SOLVE_LAUNCHES) != (before[0] + 1, before[1] + 1):
+        fail("phase10: a factorize + solve pair did not launch each kernel once")
+    kernels_a_call(f"phase10 factorize + solve D=3 B={GENERAL_B} float32 (the feature-major design before "
+                   f"the register route issued 14)", pair, (r"ldlt_factor_reg_kernel", r"ldlt_solve_reg_kernel"))
 
 
 def launch_floor_ms():
@@ -869,63 +918,140 @@ def launch_floor_ms():
 
 def ik_qps(n, B, dtype, seed):
     """The QPs of the general path's first outer iteration at planar n:
-    the port's own linearization of bench instances (lambda = 1e-3), one
-    NaN-target lane. Returns the feature-major kernel arguments but the
-    schedule."""
+    the port's own linearization of bench instances (lambda = 1e-3), past
+    B = 5 one NaN-target lane. Returns the batch-major tensors as the
+    linearization gives them (ia a stride-0 broadcast) and the box rows'
+    variables."""
     targets, x0 = planar_instances(B, n, seed=seed)
-    targets[5, 0] = np.nan
+    if B > 5:
+        targets[5, 0] = np.nan
     chain = mot.make_planar_chain(n, dtype=dtype, device="cuda")
     x_t = torch.as_tensor(x0, dtype=dtype, device="cuda")
     qp, _ = mot.nonlinear.linearize_and_fill_qp(
         lambda t: mot.make_ik_problem(chain, t), x_t, torch.full_like(x_t[:, 0], 1e-3),
         data=torch.as_tensor(targets, dtype=dtype, device="cuda"),
     )
-    return (qp.G.permute(1, 2, 0).contiguous(), qp.c.T.contiguous(),
-            qp.A_eq.permute(1, 2, 0).contiguous(), qp.b_eq.T.contiguous(),
-            qp.ineq_a.T.contiguous(), qp.ineq_b.T.contiguous(), tuple(int(v) for v in qp.ineq_var))
+    return (qp.G, qp.c, qp.A_eq, qp.b_eq, qp.ineq_a, qp.ineq_b), tuple(int(v) for v in qp.ineq_var)
+
+
+def qp_variants(tensors, var):
+    """Phase 11's variants of one batch of QPs, (label, tensors, ineq_var):
+    as given (the pairs route), without the equality row (K = 0), on the
+    run-time route (a row x_0 >= -10 first, then the box rows reversed), and
+    every input a non-contiguous view (G and A stored transposed, c and b
+    every other column of a wider tensor, ia the linearization's stride-0
+    broadcast, ib transposed storage)."""
+    G, c, A, b, ia, ib = tensors
+    rev = list(range(len(var) - 1, -1, -1))
+    first = torch.ones_like(ib[:, :1])
+    any_rows = (G, c, A, b, torch.cat([first, ia[:, rev]], 1), torch.cat([10.0 * first, ib[:, rev]], 1))
+    strided = (G.transpose(1, 2).contiguous().transpose(1, 2), torch.stack([c, c], 2)[:, :, 0],
+               A.transpose(1, 2).contiguous().transpose(1, 2), torch.stack([b, b], 2)[:, :, 0],
+               ia, ib.T.contiguous().T)
+    return [
+        ("pairs", tensors, var),
+        ("pairs, K=0", (G, c, A[:, :0], b[:, :0], ia, ib), var),
+        ("any rows", any_rows, (0,) + tuple(var[m] for m in rev)),
+        ("pairs, non-contiguous inputs", strided, var),
+    ]
 
 
 def fused_qp_vs_plain(max_err):
-    """Phase 11: kernel 6 against its plain version."""
-    B = 8192 + 13
+    """Phase 11: kernel 6 against its plain version, bit for bit, on
+    batch-major inputs as the general path gives them, every route, both
+    barriers and types, at B = 8192 + 13 (one NaN lane), 33 and 1; then a
+    _fused_qp_batch call must be one device kernel (kernels_a_call)."""
     for n in (2, 4, 8):
-        for dtype in (torch.float64, torch.float32):
-            qp_args = ik_qps(n, B, dtype, seed=n)
-            for barrier in ("complementarity", "mpc"):
-                args = qp_args + (6, 0.1, barrier, True)
-                before = fq.FUSED_QP_LAUNCHES
-                got = fq._fused_qp_cuda(*args)
-                torch.cuda.synchronize()
-                if fq.FUSED_QP_LAUNCHES != before + 1:
-                    fail(f"n={n}: the fused QP wrapper did not count its launch")
-                want = fq._fused_qp_plain(*args)
-                check_bits(f"phase11 fused QP n={n} (M={len(qp_args[-1])}) {barrier} B={B}",
-                           got, want, max_err)
+        for B in (8192 + 13, 33, 1):
+            for dtype in (torch.float64, torch.float32):
+                tensors, var = ik_qps(n, B, dtype, seed=n)
+                for label, ts, v in qp_variants(tensors, var):
+                    route = fq.qp_route(n, ts[3].shape[1], v)
+                    for barrier in ("complementarity", "mpc"):
+                        args = (*ts, v, 6, 0.1, barrier, True)
+                        before = fq.FUSED_QP_LAUNCHES
+                        got = fq._fused_qp_cuda(*args)
+                        torch.cuda.synchronize()
+                        if fq.FUSED_QP_LAUNCHES != before + 1:
+                            fail(f"n={n}: the fused QP wrapper did not count its launch")
+                        want = fq._fused_qp_plain_batch(*args)
+                        check_bits(f"phase11 fused QP n={n} {label} (M={len(v)}, {route} route) {barrier} "
+                                   f"B={B}", got, want, max_err)
+
+    tensors, var = ik_qps(2, GENERAL_B, torch.float32, seed=2)
+
+    def call():
+        return fq._fused_qp_batch(*tensors, ineq_var=var, iterations=6, sigma=0.1, barrier="complementarity",
+                                  has_eq_guess=True)
+
+    before = fq.FUSED_QP_LAUNCHES
+    call()
+    torch.cuda.synchronize()
+    if fq.FUSED_QP_LAUNCHES != before + 1:
+        fail("phase11: a _fused_qp_batch call did not launch kernel 6 once")
+    kernels_a_call(f"phase11 _fused_qp_batch N=2 B={GENERAL_B} float32 (the feature-major wrapper issued 6)",
+                   call, (r"fused_qp_kernel",))
 
 
-def profile_call(fn):
+def kernels_a_call(tag, fn, names, reps=20):
+    """One device kernel a call for each regex in ``names`` and nothing
+    else (each of ``fn``'s wrappers has just shown one launch a call on its
+    counter): ``reps`` calls under the profiler (profile_call). Fails where
+    the profiler recorded a device kernel that matches none of ``names``
+    (a copy, say), none of one of them, or more of one than ``reps``. The
+    profiler can miss records, so fewer than ``reps`` is printed, not
+    failed."""
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    _, _, _, per_kernel = profile_call(calls)
+    seen = {pat: sum(c for k, (c, _) in per_kernel.items() if re.search(pat, k)) for pat in names}
+    other = {k[:60]: c for k, (c, _) in per_kernel.items() if not any(re.search(p, k) for p in names)}
+    print(f"# {tag} under torch.profiler, {reps} calls: {len(names)} device kernel(s) a call, recorded "
+          f"{ {p: f'{c} of {reps}' for p, c in seen.items()} }, other device kernels {other}", flush=True)
+    if other or any(c == 0 or c > reps for c in seen.values()):
+        fail(f"{tag}: not one device kernel a call for each of {names} and nothing else "
+             f"(recorded {seen}, others {other})")
+
+
+def profile_call(fn, sessions=3):
     """One call of fn under torch.profiler: (wall ms of the profiled call,
     device-busy ms as the union of the intervals of the device's kernels and
     copies, their number, {name: (count, summed ms)}); busy ms is None when
     the profiler recorded no device activity. The solver's phase labels
     (utils/tracing.py) also appear on the device timeline, as user
     annotations spanning whole phases; they are not device work and are
-    left out."""
+    left out. A session can miss kernel records (on this card's profiler
+    one recorded none of a call's one kernel, another the solve but not the
+    factor of a pair, another 15 of 20 calls' kernels): so each session
+    opens with a marker kernel (torch.cuda._sleep's spin kernel, left out
+    of the result), and of ``sessions`` sessions the one that recorded the
+    most device work is kept. A missed record only lowers a count."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans, per_kernel = [], {}
-    for e in prof.events():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA") or getattr(e, "is_user_annotation", False):
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        count, ms = per_kernel.get(e.name, (0, 0.0))
-        per_kernel[e.name] = (count + 1, ms + (end - start) / 1e3)
+    best = None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans, per_kernel = [], {}
+        for e in prof.events():
+            if (not str(getattr(e, "device_type", "")).endswith("CUDA") or getattr(e, "is_user_annotation", False)
+                    or re.search(r"spin_kernel|sleep", e.name, re.I)):
+                continue
+            start, end = e.time_range.start, e.time_range.end
+            spans.append((start, end))
+            count, ms = per_kernel.get(e.name, (0, 0.0))
+            per_kernel[e.name] = (count + 1, ms + (end - start) / 1e3)
+        if best is None or len(spans) > len(best[1]):
+            best = (wall_ms, spans, per_kernel)
+    wall_ms, spans, per_kernel = best
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
         if cur_end is None or start > cur_end:
@@ -994,13 +1120,14 @@ def general_paths(card, kind):
         e2e_ms, e2e_all = time_ms(entry, repeats=3, launches=1, warmup=1)
         with plain_kernels():
             plain_e2e_ms, _ = event_ms(entry)
-        prof_wall, busy_ms, n_kernels, per_kernel = profile_call(entry)
+        # One session: the count of ~35,000 kernels is reported, not gated.
+        prof_wall, busy_ms, n_kernels, per_kernel = profile_call(entry, sessions=1)
         ours = {k: v for k, v in per_kernel.items() if re.search(r"ldlt_(factor|solve)(_reg)?_kernel|fused_qp_kernel", k)}
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:6]
         timing[route] = dict(e2e_ms=e2e_ms, busy_ms=busy_ms, parity=parity)
         dev_txt = "not measured (the profiler recorded no device activity)" if busy_ms is None else (
-            f"device busy {busy_ms:.3f} ms in {n_kernels} kernels"
-            f"{' (PERF.md §5: 50,532 with the feature-major LDL^T wrappers)' if route == 'pallas_ldlt' else ''}, "
+            f"device busy {busy_ms:.3f} ms in {n_kernels} device kernels a call"
+            f"{' (PERF.md §5: 50,532 with the feature-major LDL^T wrappers)' if route == 'pallas_ldlt' else ' (34,956 with the feature-major fused QP wrapper)'}, "
             f"idle share {1 - busy_ms / e2e_ms:.4f} "
             f"of the unprofiled call ({e2e_ms:.3f} ms; the profiled call's own wall is {prof_wall:.3f} ms, "
             f"idle share {1 - busy_ms / prof_wall:.4f} of it); this slice's kernels "
@@ -1014,9 +1141,14 @@ def general_paths(card, kind):
     # Each kernel alone, on the inputs the main path last gave it.
     H_b = seen["_ldlt_factor_cuda"][0]  # (B, D, D), batch-major
     Lt, dt, rhs_b = seen["_ldlt_solve_cuda"]  # (D, D, B), (D, B), rhs (B, D)
-    qp_args = seen["_fused_qp_cuda"]
+    qp_args = seen["_fused_qp_cuda"]  # batch-major, as the general path gave them
     D = H_b.shape[-1]
-    N, K, M = qp_args[1].shape[0], qp_args[3].shape[0], len(qp_args[6])
+    N, K, M = qp_args[1].shape[1], qp_args[3].shape[1], len(qp_args[6])
+    # One QP's latency: kernel 6 alone on the first lane.
+    qp_one = tuple(t[:1] for t in qp_args[:6]) + tuple(qp_args[6:])
+    qp_one_ms, qp_one_all = time_ms(lambda: fq._fused_qp_cuda(*qp_one), held=True)
+    print(f"# phase12 kernel fused_qp B=1 N={N} K={K} M={M} float32 ({fq.qp_route(N, K, qp_args[6])} route) on "
+          f"{kind} ({card}): alone on the card {qp_one_ms:.5f} ms (held; repeats {qp_one_all})", flush=True)
     f32 = 4
 
     # The library yardsticks, timed once each after a warm-up on 8 systems
@@ -1054,9 +1186,11 @@ def general_paths(card, kind):
          B * (D * (D - 1) // 2 + 3 * D) * f32, lib_solve_ms, "pallas_ldlt", "ldlt_solve", err5,
          f"B={B} D={D} float32", None),
         ("fused_qp", "mini_opt_tpu/ops/pallas_qp.py:36", "_make_qp_kernel (launched :262)",
-         lambda: fq._fused_qp_cuda(*qp_args), lambda: fq._fused_qp_plain(*qp_args),
-         # reads G's lower triangle, c, A, b, ia, ib; writes x, y
-         B * (N * (N + 1) // 2 + N + K * N + K + 2 * M + N + K) * f32, None, "pallas_fused",
+         lambda: fq._fused_qp_cuda(*qp_args), lambda: fq._fused_qp_plain_batch(*qp_args),
+         # reads G's lower triangle, c, A, b, ia, ib, each as stored (the
+         # general path's ia is a stride-0 broadcast: M values); writes x, y
+         (stored(qp_args[0][:, :, 0]) * (N + 1) // 2 + sum(stored(t) for t in qp_args[1:6])
+          + B * (N + K)) * f32, None, "pallas_fused",
          "fused_qp", err6, f"B={B} N={N} K={K} M={M} float32 6 iterations complementarity", None),
     ]
     for (name, replaces, function, kern, plain, nbytes, lib_ms, route, count_key, err, shape,
@@ -1084,7 +1218,7 @@ def general_paths(card, kind):
         rows.append({
             "name": name,
             "route": "cuda",
-            "source": "mini_opt_tpu_torch/csrc/" + ("fused_qp.cu" if name == "fused_qp" else "ldlt.cu"),
+            "source": "mini_opt_tpu_torch/csrc/" + ("fused_qp.cuh" if name == "fused_qp" else "ldlt.cu"),
             "replaces": replaces,
             "function": function,
             "launches": launched[route][count_key],
@@ -1099,7 +1233,8 @@ def general_paths(card, kind):
             "ops_per_instance": ops / B,
             "entry_ms": timing[route]["e2e_ms"],
             "entry_device_busy_ms": timing[route]["busy_ms"],
-            **({"pair_ms": pair_ms, "launch_floor_ms": floor_ms} if route == "pallas_ldlt" else {}),
+            **({"pair_ms": pair_ms, "launch_floor_ms": floor_ms} if route == "pallas_ldlt" else
+               {"ms_b1": qp_one_ms, "qp_route": fq.qp_route(N, K, qp_args[6])}),
             "parity": timing[route]["parity"],
             "card": card,
         })
@@ -1702,6 +1837,13 @@ def main():
         spilling = sum(int(b) > 0 for b in re.findall(r"(\d+) bytes spill stores", text))
         print(f"# ptxas: {len(regs)} kernel instances, registers max {max(regs, default=0)}, "
               f"{spilling} with spill stores", flush=True)
+        # Phase 2: kernel 1's instances (family, n, type).
+        for name, nreg, spill, _, stack in ptxas_report(text):
+            m = re.search(r"fused_ik_kernelI([fd])N2mo\d+(Planar|Spatial)ILi(\d+)E", name)
+            if m:
+                t, fam, n = m.groups()
+                print(f"# phase2 ptxas fused_ik<{'float' if t == 'f' else 'double'}, {fam}<{n}>>: {nreg} "
+                      f"registers, {spill} bytes spill stores, {stack} bytes stack frame", flush=True)
         # Phase 8's build lines: the blocked kernels, from the same build.
         for name, nreg, spill, _, stack in ptxas_report(text):
             m = re.search(r"blocked_(sqp|kkt_warp|kkt)_kernelI([fd])(?:Li(\d+)E)?", name)
@@ -1718,6 +1860,8 @@ def main():
             if m:
                 kernel, t, n, k = m.groups()
                 dims = "" if n is None else (f", D={n}" if k is None else f", N={n}, K={k}")
+                rows = re.search(r"PairRows|AnyRows", name)
+                dims += f", {rows.group()}" if rows else ""
                 label = f"{kernel}<{'float' if t == 'f' else 'double'}{dims}>"
                 print(f"# phase9 ptxas {label}: {nreg} registers, {spill} bytes spill stores, {stack} bytes "
                       f"stack frame", flush=True)
@@ -1737,32 +1881,8 @@ def main():
           f"D = 3: {ldlt.ldlt_launch_plan(3, GENERAL_B)}", flush=True)
 
     # Phase 3: kernel vs plain version on the card.
-    B3 = 8192 + 13
-    cases = [
-        ("planar n=2 4/2/1 mpc armijo", "planar", 2, BENCH, False),
-        ("planar n=4 10/6/2 complementarity polynomial +history", "planar", 4,
-         dict(max_iterations=10, qp_iterations=6, ls_iterations=2,
-              barrier="complementarity", line_search="polynomial"), True),
-        ("spatial n=3 4/2/1 mpc armijo", "spatial", 3, BENCH, False),
-    ]
     max_err = {"float64": 0.0, "float32": 0.0}
-    for name, fam_kind, n, kw, hist in cases:
-        data, x0 = (planar_instances if fam_kind == "planar" else spatial_instances)(B3, n, seed=n)
-        data[5, 0] = np.nan
-        x0[9, 1] = np.nan
-        family = (fik.planar_family if fam_kind == "planar" else fik.spatial_family)(n, LINK)
-        for dtype in (torch.float64, torch.float32):
-            data_t, x0_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
-            args = (family, data_t, x0_t, kw["max_iterations"], kw["qp_iterations"],
-                    kw["ls_iterations"], kw["line_search"], kw["barrier"], hist)
-            before = fik.KERNEL_LAUNCHES
-            got = fik._fused_solve_cuda(*args)
-            torch.cuda.synchronize()
-            if fik.KERNEL_LAUNCHES != before + 1:
-                fail(f"{name}: the kernel wrapper did not count its launch")
-            want = fik._fused_solve_plain(*args)
-            torch.cuda.synchronize()
-            check_against_plain(f"phase3 {name}", fam_kind, data, got, want, max_err)
+    ik_vs_plain(max_err)
 
     # Phase 4: the main path through the public entry point.
     batches = (8192, 262144)
@@ -1792,20 +1912,34 @@ def main():
         status = mot.fused_termination_status(state)
         satisfied = (status == int(mot.NLSTerminationState.SATISFIED_ABSOLUTE_TOL)).double().mean().item()
         t_d, x_d = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (targets, x0))
-        data_t, x0_t = t_d.T.contiguous(), x_d.T.contiguous()
         family = fik.planar_family(2, LINK)
         entry = lambda: mot.fused_ik_solve_batch(t_d, x_d, link_len=LINK, **BENCH)  # noqa: E731
-        kernel = lambda: fik._fused_solve_cuda(  # noqa: E731
-            family, data_t, x0_t, 4, 2, 1, "armijo", "mpc", False)
+        kernel = lambda: fik._fused_solve_cuda(family, t_d, x_d, 4, 2, 1, "armijo", "mpc", False)  # noqa: E731
         e2e_ms, e2e_all = time_ms(entry)
         dev_ms, dev_all = time_ms(entry, held=True)
         kern_ms, kern_all = time_ms(kernel, held=True)
+        # One entry-point call on card tensors is one device kernel: the
+        # kernel reads and writes batch-major, and nothing is copied.
+        before = fik.KERNEL_LAUNCHES
+        entry()
+        torch.cuda.synchronize()
+        if fik.KERNEL_LAUNCHES != before + 1:
+            fail(f"phase4 B={B}: a fused_ik_solve_batch call did not launch the kernel once")
+        kernels_a_call(f"phase4 fused_ik_solve_batch B={B} float32 on card tensors (3 before: two copies)", entry,
+                       (r"fused_ik_kernel",))
         rows[B] = dict(parity=parity, kernel_ms=kern_ms)
         print(f"# phase4 B={B} float32 on {kind} ({card}): parity {parity:.6f} (max err {err.max():.3e}), "
               f"status satisfied {satisfied:.6f}; entry point issued back to back {e2e_ms:.4f} ms/call "
-              f"({B / e2e_ms * 1e3:.4e} solves/s), its device work {dev_ms:.4f} ms, "
-              f"kernel alone on the card {kern_ms:.4f} ms ({B / kern_ms * 1e3:.4e} solves/s); "
+              f"({B / e2e_ms * 1e3:.4e} solves/s), its device work {dev_ms:.4f} ms in 1 device "
+              f"kernel a call, kernel alone on the card {kern_ms:.4f} ms ({B / kern_ms * 1e3:.4e} solves/s); "
               f"repeats: entry {e2e_all} device {dev_all} kernel {kern_all}", flush=True)
+    # One instance's latency: the kernel alone at B = 1.
+    t1, x1 = (torch.as_tensor(a[:1], dtype=torch.float32, device="cuda") for a in inst[8192])
+    one_ms, one_all = time_ms(lambda: fik._fused_solve_cuda(
+        fik.planar_family(2, LINK), t1, x1, 4, 2, 1, "armijo", "mpc", False), held=True)
+    rows[1] = dict(kernel_ms=one_ms)
+    print(f"# phase4 B=1 float32 on {kind} ({card}): kernel alone on the card {one_ms:.5f} ms "
+          f"(held; repeats {one_all})", flush=True)
     if rows[8192]["parity"] != 1.0:
         fail(f"parity at B=8192 is {rows[8192]['parity']}, not 1.0")
 
@@ -1857,6 +1991,8 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
         "shape": f"B={B} n=2 float32 4/2/1 mpc armijo",
+        "ms_b1": rows[1]["kernel_ms"],
+        "ms_b262144": rows[262144]["kernel_ms"],
         "ops_per_instance": ops_per_instance,
         "card": card,
     }] + blocked_rows + general_rows + ring_rows + mpc_rows}), flush=True)

@@ -5,8 +5,10 @@ masks, the solver's ``NLSParams``). This system has no weights.
 The JAX entry points take batch-major ``(B, rows)`` / ``(B, n)`` arrays and
 pack them feature-major inside ``_fused_solve`` (pallas_ik.py:898-901, with
 1024-lane padding for the TPU tile). The port keeps the batch-major public
-layout and uses the feature-major ``(vars, B)`` layout, without padding, for
-its kernel: thread ``i`` reads column ``i``.
+layout. The register tier's kernel reads it as it is (``to_batch_major``:
+no copy); the blocked, pose-ring and MPC kernels take the feature-major
+``(vars, B)`` layout, without padding (``to_feature_major``): thread ``i``
+reads column ``i``.
 
 The fused paths' settings need no conversion: their keyword budgets
 (``max_iterations``, ``qp_iterations``, ``ls_iterations``, ``line_search``,
@@ -38,9 +40,10 @@ def _resolve_device(device):
     return device
 
 
-def batch_from_numpy(data, x0, device=None, dtype=None):
+def batch_from_numpy(data, x0, device=None, dtype=None, batch_major=False):
     """(B, rows) data and (B, n) warm starts -> feature-major tensors
-    ``(rows, B)`` and ``(n, B)`` on ``device`` ("cuda" unless named), in
+    ``(rows, B)`` and ``(n, B)`` (with ``batch_major``, ``(B, rows)`` and
+    ``(B, n)`` as they are) on ``device`` ("cuda" unless named), in
     ``dtype`` (the arrays' own when None)."""
     data = np.asarray(data)
     x0 = np.asarray(x0)
@@ -49,7 +52,7 @@ def batch_from_numpy(data, x0, device=None, dtype=None):
     device = _resolve_device(device)
     out = []
     for a in (data, x0):
-        t = torch.from_numpy(np.ascontiguousarray(a.T))
+        t = torch.from_numpy(np.ascontiguousarray(a if batch_major else a.T))
         out.append(t.to(device=device, dtype=dtype or t.dtype).contiguous())
     return tuple(out)
 
@@ -61,23 +64,21 @@ def batch_to_numpy(*tensors):
     return out if len(out) > 1 else out[0]
 
 
-def to_feature_major(data, x0, device=None):
-    """The entry points' input conversion: numpy arrays go through
-    ``batch_from_numpy``; tensors stay where they lie unless ``device``
-    names another. Returns contiguous ``(rows, B)`` and ``(n, B)`` tensors of
-    one floating dtype on one device."""
+def _tensor_pair(data, x0, device):
+    """(B, rows) and (B, n) tensors, moved to ``device`` when it is named;
+    None when both are arrays. Raises on a mix or on mismatched shapes."""
     if not torch.is_tensor(data) or not torch.is_tensor(x0):
         if torch.is_tensor(data) or torch.is_tensor(x0):
             raise TypeError("pass data and x0 both as tensors or both as arrays")
-        data_t, x0_t = batch_from_numpy(data, x0, device)
-    else:
-        if data.dim() != 2 or x0.dim() != 2 or data.shape[0] != x0.shape[0]:
-            raise ValueError(
-                f"expected (B, rows) and (B, n); got {tuple(data.shape)} and {tuple(x0.shape)}"
-            )
-        if device is not None:
-            data, x0 = data.to(device), x0.to(device)
-        data_t, x0_t = data.T.contiguous(), x0.T.contiguous()
+        return None
+    if data.dim() != 2 or x0.dim() != 2 or data.shape[0] != x0.shape[0]:
+        raise ValueError(f"expected (B, rows) and (B, n); got {tuple(data.shape)} and {tuple(x0.shape)}")
+    if device is not None:
+        data, x0 = data.to(device), x0.to(device)
+    return data, x0
+
+
+def _checked(data_t, x0_t):
     if data_t.device != x0_t.device:
         raise ValueError(f"data on {data_t.device} but x0 on {x0_t.device}")
     if data_t.dtype != x0_t.dtype or data_t.dtype not in _FLOAT_DTYPES:
@@ -85,6 +86,29 @@ def to_feature_major(data, x0, device=None):
             f"data and x0 must share float32 or float64; got {data_t.dtype} and {x0_t.dtype}"
         )
     return data_t, x0_t
+
+
+def to_feature_major(data, x0, device=None):
+    """The entry points' input conversion: numpy arrays go through
+    ``batch_from_numpy``; tensors stay where they lie unless ``device``
+    names another. Returns contiguous ``(rows, B)`` and ``(n, B)`` tensors of
+    one floating dtype on one device."""
+    pair = _tensor_pair(data, x0, device)
+    if pair is None:
+        return _checked(*batch_from_numpy(data, x0, device))
+    return _checked(*(t.T.contiguous() for t in pair))
+
+
+def to_batch_major(data, x0, device=None):
+    """The register tier's input conversion: numpy arrays go once to
+    ``device`` ("cuda" unless named) as they are; tensors stay where they
+    lie, at their own strides, unless ``device`` names another. Returns
+    ``(B, rows)`` and ``(B, n)`` tensors of one floating dtype on one
+    device."""
+    pair = _tensor_pair(data, x0, device)
+    if pair is None:
+        pair = batch_from_numpy(data, x0, device, batch_major=True)
+    return _checked(*pair)
 
 
 def chain_from_numpy(rotations, translations, masks, rotation_xyz=None, dtype=torch.float64, device=None):

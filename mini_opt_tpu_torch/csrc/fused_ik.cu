@@ -3,10 +3,10 @@
 // double, behind a plain C launcher that ops/fused_ik.py binds with ctypes.
 //
 // One instance per thread, blocks of 128 threads on a 1-D grid; thread
-// `lane` reads column `lane` of the feature-major inputs and masks the
-// ragged edge. The launcher runs on the caller's stream (PyTorch's current
-// stream), allocates nothing, does not synchronise, and returns
-// cudaGetLastError() so that a refused launch is reported.
+// `lane` reads row `lane` of the batch-major inputs at their strides and
+// masks the ragged edge. The launcher runs on the caller's stream
+// (PyTorch's current stream), allocates nothing, does not synchronise, and
+// returns cudaGetLastError() so that a refused launch is reported.
 #include <cuda_runtime.h>
 
 #include "families.cuh"
@@ -18,20 +18,14 @@ constexpr int kBlock = 128;
 
 template <typename T, class F>
 __global__ void __launch_bounds__(kBlock)
-    fused_ik_kernel(F fam, const T* __restrict__ data, const T* __restrict__ x0,
-                    T* __restrict__ x_out, T* __restrict__ state, T* __restrict__ hist, int B,
-                    mo::SolveOptions opt) {
+    fused_ik_kernel(F fam, const mo::SqpIO io, int B, mo::SolveOptions opt) {
   const int lane = blockIdx.x * kBlock + threadIdx.x;
   if (lane >= B) return;
-  mo::fused_sqp_solve<T, F>(fam, data, x0, x_out, state, hist, B, lane, opt);
+  mo::fused_sqp_solve<T, F>(fam, io, lane, opt);
 }
 
 struct LaunchArgs {
-  const void* data;
-  const void* x0;
-  void* x_out;
-  void* state;
-  void* hist;
+  mo::SqpIO io;
   int B;
   mo::SolveOptions opt;
   cudaStream_t stream;
@@ -40,9 +34,7 @@ struct LaunchArgs {
 template <typename T, class F>
 int launch(const F& fam, const LaunchArgs& a) {
   const int grid = (a.B + kBlock - 1) / kBlock;
-  fused_ik_kernel<T, F><<<grid, kBlock, 0, a.stream>>>(
-      fam, static_cast<const T*>(a.data), static_cast<const T*>(a.x0), static_cast<T*>(a.x_out),
-      static_cast<T*>(a.state), static_cast<T*>(a.hist), a.B, a.opt);
+  fused_ik_kernel<T, F><<<grid, kBlock, 0, a.stream>>>(fam, a.io, a.B, a.opt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -71,15 +63,19 @@ int dispatch_family(int family, int n, double link, const LaunchArgs& a) {
 
 }  // namespace
 
-// family: 0 planar, 1 spatial; dtype: 0 float, 1 double. hist may be NULL.
+// family: 0 planar, 1 spatial; dtype: 0 float, 1 double. data (B, rows)
+// and x0 (B, n) at the element strides in `strides` (data 2, x0 2); x_out
+// (B, n), state (B, 3) and hist (B, max_iterations, 7 + n) contiguous, hist
+// may be NULL.
 extern "C" int mo_fused_ik_launch(int family, int n, int dtype, const void* data, const void* x0,
-                                  void* x_out, void* state, void* hist, int B,
-                                  int max_iterations, int qp_iterations, int ls_iterations,
+                                  const long long* strides, void* x_out, void* state, void* hist,
+                                  int B, int max_iterations, int qp_iterations, int ls_iterations,
                                   int polynomial, int mpc, double link, void* stream) {
   if (B <= 0 || max_iterations < 1 || qp_iterations < 0 || ls_iterations < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const LaunchArgs a{data, x0, x_out, state, hist, B,
+  const mo::SqpIO io{data, x0, x_out, state, hist, {strides[0], strides[1]}, {strides[2], strides[3]}};
+  const LaunchArgs a{io, B,
                      mo::SolveOptions{max_iterations, qp_iterations, ls_iterations,
                                       polynomial != 0, mpc != 0},
                      static_cast<cudaStream_t>(stream)};
@@ -96,3 +92,13 @@ extern "C" const char* mo_cuda_error_string(int rc) {
   if (rc == mo::kTooLarge) return "the system does not fit one CTA (threads or shared memory)";
   return cudaGetErrorString(static_cast<cudaError_t>(rc));
 }
+
+#ifdef MO_FUSED_SPANS
+// The phase spans of instance 0 (fused_sqp.cuh IkSpan order), summed since
+// the last reset; reset clears them. Returns a CUDA error code.
+extern "C" int mo_fused_ik_spans(unsigned long long* out, int reset) {
+  unsigned long long zeros[mo::kIkSpans] = {};
+  if (reset) return static_cast<int>(cudaMemcpyToSymbol(mo::mo_ik_spans, zeros, sizeof(zeros)));
+  return static_cast<int>(cudaMemcpyFromSymbol(out, mo::mo_ik_spans, sizeof(zeros)));
+}
+#endif

@@ -22,9 +22,11 @@
 // unrolled, so the KKT matrix, its factor and all iterates live in
 // registers (D = n + m <= 9 for the instantiated families); only the
 // iteration budgets and the barrier / line-search choices are runtime
-// values, uniform across the warp, so there is no divergence. Loads are
-// feature-major (vars, B): thread i reads column i and a warp's loads are
-// coalesced. The ragged edge is masked; there are no padding lanes.
+// values, uniform across the warp, so there is no divergence. The inputs
+// are read batch-major straight from the caller's tensors at their strides,
+// and x, state and the history are written batch-major, so a call is one
+// device kernel and no copy. The ragged edge is masked; there are no
+// padding lanes.
 //
 // Semantics mirror the JAX kernel where a transcription would drift:
 // jnp.maximum/minimum propagate NaN (nmax/nmin below, not fmax/fmin),
@@ -68,6 +70,54 @@ __device__ __forceinline__ T sgn(T a) {
 // Launcher return codes besides CUDA's own (mo_cuda_error_string).
 constexpr int kNoInstance = -1;  // no kernel instance for these arguments
 constexpr int kTooLarge = -2;    // the system does not fit one CTA
+
+// Phase spans of one instance: built with MO_FUSED_SPANS defined
+// (scripts/fused_kernel_times.py --spans), instance 0 sums the clock64()
+// cycles of each phase of its solve in registers and adds them to the
+// translation unit's device array at its end; the kernels' own build has
+// none of it.
+#ifdef MO_FUSED_SPANS
+__device__ __forceinline__ long long span_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+template <int NS>
+struct SpanClock {
+  unsigned long long sum[NS];
+  long long t;
+  bool on;
+  __device__ explicit SpanClock(bool o) : t(span_clock()), on(o) {
+#pragma unroll
+    for (int p = 0; p < NS; ++p) sum[p] = 0;
+  }
+  __device__ __forceinline__ void mark(int phase) {
+    const long long now = span_clock();
+    sum[phase] += static_cast<unsigned long long>(now - t);
+    t = now;
+  }
+  __device__ void flush(unsigned long long* out) const {
+    if (!on) return;
+#pragma unroll
+    for (int p = 0; p < NS; ++p) out[p] += sum[p];
+  }
+};
+#else
+template <int NS>
+struct SpanClock {
+  __device__ explicit SpanClock(bool) {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ void flush(unsigned long long*) const {}
+};
+#endif
+
+// Kernel 1's phases (fused_sqp_solve), in the order of one outer iteration.
+enum IkSpan { kIkLoads, kIkLinearize, kIkQP, kIkStep, kIkLineSearch, kIkLambda, kIkStore, kIkSpans };
+#ifdef MO_FUSED_SPANS
+static __device__ unsigned long long mo_ik_spans[kIkSpans];
+#endif
 
 struct SolveOptions {
   int max_iterations;
@@ -354,27 +404,41 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
   return bad;
 }
 
-// The whole fused solve of instance `lane` (< B) of family `fam`. Inputs
-// and outputs are feature-major: data (ROWS, B), x0 (N, B), x_out (N, B),
-// state (3, B), hist (max_iterations, 7 + N, B) or nullptr.
+// A solve's tensors: the caller's data (B, ROWS) and x0 (B, N) at their
+// element strides; x (B, N), state (B, 3) and hist (B, max_iterations,
+// 7 + N) or nullptr, contiguous.
+struct SqpIO {
+  const void* data;
+  const void* x0;
+  void* x;
+  void* state;
+  void* hist;
+  long long sd[2], sx[2];
+};
+
+// The whole fused solve of instance `lane` of family `fam`.
 template <typename T, class F>
-__device__ __forceinline__ void fused_sqp_solve(const F& fam, const T* __restrict__ data,
-                                                const T* __restrict__ x0, T* __restrict__ x_out,
-                                                T* __restrict__ state, T* __restrict__ hist,
-                                                int B, int lane, const SolveOptions& opt) {
+__device__ __forceinline__ void fused_sqp_solve(const F& fam, const SqpIO& io, int lane,
+                                                const SolveOptions& opt) {
   constexpr int N = F::N, M = F::M, R = F::ROWS, NLO = F::NLO, NHI = F::NHI;
   constexpr int NH = 7 + N;  // history channels
   static_assert(M >= 1 && NLO >= 1 && NHI >= 1, "skeleton instantiated for bounded, constrained families");
   static_assert(N + M <= 32, "past D = 32 the register tier does not apply");
-  const size_t b = static_cast<size_t>(B);
-  const size_t l = static_cast<size_t>(lane);
-  auto hist_at = [&](int it, int ch) -> T& { return hist[(static_cast<size_t>(it) * NH + ch) * b + l]; };
+  const long long l = lane;
+  T* __restrict__ hist = static_cast<T*>(io.hist);
+  auto hist_at = [&](int it, int ch) -> T& {
+    return hist[(l * opt.max_iterations + it) * NH + ch];
+  };
 
+  SpanClock<kIkSpans> sc(lane == 0);
+  const T* __restrict__ data = static_cast<const T*>(io.data) + l * io.sd[0];
+  const T* __restrict__ x0 = static_cast<const T*>(io.x0) + l * io.sx[0];
   T tgt[R], th[N];
 #pragma unroll
-  for (int r = 0; r < R; ++r) tgt[r] = data[r * b + l];
+  for (int r = 0; r < R; ++r) tgt[r] = data[r * io.sd[1]];
 #pragma unroll
-  for (int i = 0; i < N; ++i) th[i] = x0[i * b + l];
+  for (int i = 0; i < N; ++i) th[i] = x0[i * io.sx[1]];
+  sc.mark(kIkLoads);
 
   T lam = T(0.001);
   T penalty = T(0.01);
@@ -422,9 +486,11 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const T* __restric
 #pragma unroll
     for (int j = 0; j < NHI; ++j) ib_hi[j] = T(F::hi_val(j)) - th[F::hi_var(j)];
 
+    sc.mark(kIkLinearize);
     T dx[N], y[M];
     const T bad_it = qp_solve<T, F>(G, c, Jeq, r_eq, ib_lo, ib_hi, opt, dx, y);
     fac_bad = nmax(fac_bad, bad_it);
+    sc.mark(kIkQP);
 
     T d_f = T(0);
 #pragma unroll
@@ -443,6 +509,7 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const T* __restric
     }
     const T dd = d_f + penalty * d_eq;
     const T merit_pre = f_pre + penalty * eq_pre;
+    sc.mark(kIkStep);
 
     T alpha = T(1);
     accepted = T(0);
@@ -511,6 +578,7 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const T* __restric
       phi_prev = merit_c;
     }
 
+    sc.mark(kIkLineSearch);
 #pragma unroll
     for (int i = 0; i < N; ++i) th[i] = accepted > T(0) ? best[i] : th[i];
     if (hist) {
@@ -528,17 +596,24 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const T* __restric
     restore = accepted > T(0) ? T(0) : T(1);
     // MAX_LAMBDA analog: failed line search with damping past max_lambda.
     lam_maxed = (accepted == T(0) && lam > T(1)) ? T(1) : T(0);
+    sc.mark(kIkLambda);
   }
 
   // Final best update covers the last iteration's accepted step.
   const T f_fin = accepted > T(0) ? f_acc : f_pre;
   const T eq_fin = accepted > T(0) ? eq_acc : eq_pre;
   const bool better = f_fin + penalty * eq_fin < f_best + penalty * eq_best;
+  T* __restrict__ x_out = static_cast<T*>(io.x) + l * N;
+  T* __restrict__ state = static_cast<T*>(io.state) + l * 3;
 #pragma unroll
-  for (int i = 0; i < N; ++i) x_out[i * b + l] = better ? th[i] : th_best[i];
-  state[0 * b + l] = better ? f_fin : f_best;
-  state[1 * b + l] = better ? eq_fin : eq_best;
-  state[2 * b + l] = fac_bad + T(2) * lam_maxed;
+  for (int i = 0; i < N; ++i) x_out[i] = better ? th[i] : th_best[i];
+  state[0] = better ? f_fin : f_best;
+  state[1] = better ? eq_fin : eq_best;
+  state[2] = fac_bad + T(2) * lam_maxed;
+  sc.mark(kIkStore);
+#ifdef MO_FUSED_SPANS
+  sc.flush(mo_ik_spans);
+#endif
 }
 
 }  // namespace mo

@@ -126,7 +126,9 @@ def load_library():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.mo_fused_ik_launch.argtypes = [
                 i, i, i,  # family, n, dtype
-                p, p, p, p, p,  # data, x0, x_out, state, history (or NULL)
+                p, p,  # data, x0
+                ctypes.POINTER(ctypes.c_longlong),  # their 4 strides
+                p, p, p,  # x_out, state, history (or NULL)
                 i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
                 i, i,  # polynomial line search, Mehrotra barrier
                 ctypes.c_double,  # link length
@@ -170,8 +172,9 @@ def load_library():
             lib.mo_ldlt_solve_launch.restype = i
             lib.mo_fused_qp_launch.argtypes = [
                 i, i, i, i,  # dtype, N, K, M
-                ctypes.POINTER(i),  # the M box rows' variables
+                ctypes.POINTER(i),  # the M box rows' variables (they choose the route)
                 p, p, p, p, p, p,  # G, c, A_eq, b_eq, ia, ib
+                ctypes.POINTER(ctypes.c_longlong),  # their 14 strides
                 p, p,  # x, y
                 i, i,  # B, iterations
                 ctypes.c_double,  # sigma

@@ -55,16 +55,18 @@ def _check_options(max_iterations, qp_iterations, ls_iterations, line_search, ba
 _CUDA_DTYPE_IDS = {torch.float32: 0, torch.float64: 1}
 
 
-def _check_cuda_tensors(named, dtype, device, B):
-    """Each (name, tensor, shape) must be a contiguous CUDA tensor of
-    ``shape`` in ``dtype`` on ``device``; the batch ``B`` must fit the
-    kernels' int32 grid."""
+def _check_cuda_tensors(named, dtype, device, B, contiguous=True):
+    """Each (name, tensor, shape) must be a CUDA tensor of ``shape`` in
+    ``dtype`` on ``device``, contiguous unless the kernel reads strides
+    (``contiguous=False``); the batch ``B`` must fit the kernels' int32
+    grid."""
     if dtype not in _CUDA_DTYPE_IDS:
         raise TypeError(f"the kernel takes float32 or float64, not {dtype}")
     for name, t, shape in named:
         if not t.is_cuda or t.device != device or t.dtype != dtype:
             raise ValueError(f"{name} must be a {dtype} tensor on {device}")
-        if tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {shape} tensor, not {tuple(t.shape)}")
+        if tuple(t.shape) != shape or (contiguous and not t.is_contiguous()):
+            kind = "contiguous " if contiguous else ""
+            raise ValueError(f"{name} must be a {kind}{shape} tensor, not {tuple(t.shape)}")
     if B >= 2**31:
         raise ValueError("batch too large for the kernel's int32 grid")

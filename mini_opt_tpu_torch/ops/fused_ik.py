@@ -17,9 +17,11 @@ one to the other.
 
 Layouts follow the JAX package: the public functions take ``(B, rows)`` data
 and ``(B, n)`` warm starts and return ``(B, n)`` solutions, ``(B, 3)`` states
-``(f, |eq|_1, flags)`` and ``(B, iters, 7 + n)`` histories. Internally every
-tensor is feature-major, ``(vars, B)``, so that thread ``i`` of the kernel
-reads column ``i`` and a warp's loads are coalesced.
+``(f, |eq|_1, flags)`` and ``(B, iters, 7 + n)`` histories. The kernel reads
+the caller's batch-major tensors at their own strides and writes its
+outputs batch-major, so a call on card tensors is one device kernel and no
+copy. The plain version works on feature-major ``(vars, B)`` views of the
+same tensors.
 """
 
 from __future__ import annotations
@@ -614,8 +616,8 @@ def _fused_solve_plain(
 
 def _fused_solve_cuda(
     family,
-    data_t,
-    x0_t,
+    data,
+    x0,
     max_iterations,
     qp_iterations,
     ls_iterations,
@@ -623,9 +625,12 @@ def _fused_solve_cuda(
     barrier="complementarity",
     debug_history=False,
 ):
-    """Launch ``csrc/fused_ik.cu`` on feature-major CUDA tensors; same
-    contract as ``_fused_solve_plain``. Raises on anything the kernel does
-    not take and on a refused launch."""
+    """Launch ``csrc/fused_ik.cu`` on batch-major CUDA tensors at their own
+    strides, ``data (B, rows)`` and ``x0 (B, n)`` -> ``x (B, n)``, ``state
+    (B, 3)`` and, with ``debug_history``, ``history (B, iters, 7 + n)``
+    (else None): ``_fused_solve_plain``'s results, batch-major. Copies
+    nothing; raises on anything the kernel does not take and on a refused
+    launch."""
     global KERNEL_LAUNCHES
     if family.cuda_functor is None:
         raise NotImplementedError(
@@ -641,29 +646,32 @@ def _fused_solve_cuda(
         raise NotImplementedError(
             f"csrc/fused_ik.cu instantiates n = {CUDA_MIN_N}..{CUDA_MAX_N}; got n = {n}"
         )
-    dtype = data_t.dtype
-    B = data_t.shape[1] if data_t.dim() == 2 else -1
+    dtype = data.dtype
+    B = data.shape[0] if data.dim() == 2 else -1
     _check_cuda_tensors(
-        (("data", data_t, (family.data_rows, B)), ("x0", x0_t, (n, B))), dtype, data_t.device, B
+        (("data", data, (B, family.data_rows)), ("x0", x0, (B, n))), dtype, data.device, B,
+        contiguous=False,
     )
 
-    kw = dict(dtype=dtype, device=data_t.device)
-    x_out = torch.empty((n, B), **kw)
-    state = torch.empty((3, B), **kw)
+    kw = dict(dtype=dtype, device=data.device)
+    x_out = torch.empty((B, n), **kw)
+    state = torch.empty((B, 3), **kw)
     history = (
-        torch.empty((max_iterations, _N_DEBUG_FIXED + n, B), **kw) if debug_history else None
+        torch.empty((B, max_iterations, _N_DEBUG_FIXED + n), **kw) if debug_history else None
     )
     if B == 0:
         return x_out, state, history
+    strides = (ctypes.c_longlong * 4)(*data.stride(), *x0.stride())
     lib = _build.load_library()
-    with torch.cuda.device(data_t.device):
+    with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mo_fused_ik_launch(
             _CUDA_FAMILY_IDS[kind],
             n,
             _CUDA_DTYPE_IDS[dtype],
-            data_t.data_ptr(),
-            x0_t.data_ptr(),
+            data.data_ptr(),
+            x0.data_ptr(),
+            strides,
             x_out.data_ptr(),
             state.data_ptr(),
             history.data_ptr() if debug_history else None,
@@ -680,6 +688,14 @@ def _fused_solve_cuda(
         raise RuntimeError(f"fused_ik kernel launch failed: {_build.error_string(rc)}")
     KERNEL_LAUNCHES += 1
     return x_out, state, history
+
+
+def _fused_solve_plain_batch(family, data, x0, *budget):
+    """The plain counterpart of ``_fused_solve_cuda``: ``_fused_solve_plain``
+    on the batch-major tensors' feature-major views (no copy), its results
+    returned batch-major."""
+    x_t, state_t, hist_t = _fused_solve_plain(family, data.T, x0.T, *budget)
+    return x_t.T, state_t.T, None if hist_t is None else hist_t.permute(2, 0, 1)
 
 
 def _fused_solve(
@@ -706,27 +722,24 @@ def _fused_solve(
             return_state=return_state,
             device=device,
         )
-    data_t, x0_t = convert.to_feature_major(data, x0, device)
-    if data_t.shape[0] != family.data_rows or x0_t.shape[0] != family.n:
+    data, x0 = convert.to_batch_major(data, x0, device)
+    if data.shape[1] != family.data_rows or x0.shape[1] != family.n:
         raise ValueError(
             f"expected data (B, {family.data_rows}) and x0 (B, {family.n}); got "
-            f"{tuple(data_t.T.shape)} and {tuple(x0_t.T.shape)}"
+            f"{tuple(data.shape)} and {tuple(x0.shape)}"
         )
-    args = (
-        family, data_t, x0_t, max_iterations, qp_iterations, ls_iterations,
-        line_search, barrier, debug_history,
-    )
-    if data_t.is_cuda:
-        x_t, state_t, hist_t = _fused_solve_cuda(*args)
-    elif data_t.device.type == "cpu":
-        x_t, state_t, hist_t = _fused_solve_plain(*args)
+    budget = (max_iterations, qp_iterations, ls_iterations, line_search, barrier, debug_history)
+    if data.is_cuda:
+        x, state, hist = _fused_solve_cuda(family, data, x0, *budget)
+    elif data.device.type == "cpu":
+        x, state, hist = _fused_solve_plain_batch(family, data, x0, *budget)
     else:
-        raise NotImplementedError(f"no fused solve for device {data_t.device}")
-    outs = [x_t.T]
+        raise NotImplementedError(f"no fused solve for device {data.device}")
+    outs = [x]
     if return_state:
-        outs.append(state_t.T)
+        outs.append(state)
     if debug_history:
-        outs.append(hist_t.permute(2, 0, 1))
+        outs.append(hist)
     return tuple(outs) if len(outs) > 1 else outs[0]
 
 

@@ -1,21 +1,28 @@
 """The whole fixed-trip QP interior point as one kernel, the PyTorch port of
 ``mini_opt_tpu/ops/pallas_qp.py``.
 
-``csrc/fused_qp.cu`` replaces the TPU kernel ``pallas_qp.py::_make_qp_kernel``
+Kernel 6 (``csrc/fused_qp.cuh``, instantiated by ``fused_qp.cu`` and
+``fused_qp_pairs.cu``) replaces the TPU kernel ``pallas_qp.py::_make_qp_kernel``
 (launched at :262 by ``_fused_qp_batch``): for B independent QPs of N
 variables, K equality rows and M <= 2N diagonal box rows it runs the
 equality-constrained initial guess, the condensed-KKT assembly, the fully
 unrolled LDL^T (the helpers of ``csrc/fused_sqp.cuh``),
 fraction-to-boundary and the complementarity or Mehrotra schedule for a
 fixed number of iterations, one instance per thread. N and K are compile-time
-sizes of the kernel (N = 2..8, K in {0, 1}); the box rows' variables, their
-count and the schedule are run-time values. Other sizes raise on CUDA
-tensors.
+sizes of the kernel (N = 2..8, K in {0, 1}); other sizes raise on CUDA
+tensors. ``qp_route`` picks its route from the box rows' variables: "pairs"
+for the rows every caller in the port passes (a lo and a hi row on each of
+variables 1..N-1, the IK joint limits), which the kernel has at compile
+time, or "any" for any other rows, which it takes as run-time values. The
+kernel reads the caller's batch-major tensors at their own strides and
+writes x (B, N) and y (B, K): a call is one device kernel and no copy.
 
 Beside it sits ``_fused_qp_plain``, the same computation as plain PyTorch on
-lists of ``(B,)`` tensors, a line-by-line counterpart of ``_make_qp_kernel``.
-CPU tensors run it; CUDA tensors launch the kernel or raise. The kernel
-builds without FMA contraction, so on the card both agree bit for bit.
+lists of ``(B,)`` tensors, a line-by-line counterpart of ``_make_qp_kernel``,
+which takes feature-major views (``_fused_qp_plain_batch`` hands it the
+batch-major tensors' transposed views, copying nothing). CPU tensors run it;
+CUDA tensors launch the kernel or raise. The kernel builds without FMA
+contraction, so on the card both agree bit for bit.
 
 Semantics are ``qp.py::qp_ip_solve`` with ``early_exit=False``: every
 iteration runs, and no tolerance ends the loop.
@@ -35,7 +42,7 @@ from .fused_ik import _ldlt_apply, _ldlt_factor_unrolled
 # where it launches, and nowhere else.
 FUSED_QP_LAUNCHES = 0
 
-# The kernel's instances (csrc/fused_qp.cu).
+# The kernel's instances (csrc/fused_qp.cu, fused_qp_pairs.cu).
 CUDA_MIN_N, CUDA_MAX_N = 2, 8
 CUDA_K = (0, 1)
 
@@ -188,34 +195,56 @@ def _check_cuda_shape(N, K, M):
         raise NotImplementedError(f"csrc/fused_qp.cu takes at most 2N = {2 * N} box rows; got {M}")
 
 
-def _fused_qp_cuda(Gt, ct, At, bt, iat, ibt, ineq_var, iterations, sigma, barrier, has_eq_guess):
-    """Launch ``csrc/fused_qp.cu`` on feature-major CUDA tensors; same
-    contract as ``_fused_qp_plain``. Raises on anything the kernel does not
-    take and on a refused launch."""
-    global FUSED_QP_LAUNCHES
-    N, B = ct.shape
-    K, M = bt.shape[0], len(ineq_var)
-    _check_cuda_shape(N, K, M)
+def pair_rows(N):
+    """The box rows' variables of the "pairs" route: a lo and a hi row on
+    each of variables 1..N-1 (the IK problem's joint limits, in
+    ``nonlinear.py::_ineq_var``'s order)."""
+    return tuple(1 + m // 2 for m in range(2 * (N - 1)))
+
+
+def qp_route(N, K, ineq_var):
+    """Kernel 6's route for N variables, K equality rows and the box rows'
+    variables ``ineq_var``: "pairs" where the rows are ``pair_rows(N)`` (the
+    kernel has them at compile time), else "any" (run-time rows). Raises
+    where the kernel has no instance. The launcher makes the same choice
+    from the rows it is given (``fused_qp.cuh::is_pair_rows``); this mirror
+    names the route for labels and tests."""
+    ineq_var = tuple(ineq_var)
+    _check_cuda_shape(N, K, len(ineq_var))
     if any(not 0 <= v < N for v in ineq_var):
         raise ValueError(f"ineq_var {ineq_var} out of range for N = {N}")
+    return "pairs" if ineq_var == pair_rows(N) else "any"
+
+
+def _fused_qp_cuda(G, c, A_eq, b_eq, ia, ib, ineq_var, iterations, sigma, barrier, has_eq_guess):
+    """Launch kernel 6 on batch-major CUDA tensors at their own strides: G
+    (B, N, N) (lower triangle read), c (B, N), A_eq (B, K, N), b_eq (B, K),
+    ia / ib (B, M) -> x (B, N), y (B, K), as ``_fused_qp_plain_batch``.
+    Copies nothing; raises on anything the kernel does not take and on a
+    refused launch."""
+    global FUSED_QP_LAUNCHES
+    B, N = c.shape
+    K, M = b_eq.shape[1], len(ineq_var)
+    qp_route(N, K, ineq_var)
     _check_cuda_tensors(
         (
-            ("G", Gt, (N, N, B)), ("c", ct, (N, B)), ("A_eq", At, (K, N, B)),
-            ("b_eq", bt, (K, B)), ("ia", iat, (M, B)), ("ib", ibt, (M, B)),
+            ("G", G, (B, N, N)), ("c", c, (B, N)), ("A_eq", A_eq, (B, K, N)),
+            ("b_eq", b_eq, (B, K)), ("ia", ia, (B, M)), ("ib", ib, (B, M)),
         ),
-        ct.dtype, ct.device, B,
+        c.dtype, c.device, B, contiguous=False,
     )
-    x = torch.empty((N, B), dtype=ct.dtype, device=ct.device)
-    y = torch.empty((K, B), dtype=ct.dtype, device=ct.device)
+    x = torch.empty((B, N), dtype=c.dtype, device=c.device)
+    y = torch.empty((B, K), dtype=c.dtype, device=c.device)
     if B == 0:
         return x, y
     var = (ctypes.c_int * max(M, 1))(*ineq_var)
+    strides = (ctypes.c_longlong * 14)(*(v for t in (G, c, A_eq, b_eq, ia, ib) for v in t.stride()))
     lib = _build.load_library()
-    with torch.cuda.device(ct.device):
+    with torch.cuda.device(c.device):
         rc = lib.mo_fused_qp_launch(
-            _CUDA_DTYPE_IDS[ct.dtype], N, K, M, var,
-            Gt.data_ptr(), ct.data_ptr(), At.data_ptr(), bt.data_ptr(),
-            iat.data_ptr(), ibt.data_ptr(), x.data_ptr(), y.data_ptr(), B,
+            _CUDA_DTYPE_IDS[c.dtype], N, K, M, var,
+            G.data_ptr(), c.data_ptr(), A_eq.data_ptr(), b_eq.data_ptr(),
+            ia.data_ptr(), ib.data_ptr(), strides, x.data_ptr(), y.data_ptr(), B,
             iterations, ctypes.c_double(sigma), int(barrier == "mpc"), int(bool(has_eq_guess)),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -225,9 +254,20 @@ def _fused_qp_cuda(Gt, ct, At, bt, iat, ibt, ineq_var, iterations, sigma, barrie
     return x, y
 
 
+def _fused_qp_plain_batch(G, c, A_eq, b_eq, ia, ib, ineq_var, iterations, sigma, barrier, has_eq_guess):
+    """The plain counterpart of ``_fused_qp_cuda``: ``_fused_qp_plain`` on the
+    batch-major tensors' feature-major views (no copy) -> x (B, N), y (B, K)."""
+    x, y = _fused_qp_plain(
+        G.permute(1, 2, 0), c.T, A_eq.permute(1, 2, 0), b_eq.T, ia.T, ib.T,
+        ineq_var, iterations, sigma, barrier, has_eq_guess,
+    )
+    return x.T, y.T
+
+
 def _fused_qp_batch(G, c, A_eq, b_eq, ia, ib, *, ineq_var, iterations, sigma, barrier, has_eq_guess):
     """Batch-first: G (B, N, N), c (B, N), A_eq (B, K, N), b_eq (B, K),
-    ia / ib (B, M) -> x (B, N), y (B, K)."""
+    ia / ib (B, M) -> x (B, N), y (B, K). CUDA tensors launch kernel 6 on
+    the tensors as they are; CPU tensors run the plain version."""
     if barrier not in ("complementarity", "mpc"):
         raise ValueError(f"barrier must be 'complementarity' or 'mpc', not {barrier!r}")
     if iterations < 0:
@@ -235,18 +275,12 @@ def _fused_qp_batch(G, c, A_eq, b_eq, ia, ib, *, ineq_var, iterations, sigma, ba
     ineq_var = tuple(int(v) for v in ineq_var)
     if ia.shape[-1] != len(ineq_var) or ib.shape[-1] != len(ineq_var):
         raise ValueError(f"ia and ib need {len(ineq_var)} columns, one per ineq_var entry")
-    args = (
-        G.permute(1, 2, 0).contiguous(), c.T.contiguous(), A_eq.permute(1, 2, 0).contiguous(),
-        b_eq.T.contiguous(), ia.T.contiguous(), ib.T.contiguous(),
-        ineq_var, iterations, sigma, barrier, has_eq_guess,
-    )
+    args = (G, c, A_eq, b_eq, ia, ib, ineq_var, iterations, sigma, barrier, has_eq_guess)
     if c.is_cuda:
-        x, y = _fused_qp_cuda(*args)
-    elif c.device.type == "cpu":
-        x, y = _fused_qp_plain(*args)
-    else:
-        raise NotImplementedError(f"no fused QP for device {c.device}")
-    return x.T, y.T
+        return _fused_qp_cuda(*args)
+    if c.device.type == "cpu":
+        return _fused_qp_plain_batch(*args)
+    raise NotImplementedError(f"no fused QP for device {c.device}")
 
 
 def make_fused_qp_solver(

@@ -65,7 +65,7 @@ def test_import_leaves_jax_out():
     "path",
     sorted((REPO / "mini_opt_tpu_torch").rglob("*.py"))
     + [REPO / "chip_smoke.py"]
-    + [REPO / "scripts" / f"{name}_kernel_times.py" for name in ("mpc", "blocked", "pose_ring", "ldlt")]
+    + [REPO / "scripts" / f"{name}_kernel_times.py" for name in ("mpc", "blocked", "pose_ring", "ldlt", "fused")]
     + [REPO / "scripts" / "kernel_timing.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
@@ -139,8 +139,8 @@ def test_blocked_tier_and_bad_options_raise():
 def test_sources_present_and_build_dir_ignored():
     csrc = REPO / "mini_opt_tpu_torch" / "csrc"
     for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu", "blocked_sqp.cuh", "blocked.cu",
-                 "blocked_f64.cu", "blocked_kkt.cu", "ldlt.cu", "fused_qp.cu", "pose_ring.cuh", "pose_ring.cu",
-                 "pose_ring_f64.cu", "mpc.cuh", "mpc.cu", "mpc_f64.cu"):
+                 "blocked_f64.cu", "blocked_kkt.cu", "ldlt.cu", "fused_qp.cuh", "fused_qp.cu", "fused_qp_pairs.cu",
+                 "pose_ring.cuh", "pose_ring.cu", "pose_ring_f64.cu", "mpc.cuh", "mpc.cu", "mpc_f64.cu"):
         assert (csrc / name).is_file(), name
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
@@ -173,20 +173,20 @@ CUDA_CASES = [
 def test_kernel_matches_plain_on_card(case, dtype):
     """The kernel is built without FMA contraction and runs the plain
     version's operations in the same order, so on the card both agree bit
-    for bit, NaN lanes included."""
+    for bit, NaN lanes included, on batch-major tensors."""
     kind, n, kw, hist = case
     data, x0 = (planar_instances if kind == "planar" else spatial_instances)(300, n, seed=n)
     data[5, 0] = np.nan
     x0[9, 1] = np.nan
     family = (fik.planar_family if kind == "planar" else fik.spatial_family)(n, 0.4)
-    d_t, x_t = port.batch_from_numpy(data, x0, "cuda", dtype)
+    d_t, x_t = (torch.as_tensor(a, dtype=dtype, device="cuda") for a in (data, x0))
     args = (family, d_t, x_t, kw["max_iterations"], kw["qp_iterations"], kw["ls_iterations"],
             kw["line_search"], kw["barrier"], hist)
     before = fik.KERNEL_LAUNCHES
     got = fik._fused_solve_cuda(*args)
     torch.cuda.synchronize()
     assert fik.KERNEL_LAUNCHES == before + 1
-    want = fik._fused_solve_plain(*args)
+    want = fik._fused_solve_plain_batch(*args)
     for g, w in zip(got, want):
         if w is None:
             assert g is None
@@ -331,16 +331,60 @@ def test_fused_qp_kernel_matches_plain_on_card(barrier, dtype):
         data=torch.as_tensor(targets, dtype=dtype, device="cuda"),
     )
     args = (
-        qp.G.permute(1, 2, 0).contiguous(), qp.c.T.contiguous(), qp.A_eq.permute(1, 2, 0).contiguous(),
-        qp.b_eq.T.contiguous(), qp.ineq_a.T.contiguous(), qp.ineq_b.T.contiguous(),
-        tuple(int(v) for v in qp.ineq_var), 6, 0.1, barrier, True,
+        qp.G, qp.c, qp.A_eq, qp.b_eq, qp.ineq_a, qp.ineq_b, tuple(int(v) for v in qp.ineq_var), 6, 0.1,
+        barrier, True,
     )
     before = fq.FUSED_QP_LAUNCHES
     xk, yk = fq._fused_qp_cuda(*args)
     torch.cuda.synchronize()
     assert fq.FUSED_QP_LAUNCHES == before + 1
-    xp, yp = fq._fused_qp_plain(*args)
+    xp, yp = fq._fused_qp_plain_batch(*args)
     assert _bit_equal(xk, xp) and _bit_equal(yk, yp)
+
+
+@pytest.mark.cuda
+@needs_cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("B", [1, 33, 8205])
+@pytest.mark.parametrize("kernel", ["fused_qp", "fused_ik"])
+def test_register_kernels_match_plain_at_edge_batches(kernel, B, dtype):
+    """Kernels 6 and 1 bit for bit against their plain versions at one
+    instance, a ragged CTA and past 8192 lanes (a NaN lane where there is
+    one): kernel 6 on both routes (the general path's pairs, and the same QP
+    with its rows reversed and one more on the run-time route), kernel 1 on
+    strided caller tensors."""
+    n = 4
+    targets, x0 = planar_instances(B, n, seed=B)
+    if B > 9:
+        targets[5, 0] = np.nan
+    if kernel == "fused_ik":
+        d = torch.as_tensor(targets, dtype=dtype, device="cuda")
+        x = torch.as_tensor(x0, dtype=dtype, device="cuda").T.contiguous().T
+        args = (fik.planar_family(n, 0.4), torch.stack([d, d], 2)[:, :, 0], x, 4, 2, 1, "armijo", "mpc", False)
+        got, want = fik._fused_solve_cuda(*args), fik._fused_solve_plain_batch(*args)
+        assert all(_bit_equal(g, w) for g, w in zip(got[:2], want[:2]))
+        return
+    chain = port.make_planar_chain(n, dtype=dtype, device="cuda")
+    x_t = torch.as_tensor(x0, dtype=dtype, device="cuda")
+    qp, _ = port.nonlinear.linearize_and_fill_qp(
+        lambda t: port.make_ik_problem(chain, t), x_t, torch.full_like(x_t[:, 0], 1e-3),
+        data=torch.as_tensor(targets, dtype=dtype, device="cuda"),
+    )
+    var = tuple(int(v) for v in qp.ineq_var)
+    rev = list(range(len(var) - 1, -1, -1))
+    one = torch.ones_like(qp.ineq_b[:, :1])
+    routes = {
+        "pairs": (qp.ineq_a, qp.ineq_b, var),
+        "any": (torch.cat([one, qp.ineq_a[:, rev]], 1), torch.cat([10.0 * one, qp.ineq_b[:, rev]], 1),
+                (0,) + tuple(var[m] for m in rev)),
+    }
+    for route, (ia, ib, v) in routes.items():
+        assert fq.qp_route(n, 1, v) == route
+        for barrier in ("complementarity", "mpc"):
+            args = (qp.G, qp.c, qp.A_eq, qp.b_eq, ia, ib, v, 6, 0.1, barrier, True)
+            xk, yk = fq._fused_qp_cuda(*args)
+            xp, yp = fq._fused_qp_plain_batch(*args)
+            assert _bit_equal(xk, xp) and _bit_equal(yk, yp)
 
 
 @pytest.mark.cuda
