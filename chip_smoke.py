@@ -163,7 +163,34 @@ Phases, each of which exits non-zero on failure:
    solve_mpc batched through nls_solve with kkt_solver="riccati:20:4:1" at
    B = 1024 and 2/2/1 (Mehrotra), ms per call and its cost median beside the
    kernel's (reported, not gated);
-21. the kernel line, then the device line as the last line of stdout.
+21. families generated from a Problem (ops/fused_auto.py::family_from_problem)
+   and their device programs (ops/fused_emit.py), emitted and built in
+   phase 2's parallel nvcc pass: bench.py's default family (planar n = 2
+   from scalar_planar_ik_builder, the _mod_pi retraction), the spatial
+   chain builder at n = 3, the BlockResidual chain and the robustified line
+   fit (no equality row, no bound); the emit and build seconds, and ptxas
+   registers, spill stores and stack frame of each instance;
+22. each generated instance of kernel 1 against its plain version (the
+   family's own linearize / errors / retract in _fused_solve_plain) on card
+   tensors, bit for bit in float64 and float32, flags and history
+   included: at B = 8192 + 13 with one NaN-target and one NaN-start lane at
+   4/2/1 Mehrotra + Armijo, at 3/2/2 complementarity + polynomial with
+   history, at B = 1, and at B = 33 on non-contiguous caller tensors;
+23. bench.py's default route through the public entry points in float32:
+   fused_solve_batch on the generated planar family at B = 8192 (parity
+   must be 1.0) and B = 262144, every launch counter set to 0 just before
+   and read just after (generated launches only), one device kernel a call
+   (kernels_a_call), the B = 8192 outputs bit for bit against the plain
+   version and max |dx| against the hand-written family
+   (fused_ik_solve_batch); then fused_chain_ik_solve on make_spatial_chain(3)
+   at B = 8192 (its serving budget 10/3/1), counted the same way, its
+   parity printed and its outputs bit for bit against its plain version;
+24. held timings of the generated instance and of the hand-written planar
+   instance in the same call, in turns (generated, hand, hand, generated),
+   at B = 8192, 262144 and 1; the entry point as a caller issues it and its
+   device work; the plain version once and the bound from its operation
+   count;
+25. the kernel line, then the device line as the last line of stdout.
 
 Tolerances, kernel against plain version: the kernels sum in the plain
 versions' order and build without FMA contraction, so they are expected to
@@ -171,9 +198,10 @@ agree bit for bit (each comparison prints whether they did). Kernels 2 and
 3 and the blocked main paths (phases 5-7), kernels 4-6 and the general
 path (phases 10-12), kernel 7 and the pose-ring main path (phases 14-15)
 and kernels 8-9 (phases 18-19) are held bit for bit in both types, and so
-is kernel 1 (phases 3-4).
+is kernel 1, hand-written (phases 3-4) and generated (phases 22-23).
 """
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -189,6 +217,10 @@ import torch
 
 import mini_opt_tpu_torch as mot
 from mini_opt_tpu_torch.instances import (
+    block_chain_instances,
+    block_chain_problem,
+    robust_line_fit_instances,
+    robust_line_fit_problem,
     cartpole_mpc_instances,
     chain_closure_instances,
     effector_error,
@@ -200,7 +232,9 @@ from mini_opt_tpu_torch.instances import (
 )
 from mini_opt_tpu_torch.models import mpc as mpcm
 from mini_opt_tpu_torch.models import pose_graph as pg
+from mini_opt_tpu_torch.models.ik import _CHAIN_BUILDER_CACHE, scalar_planar_ik_builder
 from mini_opt_tpu_torch.ops import _build
+from mini_opt_tpu_torch.ops import fused_auto
 from mini_opt_tpu_torch.ops import blocked as blk
 from mini_opt_tpu_torch.ops import fused_ik as fik
 from mini_opt_tpu_torch.ops import fused_qp as fq
@@ -587,6 +621,7 @@ def kkt_vs_plain(max_err):
 
 def reset_counts():
     fik.KERNEL_LAUNCHES = 0
+    fik.GENERATED_LAUNCHES = 0
     pr.KERNEL_LAUNCHES = 0
     blk.BLOCKED_LAUNCHES = 0
     blk.KKT_LAUNCHES = 0
@@ -598,7 +633,8 @@ def reset_counts():
 
 
 def counts():
-    return dict(fused_ik=fik.KERNEL_LAUNCHES, blocked=blk.BLOCKED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES,
+    return dict(fused_ik=fik.KERNEL_LAUNCHES, fused_ik_generated=fik.GENERATED_LAUNCHES,
+                blocked=blk.BLOCKED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES,
                 ldlt_factor=ldlt.LDLT_FACTOR_LAUNCHES, ldlt_solve=ldlt.LDLT_SOLVE_LAUNCHES,
                 fused_qp=fq.FUSED_QP_LAUNCHES, pose_ring=pr.KERNEL_LAUNCHES,
                 mpc=pm.KERNEL_LAUNCHES, mpc_servo=pm.SERVO_LAUNCHES)
@@ -1809,6 +1845,237 @@ def mpc_paths(card, kind):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Phases 21-24: families generated from a Problem (kernel 1, emitted).
+# ---------------------------------------------------------------------------
+
+
+def _wrap(th):
+    return [fik._mod_pi(t) for t in th]
+
+
+def generated_families():
+    """Phase 21's families: name -> (family, instances(B, seed), parity kind
+    or None)."""
+    chain = mot.make_spatial_chain(3, LINK, dtype=torch.float64, device="cpu")
+    return {
+        "planar n=2": (mot.family_from_problem(scalar_planar_ik_builder(2, LINK), 2, retract=_wrap),
+                       lambda B, seed: planar_instances(B, 2, seed=seed), "planar"),
+        "spatial chain n=3": (
+            mot.family_from_problem(mot.scalar_chain_ik_builder(chain, target_dim=3), 3, retract=_wrap),
+            lambda B, seed: spatial_instances(B, 3, seed=seed), "spatial"),
+        "block chain": (mot.family_from_problem(block_chain_problem, 6), block_chain_instances, None),
+        "robust line fit": (mot.family_from_problem(robust_line_fit_problem, 4), robust_line_fit_instances, None),
+    }
+
+
+def emit_and_build(families):
+    """Emit every family's source and build them all (one nvcc each, all
+    together); returns (emit seconds, build seconds, {name: library path})."""
+    t0 = time.perf_counter()
+    sources = {name: fam.cuda_program.source() for name, (fam, _, _) in families.items()}
+    t1 = time.perf_counter()
+    paths = _build.build_generated(list(sources.values()))
+    return t1 - t0, time.perf_counter() - t1, dict(zip(sources, paths))
+
+
+def generated_build_report(families, emit_s, build_s, paths):
+    """Phase 21: emit and build seconds, program sizes, ptxas per instance."""
+    print(f"# phase21 emitted {len(families)} generated families in {emit_s:.1f} s (traces of linearize, "
+          f"errors and retract in float32 and float64), built them in {build_s:.1f} s (in phase 2's pass)",
+          flush=True)
+    for name, (fam, _, _) in families.items():
+        progs = fam.cuda_program.programs(torch.float32)
+        sizes = {k: len(v.stmts) for k, v in progs.items() if v is not None}
+        print(f"# phase21 {name}: n={fam.n} m_eq={fam.m_eq} rows={fam.data_rows} lower={fam.lower} "
+              f"upper={fam.upper}, float32 statements {sizes}, library {paths[name].name}", flush=True)
+        log = paths[name].with_suffix(".log")
+        for kname, nreg, spill, _, stack in ptxas_report(log.read_text() if log.exists() else ""):
+            m = re.search(r"fused_ik_kernelI([fd])", kname)
+            if m:
+                t = "float" if m.group(1) == "f" else "double"
+                print(f"# phase21 ptxas fused_ik<{t}, generated {name}>: {nreg} registers, {spill} bytes spill "
+                      f"stores, {stack} bytes stack frame", flush=True)
+
+
+def check_generated(tag, got, want, max_err, parity_kind=None, data=None):
+    """Hold a generated instance's batch-major (x, state, history) against
+    the plain version's, bit for bit; exit on any difference."""
+    (xk, sk, hk), (xp, sp, hp) = got, want
+    dtype = str(xk.dtype).replace("torch.", "")
+    pairs = [(xk, xp), (sk, sp)] + ([(hk, hp)] if hp is not None else [])
+    same = bit_identical(*pairs)
+    diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk, sp)}
+    if hp is not None:
+        diffs["history"] = max_abs_diff(hk, hp)
+    max_err[dtype] = max(max_err[dtype], max(diffs.values()))
+    extra = ""
+    if parity_kind is not None:
+        extra = f", parity {(effector_error(parity_kind, xk.cpu(), data) < 1e-3).mean():.6f}"
+    print(f"# {tag} {dtype}: bit-identical {same}, max|kernel - plain| {diffs}{extra}", flush=True)
+    if not same:
+        fail(f"{tag} {dtype}: the generated kernel disagrees with its plain version ({diffs})")
+
+
+GEN_CASES = [
+    ("4/2/1 mpc armijo", BENCH, False, 8192 + 13, False),
+    ("3/2/2 complementarity polynomial +history", dict(max_iterations=3, qp_iterations=2, ls_iterations=2,
+                                                         barrier="complementarity", line_search="polynomial"),
+     True, 8192 + 13, False),
+    ("4/2/1 mpc armijo, one instance", BENCH, False, 1, False),
+    ("3/2/2 complementarity polynomial +history, strided inputs", dict(
+        max_iterations=3, qp_iterations=2, ls_iterations=2, barrier="complementarity", line_search="polynomial"),
+     True, 33, True),
+]
+
+
+def generated_vs_plain(families, max_err):
+    """Phase 22: every generated instance against its plain version."""
+    for name, (fam, instances, kind) in families.items():
+        for case, kw, hist, B, strided in GEN_CASES:
+            data, x0 = instances(B, 7)
+            if B > 9:
+                data[5, 0] = np.nan
+                x0[9, 1] = np.nan
+            for dtype in (torch.float64, torch.float32):
+                d = torch.as_tensor(data, dtype=dtype, device="cuda")
+                x = torch.as_tensor(x0, dtype=dtype, device="cuda")
+                if strided:
+                    d, x = torch.stack([d, d], 2)[:, :, 0], x.T.contiguous().T
+                args = (fam, d, x, kw["max_iterations"], kw["qp_iterations"], kw["ls_iterations"],
+                        kw["line_search"], kw["barrier"], hist)
+                before = fik.GENERATED_LAUNCHES
+                got = fik._fused_solve_cuda(*args)
+                torch.cuda.synchronize()
+                if fik.GENERATED_LAUNCHES != before + 1:
+                    fail(f"phase22 {name}: the generated kernel's wrapper did not count its launch")
+                want = fik._fused_solve_plain_batch(*args)
+                torch.cuda.synchronize()
+                check_generated(f"phase22 {name} {case} B={B}", got, want, max_err, kind, data)
+
+
+def wrapped_dx(a, b):
+    """Largest angle difference per lane, modulo 2 pi."""
+    d = (a.double() - b.double()).abs().cpu().numpy()
+    return np.minimum(d, 2 * np.pi - d).max(axis=1)
+
+
+def generated_paths(card, kind, families, max_err):
+    """Phases 22-24; returns the generated route's kernel row."""
+    generated_vs_plain(families, max_err)
+    fam = families["planar n=2"][0]
+
+    # Phase 23: bench.py's default route through the public entry point.
+    batches = (8192, 262144)
+    inst = {B: planar_instances(B, 2, seed=0) for B in batches}
+    reset_counts()
+    results = {}
+    for B in batches:
+        targets, x0 = (a.astype(np.float32) for a in inst[B])
+        results[B] = mot.fused_solve_batch(fam, targets, x0, return_state=True, **BENCH)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["fused_ik_generated"] != len(batches) or any(
+            v for k, v in launched.items() if k != "fused_ik_generated"):
+        fail(f"phase23: the generated route launched {launched}, not one generated kernel a call")
+    launches = launched["fused_ik_generated"]
+    print(f"# phase23 main path (generated family): launches {launched} for {len(batches)} calls", flush=True)
+    rows = {}
+    for B in batches:
+        x, state = results[B]
+        targets, x0 = inst[B]
+        if x.shape != (B, 2) or state.shape != (B, 3) or not x.is_cuda or not torch.isfinite(x).all():
+            fail(f"phase23 B={B}: unexpected outputs {tuple(x.shape)} {tuple(state.shape)} {x.device}")
+        err = effector_error("planar", x.cpu(), targets)
+        parity = float((err < 1e-3).mean())
+        t_d, x_d = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (targets, x0))
+        x_hand = mot.fused_ik_solve_batch(t_d, x_d, link_len=LINK, **BENCH)
+        dx = wrapped_dx(x, x_hand)
+        print(f"# phase23 B={B} float32 on {kind} ({card}): parity {parity:.6f} (max err {err.max():.3e}); "
+              f"against the hand-written family (fused_ik_solve_batch): max |dx| {dx.max():.3e}, "
+              f"lanes with |dx| > 1e-3 {int((dx > 1e-3).sum())}", flush=True)
+        entry = lambda: mot.fused_solve_batch(fam, t_d, x_d, **BENCH)  # noqa: E731
+        kernels_a_call(f"phase23 fused_solve_batch (generated family) B={B} float32", entry, (r"fused_ik_kernel",))
+        rows[B] = dict(parity=parity)
+        if B == 8192:
+            want = fik._fused_solve_plain_batch(fam, t_d, x_d, 4, 2, 1, "armijo", "mpc", False)
+            check_generated(f"phase23 main path B={B}", (x, state, None), want, max_err)
+    if rows[8192]["parity"] != 1.0:
+        fail(f"phase23: parity at B=8192 is {rows[8192]['parity']}, not 1.0")
+
+    chain = mot.make_spatial_chain(3, LINK, dtype=torch.float32, device="cuda")
+    targets, x0 = spatial_instances(8192, 3, seed=0)
+    t_d, x_d = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (targets, x0))
+    reset_counts()
+    x_chain = mot.fused_chain_ik_solve(chain, t_d, x_d)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["fused_ik_generated"] != 1 or any(v for k, v in launched.items() if k != "fused_ik_generated"):
+        fail(f"phase23: fused_chain_ik_solve launched {launched}, not one generated kernel")
+    builder = next(b for c, b in _CHAIN_BUILDER_CACHE.values() if c is chain)
+    chain_fam = fused_auto._cached_family(builder, 3, None)
+    want = fik._fused_solve_plain_batch(chain_fam, t_d, x_d, 10, 3, 1, "armijo", "mpc", False)
+    parity = float((effector_error("spatial", x_chain.cpu(), targets) < 1e-3).mean())
+    same, diff = bit_identical((x_chain, want[0])), max_abs_diff(x_chain, want[0])
+    max_err["float32"] = max(max_err["float32"], diff)
+    print(f"# phase23 fused_chain_ik_solve make_spatial_chain(3) B=8192 float32 10/3/1: launches {launched}, "
+          f"parity {parity:.6f}; bit-identical to its plain version {same}, max|kernel - plain| {diff}", flush=True)
+    if not same:
+        fail(f"phase23 fused_chain_ik_solve: the generated kernel disagrees with its plain version ({diff})")
+
+    # Phase 24: held times, generated and hand-written in turns.
+    hand = fik.planar_family(2, LINK)
+    inst[1] = tuple(a[:1] for a in inst[8192])
+    for B in (8192, 262144, 1):
+        t_d, x_d = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in inst[B])
+        gen_k = lambda: fik._fused_solve_cuda(fam, t_d, x_d, 4, 2, 1, "armijo", "mpc", False)  # noqa: E731
+        hand_k = lambda: fik._fused_solve_cuda(hand, t_d, x_d, 4, 2, 1, "armijo", "mpc", False)  # noqa: E731
+        g1, _ = time_ms(gen_k, held=True)
+        h1, _ = time_ms(hand_k, held=True)
+        h2, _ = time_ms(hand_k, held=True)
+        g2, _ = time_ms(gen_k, held=True)
+        entry = lambda: mot.fused_solve_batch(fam, t_d, x_d, **BENCH)  # noqa: E731
+        e_ms, _ = time_ms(entry)
+        ed_ms, _ = time_ms(entry, held=True)
+        rows.setdefault(B, {}).update(ms=float(np.median([g1, g2])), hand_ms=float(np.median([h1, h2])),
+                                      entry_ms=e_ms, entry_device_ms=ed_ms)
+        print(f"# phase24 B={B} float32 on {kind} ({card}): generated kernel {g1:.5f} / {g2:.5f} ms, hand-written "
+              f"kernel {h1:.5f} / {h2:.5f} ms (held, in turns); fused_solve_batch issued back to back "
+              f"{e_ms:.5f} ms/call, its device work {ed_ms:.5f} ms", flush=True)
+
+    B = 8192
+    targets, x0 = inst[B]
+    t_d, x_d = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (targets, x0))
+    plain = lambda: fik._fused_solve_plain_batch(fam, t_d, x_d, 4, 2, 1, "armijo", "mpc", False)  # noqa: E731
+    plain()
+    plain_ms, _ = event_ms(plain)
+    # The bound counts the operations the function needs: the fewer of the
+    # two plain versions' counts on the same inputs. The generated one
+    # evaluates the primal again for each tangent and keeps its zero-tangent
+    # products; what it counts past the hand-written one is the emitter's
+    # overhead, not work of the solve.
+    ops_generated = count_ops(plain)
+    ops_hand = count_ops(lambda: fik._fused_solve_plain_batch(hand, t_d, x_d, 4, 2, 1, "armijo", "mpc", False))
+    ops = min(ops_generated, ops_hand)
+    bound_ms, bound_by = roofline(ops, B * (2 + 2 + 2 + 3) * 4)
+    print(f"# phase24 plain version (generated family) B={B} float32: {plain_ms:.3f} ms; {ops_generated / B:.0f} "
+          f"elementwise ops per instance ({ops_hand / B:.0f} in the hand-written family's plain version; the "
+          f"emitter's overhead {ops_generated / ops_hand - 1:+.1%}) -> bound from {ops / B:.0f}: {bound_ms:.6f} ms "
+          f"({bound_by}); generated kernel {rows[B]['ms']:.5f} ms = {rows[B]['ms'] / bound_ms:.1f}x its bound, "
+          f"hand-written {rows[B]['hand_ms']:.5f} ms = {rows[B]['hand_ms'] / bound_ms:.1f}x", flush=True)
+    return dict(
+        name="fused_ik_sqp_generated", route="cuda",
+        source="mini_opt_tpu_torch/ops/fused_emit.py + csrc/fused_ik_launch.cuh + csrc/fused_sqp.cuh",
+        replaces="mini_opt_tpu/ops/pallas_ik.py:323", function="_make_kernel (generated family, "
+        "ops/fused_auto.py:135)", launches=launches, max_abs_err=max(max_err.values()),
+        max_abs_diff_f64=max_err["float64"], ms=rows[B]["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, shape=f"B={B} planar n=2 float32 4/2/1 mpc armijo",
+        ms_b1=rows[1]["ms"], ms_b262144=rows[262144]["ms"], hand_ms=rows[B]["hand_ms"],
+        hand_ms_b1=rows[1]["hand_ms"], hand_ms_b262144=rows[262144]["hand_ms"],
+        entry_ms=rows[B]["entry_ms"], ops_per_instance=ops / B, ops_per_instance_generated_plain=ops_generated / B,
+        card=card)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -1825,11 +2092,17 @@ def main():
     print(card, flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
 
-    # Phase 2: build.
+    # Phase 2: build. Phase 21's generated families are emitted and built at
+    # the same time: every nvcc process of both runs at once.
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    families = generated_families()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        generated = pool.submit(emit_and_build, families)
+        lib_path = _build.build()
+        gen_emit_s, gen_build_s, gen_paths = generated.result()
     _build.load_library()
-    print(f"# build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}", flush=True)
+    print(f"# build: {time.perf_counter() - t0:.1f} s -> {lib_path.name} (with {len(gen_paths)} generated "
+          f"families)", flush=True)
     log = lib_path.with_suffix(".log")
     if log.exists():
         text = log.read_text()
@@ -1975,6 +2248,9 @@ def main():
     general_rows = general_paths(card, kind)
     ring_rows = pose_ring_paths(card, kind)
     mpc_rows = mpc_paths(card, kind)
+    generated_build_report(families, gen_emit_s, gen_build_s, gen_paths)
+    gen_err = {"float64": 0.0, "float32": 0.0}
+    generated_rows = [generated_paths(card, kind, families, gen_err)]
 
     print(json.dumps({"kernels": [{
         "name": "fused_ik_sqp",
@@ -1995,7 +2271,7 @@ def main():
         "ms_b262144": rows[262144]["kernel_ms"],
         "ops_per_instance": ops_per_instance,
         "card": card,
-    }] + blocked_rows + general_rows + ring_rows + mpc_rows}), flush=True)
+    }] + generated_rows + blocked_rows + general_rows + ring_rows + mpc_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

@@ -8,6 +8,13 @@ grows slice by slice. It carries:
   families solved by one whole-SQP CUDA kernel (``csrc/fused_ik.cu``) up to
   D = n + m_eq = 32, and past it the blocked tier (``csrc/blocked.cu``, with
   the standalone LDL^T solve of ``csrc/blocked_kkt.cu``);
+* families generated from a general-path ``Problem``
+  (``family_from_problem``, ``fused_nls_solve_batch``,
+  ``fused_chain_ik_solve`` for any ``ActuatorChain``), each run on the card
+  by its own instance of the same kernel, which ``ops/fused_emit.py`` emits
+  from the family and builds at first use; and the serving wrappers
+  ``fused_solve_refined``, ``fused_solve_proximal`` and
+  ``fused_solve_multi_start``;
 * the general batched SQP solver, ``nls_solve`` (linearize -> QP -> L1-merit
   line search) with its residual, QP and IK layers, whose inner QP runs on
   the lane-batched LDL^T kernels (``csrc/ldlt.cu``, ``kkt_solver=
@@ -38,19 +45,29 @@ from .convert import (
 )
 from .models.ik import (
     default_ik_params,
+    fused_chain_ik_solve,
     make_ik_problem,
     make_planar_chain,
+    make_spatial_chain,
+    make_spatial_ik_problem,
     mod_pi_retraction,
+    scalar_chain_fk,
+    scalar_chain_ik_builder,
     solve_ik_batch,
+    solve_ik_multi_start,
 )
 from .models.pose_graph import make_pose_graph_problem, solve_pose_graph
 from .models.mpc import CartPole, default_mpc_params, serving_mpc_params, solve_mpc
 from .nonlinear import NLSParams, Problem, nls_solve
 from .ops.blocked import REGISTER_KKT_MAX, blocked_kkt_solve, blocked_solve_batch
+from .ops.fused_auto import check_family_against_problem, family_from_problem, fused_nls_solve_batch
 from .ops.fused_ik import (
     FusedFamily,
     fused_ik_solve_batch,
     fused_solve_batch,
+    fused_solve_multi_start,
+    fused_solve_proximal,
+    fused_solve_refined,
     fused_spatial_ik_solve_batch,
     fused_termination_status,
     planar_family,
@@ -139,13 +156,20 @@ __all__ = [
     "blocked_solve_batch",
     "cartpole_mpc_family",
     "chain_from_numpy",
+    "check_family_against_problem",
     "default_ik_params",
     "default_mpc_params",
+    "family_from_problem",
     "fill_jacobian_rows",
+    "fused_chain_ik_solve",
     "fused_ik_solve_batch",
     "fused_mpc_servo_batch",
     "fused_mpc_solve_batch",
+    "fused_nls_solve_batch",
     "fused_solve_batch",
+    "fused_solve_multi_start",
+    "fused_solve_proximal",
+    "fused_solve_refined",
     "fused_spatial_ik_solve_batch",
     "fused_termination_status",
     "make_fused_qp_solver",
@@ -153,6 +177,8 @@ __all__ = [
     "make_planar_chain",
     "make_pose_graph_problem",
     "make_residual",
+    "make_spatial_chain",
+    "make_spatial_ik_problem",
     "mod_pi_retraction",
     "mpc_family_from_numpy",
     "nls_solve",
@@ -162,9 +188,12 @@ __all__ = [
     "qp_null_space_solve",
     "quadrotor_mpc_family",
     "robustify",
+    "scalar_chain_fk",
+    "scalar_chain_ik_builder",
     "serving_mpc_params",
     "solve_batch",
     "solve_ik_batch",
+    "solve_ik_multi_start",
     "solve_mpc",
     "solve_pose_graph",
     "spatial_family",

@@ -1,42 +1,13 @@
-// The fused IK kernel: instances of the solver skeleton (fused_sqp.cuh) for
-// the planar and spatial families (families.cuh), N = 2..8, in float and
-// double, behind a plain C launcher that ops/fused_ik.py binds with ctypes.
-//
-// One instance per thread, blocks of 128 threads on a 1-D grid; thread
-// `lane` reads row `lane` of the batch-major inputs at their strides and
-// masks the ragged edge. The launcher runs on the caller's stream
-// (PyTorch's current stream), allocates nothing, does not synchronise, and
-// returns cudaGetLastError() so that a refused launch is reported.
-#include <cuda_runtime.h>
-
+// The fused IK kernel's hand-written instances: the solver skeleton
+// (fused_sqp.cuh) for the planar and spatial families (families.cuh),
+// N = 2..8, in float and double, behind a plain C launcher that
+// ops/fused_ik.py binds with ctypes. The kernel and its launch are in
+// fused_ik_launch.cuh, which the families emitted from a Problem
+// (ops/fused_emit.py) share.
 #include "families.cuh"
-#include "fused_sqp.cuh"
+#include "fused_ik_launch.cuh"
 
 namespace {
-
-constexpr int kBlock = 128;
-
-template <typename T, class F>
-__global__ void __launch_bounds__(kBlock)
-    fused_ik_kernel(F fam, const mo::SqpIO io, int B, mo::SolveOptions opt) {
-  const int lane = blockIdx.x * kBlock + threadIdx.x;
-  if (lane >= B) return;
-  mo::fused_sqp_solve<T, F>(fam, io, lane, opt);
-}
-
-struct LaunchArgs {
-  mo::SqpIO io;
-  int B;
-  mo::SolveOptions opt;
-  cudaStream_t stream;
-};
-
-template <typename T, class F>
-int launch(const F& fam, const LaunchArgs& a) {
-  const int grid = (a.B + kBlock - 1) / kBlock;
-  fused_ik_kernel<T, F><<<grid, kBlock, 0, a.stream>>>(fam, a.io, a.B, a.opt);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <typename T, template <int> class Fam>
 int dispatch_n(int n, double link, const LaunchArgs& a) {
@@ -71,14 +42,11 @@ extern "C" int mo_fused_ik_launch(int family, int n, int dtype, const void* data
                                   const long long* strides, void* x_out, void* state, void* hist,
                                   int B, int max_iterations, int qp_iterations, int ls_iterations,
                                   int polynomial, int mpc, double link, void* stream) {
-  if (B <= 0 || max_iterations < 1 || qp_iterations < 0 || ls_iterations < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  LaunchArgs a;
+  if (const int rc = launch_args(data, x0, strides, x_out, state, hist, B, max_iterations, qp_iterations,
+                                 ls_iterations, polynomial, mpc, stream, &a)) {
+    return rc;
   }
-  const mo::SqpIO io{data, x0, x_out, state, hist, {strides[0], strides[1]}, {strides[2], strides[3]}};
-  const LaunchArgs a{io, B,
-                     mo::SolveOptions{max_iterations, qp_iterations, ls_iterations,
-                                      polynomial != 0, mpc != 0},
-                     static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0: return dispatch_family<float>(family, n, link, a);
     case 1: return dispatch_family<double>(family, n, link, a);
@@ -87,11 +55,7 @@ extern "C" int mo_fused_ik_launch(int family, int n, int dtype, const void* data
 }
 
 // Text of any launcher's return code (fused_sqp.cuh's, or CUDA's).
-extern "C" const char* mo_cuda_error_string(int rc) {
-  if (rc == mo::kNoInstance) return "no kernel instance for this family, n and dtype";
-  if (rc == mo::kTooLarge) return "the system does not fit one CTA (threads or shared memory)";
-  return cudaGetErrorString(static_cast<cudaError_t>(rc));
-}
+extern "C" const char* mo_cuda_error_string(int rc) { return error_text(rc); }
 
 #ifdef MO_FUSED_SPANS
 // The phase spans of instance 0 (fused_sqp.cuh IkSpan order), summed since

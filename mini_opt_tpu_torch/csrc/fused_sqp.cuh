@@ -18,9 +18,11 @@
 // What the design does about it: one instance per CUDA thread, so every
 // step is scalar register arithmetic with no shared memory, no
 // synchronisation and no cross-thread traffic. The compile-time sizes come
-// from the family (Family::N, Family::M, the bound lists), every D-loop is
-// unrolled, so the KKT matrix, its factor and all iterates live in
-// registers (D = n + m <= 9 for the instantiated families); only the
+// from the family (Family::N, Family::M, the bound lists): a hand-written
+// one of families.cuh, or one that ops/fused_emit.py emits from a Problem.
+// Every D-loop is unrolled, so the KKT matrix, its factor and all iterates
+// live in registers (D = n + m <= 9 for the hand-written families, up to
+// 32 for emitted ones); only the
 // iteration budgets and the barrier / line-search choices are runtime
 // values, uniform across the warp, so there is no divergence. The inputs
 // are read batch-major straight from the caller's tensors at their strides,
@@ -70,6 +72,12 @@ __device__ __forceinline__ T sgn(T a) {
 // Launcher return codes besides CUDA's own (mo_cuda_error_string).
 constexpr int kNoInstance = -1;  // no kernel instance for these arguments
 constexpr int kTooLarge = -2;    // the system does not fit one CTA
+
+// Length of a per-instance array of k entries. C++ has no zero-length
+// arrays, so an empty one (a family with no equality row, no bound on a
+// side or no data row, as emitted families may be) keeps one unused slot;
+// every loop runs over the true count.
+__host__ __device__ constexpr int slots(int k) { return k > 0 ? k : 1; }
 
 // Phase spans of one instance: built with MO_FUSED_SPANS defined
 // (scripts/fused_kernel_times.py --spans), instance 0 sums the clock64()
@@ -177,18 +185,20 @@ __device__ __forceinline__ T ldlt_bad(const T (&d)[D]) {
 }
 
 // Interior point on the condensed (n+m) x (n+m) system (qp.cc:228-316
-// structure), for families with bounds on both sides (NLO, NHI >= 1: C++
-// has no zero-length arrays). Bound rows act per side: for slack j on
-// variable i, dx_i + ib_lo[j] >= 0 and -dx_i + ib_hi[j] >= 0. Writes dx and
-// the duals y; returns 1 where any factorization of this solve was bad.
+// structure). Bound rows act per side: for slack j on variable i,
+// dx_i + ib_lo[j] >= 0 and -dx_i + ib_hi[j] >= 0; a family without bounds
+// stops at the equality-constrained solve, as the plain version does.
+// Writes dx and the duals y; returns 1 where any factorization of this
+// solve was bad.
 template <typename T, class F>
 __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::N],
-                                      const T (&Jeq)[F::M][F::N], const T (&beq)[F::M],
-                                      const T (&ib_lo)[F::NLO], const T (&ib_hi)[F::NHI],
-                                      const SolveOptions& opt, T (&x)[F::N], T (&y)[F::M]) {
+                                      const T (&Jeq)[slots(F::M)][F::N], const T (&beq)[slots(F::M)],
+                                      const T (&ib_lo)[slots(F::NLO)], const T (&ib_hi)[slots(F::NHI)],
+                                      const SolveOptions& opt, T (&x)[F::N], T (&y)[slots(F::M)]) {
   constexpr int N = F::N, M = F::M, NLO = F::NLO, NHI = F::NHI;
   constexpr int NCON = NLO + NHI, D = N + M;
   constexpr int NMAX = NLO > NHI ? NLO : NHI;
+  constexpr int SM = slots(M), SLO = slots(NLO), SHI = slots(NHI);
 
   T H[D][D];
   T L[D][D];
@@ -196,7 +206,7 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
   T sol[D];
   // assemble(sig_lo, sig_hi): G's lower triangle, bound sigmas on the
   // diagonal, equality rows below.
-  auto assemble = [&](const T (&sig_lo)[NLO], const T (&sig_hi)[NHI]) {
+  auto assemble = [&](const T (&sig_lo)[SLO], const T (&sig_hi)[SHI]) {
 #pragma unroll
     for (int i = 0; i < D; ++i) {
 #pragma unroll
@@ -220,7 +230,7 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
 
   // Equality-constrained initial guess, then clamp + slack init
   // (InitialGuessMethod::SOLVE_EQUALITY_CONSTRAINED, qp.cc:439-482).
-  T zlo0[NLO], zhi0[NHI];
+  T zlo0[SLO], zhi0[SHI];
 #pragma unroll
   for (int j = 0; j < NLO; ++j) zlo0[j] = T(0);
 #pragma unroll
@@ -237,7 +247,8 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
   for (int i = 0; i < N; ++i) x[i] = sol[i];
 #pragma unroll
   for (int k = 0; k < M; ++k) y[k] = -sol[N + k];
-  T s_lo[NLO], s_hi[NHI], z_lo[NLO], z_hi[NHI];
+  if constexpr (NCON == 0) return bad;
+  T s_lo[SLO], s_hi[SHI], z_lo[SLO], z_hi[SHI];
 #pragma unroll
   for (int j = 0; j < NLO; ++j) x[F::lo_var(j)] = nmax(x[F::lo_var(j)], -ib_lo[j]);
 #pragma unroll
@@ -270,7 +281,7 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
     for (int j = 0; j < NLO; ++j) r_d[F::lo_var(j)] = r_d[F::lo_var(j)] - z_lo[j];
 #pragma unroll
     for (int j = 0; j < NHI; ++j) r_d[F::hi_var(j)] = r_d[F::hi_var(j)] + z_hi[j];
-    T r_pe[M];
+    T r_pe[SM];
 #pragma unroll
     for (int k = 0; k < M; ++k) {
       T acc = beq[k];
@@ -278,7 +289,7 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
       for (int j = 0; j < N; ++j) acc = acc + Jeq[k][j] * x[j];
       r_pe[k] = acc;
     }
-    T r_pi_lo[NLO], r_pi_hi[NHI], r_c_lo[NLO], r_c_hi[NHI], sig_lo[NLO], sig_hi[NHI];
+    T r_pi_lo[SLO], r_pi_hi[SHI], r_c_lo[SLO], r_c_hi[SHI], sig_lo[SLO], sig_hi[SHI];
 #pragma unroll
     for (int j = 0; j < NLO; ++j) r_pi_lo[j] = x[F::lo_var(j)] + ib_lo[j] - s_lo[j];
 #pragma unroll
@@ -297,9 +308,9 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
 
     // Variable elimination + condensed solve + back-substitution for a
     // barrier value and Mehrotra corrector terms.
-    auto solve_step = [&](T mu_v, const T (&corr_lo)[NLO], const T (&corr_hi)[NHI],
-                          T (&dx_v)[N], T (&dy_v)[M], T (&ds_lo_v)[NLO], T (&ds_hi_v)[NHI],
-                          T (&dz_lo_v)[NLO], T (&dz_hi_v)[NHI]) {
+    auto solve_step = [&](T mu_v, const T (&corr_lo)[SLO], const T (&corr_hi)[SHI],
+                          T (&dx_v)[N], T (&dy_v)[SM], T (&ds_lo_v)[SLO], T (&ds_hi_v)[SHI],
+                          T (&dz_lo_v)[SLO], T (&dz_hi_v)[SHI]) {
       T rhs[D];
 #pragma unroll
       for (int i = 0; i < N; ++i) rhs[i] = r_d[i];
@@ -335,8 +346,8 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
     };
 
     // Fraction to the boundary over the lo slacks then the hi slacks.
-    auto ftb = [&](const T (&v_lo)[NLO], const T (&v_hi)[NHI], const T (&dv_lo)[NLO],
-                   const T (&dv_hi)[NHI], T tau_v) {
+    auto ftb = [&](const T (&v_lo)[SLO], const T (&v_hi)[SHI], const T (&dv_lo)[SLO],
+                   const T (&dv_hi)[SHI], T tau_v) {
       T alpha = T(1);
       auto one_side = [&](T v, T dv) {
         const bool blocking = (v + dv <= T(0)) && (fabs(dv) > T(0));
@@ -350,12 +361,12 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
       return alpha;
     };
 
-    T dx[N], dy[M], ds_lo[NLO], ds_hi[NHI], dz_lo[NLO], dz_hi[NHI];
+    T dx[N], dy[SM], ds_lo[SLO], ds_hi[SHI], dz_lo[SLO], dz_hi[SHI];
     if (opt.mpc) {
       // Mehrotra predictor-corrector (algorithm 16.4 / eq 19.22): affine
       // probe with mu = 0, sigma = (mu_aff / mu)^3, corrector
       // diag(ds_aff) dz_aff.
-      T dxa[N], dya[M], dsl_a[NLO], dsh_a[NHI], dzl_a[NLO], dzh_a[NHI];
+      T dxa[N], dya[SM], dsl_a[SLO], dsh_a[SHI], dzl_a[SLO], dzh_a[SHI];
       solve_step(T(0), zlo0, zhi0, dxa, dya, dsl_a, dsh_a, dzl_a, dzh_a);
       const T ap_a = ftb(s_lo, s_hi, dsl_a, dsh_a, T(1));
       const T ad_a = ftb(z_lo, z_hi, dzl_a, dzh_a, T(1));
@@ -369,7 +380,7 @@ __device__ __forceinline__ T qp_solve(const T (&G)[F::N][F::N], const T (&c)[F::
       const T ratio = mu_aff / mu;
       const T sigma = ratio * (ratio * ratio);  // jax.lax.integer_pow(ratio, 3)
       const T mu_used = sigma * mu;
-      T corr_lo[NLO], corr_hi[NHI];
+      T corr_lo[SLO], corr_hi[SHI];
 #pragma unroll
       for (int j = 0; j < NLO; ++j) corr_lo[j] = dsl_a[j] * dzl_a[j];
 #pragma unroll
@@ -422,7 +433,7 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const SqpIO& io, i
                                                 const SolveOptions& opt) {
   constexpr int N = F::N, M = F::M, R = F::ROWS, NLO = F::NLO, NHI = F::NHI;
   constexpr int NH = 7 + N;  // history channels
-  static_assert(M >= 1 && NLO >= 1 && NHI >= 1, "skeleton instantiated for bounded, constrained families");
+  constexpr int SM = slots(M);
   static_assert(N + M <= 32, "past D = 32 the register tier does not apply");
   const long long l = lane;
   T* __restrict__ hist = static_cast<T*>(io.hist);
@@ -433,7 +444,7 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const SqpIO& io, i
   SpanClock<kIkSpans> sc(lane == 0);
   const T* __restrict__ data = static_cast<const T*>(io.data) + l * io.sd[0];
   const T* __restrict__ x0 = static_cast<const T*>(io.x0) + l * io.sx[0];
-  T tgt[R], th[N];
+  T tgt[slots(R)], th[N];
 #pragma unroll
   for (int r = 0; r < R; ++r) tgt[r] = data[r * io.sd[1]];
 #pragma unroll
@@ -455,7 +466,7 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const SqpIO& io, i
 
 #pragma unroll 1
   for (int it = 0; it < opt.max_iterations; ++it) {
-    T r_eq[M], Jeq[M][N], G[N][N], c[N];
+    T r_eq[SM], Jeq[SM][N], G[N][N], c[N];
     fam.linearize(th, tgt, f_pre, r_eq, Jeq, G, c);
     eq_pre = T(0);
 #pragma unroll
@@ -480,14 +491,14 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const SqpIO& io, i
 #pragma unroll
       for (int j = 0; j <= i; ++j) G[i][j] = G[i][j] + (i == j ? lam : T(0));
     }
-    T ib_lo[NLO], ib_hi[NHI];
+    T ib_lo[slots(NLO)], ib_hi[slots(NHI)];
 #pragma unroll
     for (int j = 0; j < NLO; ++j) ib_lo[j] = th[F::lo_var(j)] - T(F::lo_val(j));
 #pragma unroll
     for (int j = 0; j < NHI; ++j) ib_hi[j] = T(F::hi_val(j)) - th[F::hi_var(j)];
 
     sc.mark(kIkLinearize);
-    T dx[N], y[M];
+    T dx[N], y[SM];
     const T bad_it = qp_solve<T, F>(G, c, Jeq, r_eq, ib_lo, ib_hi, opt, dx, y);
     fac_bad = nmax(fac_bad, bad_it);
     sc.mark(kIkQP);
@@ -495,10 +506,12 @@ __device__ __forceinline__ void fused_sqp_solve(const F& fam, const SqpIO& io, i
     T d_f = T(0);
 #pragma unroll
     for (int i = 0; i < N; ++i) d_f = d_f + c[i] * dx[i];
-    T y_abs = fabs(y[0]);
+    if constexpr (M > 0) {
+      T y_abs = fabs(y[0]);
 #pragma unroll
-    for (int k = 1; k < M; ++k) y_abs = nmax(y_abs, fabs(y[k]));
-    penalty = y_abs > penalty ? y_abs * T(1.01) : penalty;
+      for (int k = 1; k < M; ++k) y_abs = nmax(y_abs, fabs(y[k]));
+      penalty = y_abs > penalty ? y_abs * T(1.01) : penalty;
+    }
     T d_eq = T(0);
 #pragma unroll
     for (int k = 0; k < M; ++k) {

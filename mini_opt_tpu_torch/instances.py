@@ -18,6 +18,13 @@ repo's pose-ring bench distributions (``scripts/bench_extras.py``:
 JAX repo's MPC fleet distributions (``scripts/bench_extras.py``:
 ``mpc_servo_bench`` :770-780 and ``mpc_quadrotor_bench`` :1209-1213):
 float64 ``(B, nx)`` plant states.
+
+Two problem builders for ``family_from_problem`` beside the IK ones, the
+JAX package's generated-family test problems (``tests/test_fused_auto.py``):
+``block_chain_problem`` (BlockResidual costs and equalities, a one-sided
+bound; :251-295, with ``block_chain_instances``) and
+``robust_line_fit_problem`` (four Huber-robustified line-fit samples, no
+equality row and no bound; :438-455, with ``robust_line_fit_instances``).
 """
 
 from __future__ import annotations
@@ -177,3 +184,81 @@ def quadrotor_mpc_instances(B, seed=0):
     x0[:, 1] = rng.uniform(-0.4, 0.4, B)
     x0[:, 2] = rng.uniform(-0.25, 0.25, B)
     return x0
+
+
+def block_chain_problem(data):
+    """Four variables: an anchor cost on x0, three difference-tracking
+    blocks x_{i+1} - x_i = d_i (one BlockResidual with per-block data), two
+    product equalities x0 x1 = v0, x2 x3 = v1 (one BlockResidual) and
+    x0 >= 0.1. data rows: [t, d0, d1, d2, v0, v1]."""
+    import torch
+
+    from .nonlinear import Problem
+    from .qp import Var
+    from .residual import BlockResidual, make_residual
+
+    diffs = torch.stack([data[1], data[2], data[3]])[:, None]  # (3, 1)
+    prods = torch.stack([data[4], data[5]])[:, None]  # (2, 1)
+    return Problem(
+        dimension=4,
+        costs=(
+            make_residual([0], lambda p: torch.stack([p[0] - data[0]]), 1),
+            BlockResidual(
+                fn=lambda p, d: torch.stack([p[1] - p[0] - d[0]]),
+                indices=((0, 1), (1, 2), (2, 3)),
+                dim=1,
+                data=diffs,
+            ),
+        ),
+        equality_constraints=(
+            BlockResidual(
+                fn=lambda p, d: torch.stack([p[0] * p[1] - d[0]]),
+                indices=((0, 1), (2, 3)),
+                dim=1,
+                data=prods,
+            ),
+        ),
+        inequality_constraints=(Var(0) >= 0.1,),
+    )
+
+
+def block_chain_instances(B, seed=5):
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0.6, 1.2, B)
+    d = rng.uniform(-0.2, 0.2, (B, 3))
+    v = rng.uniform(0.4, 1.1, (B, 2))
+    data = np.concatenate([t[:, None], d, v], axis=1)
+    x0 = np.column_stack([t, v[:, 0] / t, np.maximum(t + d[:, 1], 0.4), np.ones(B)])
+    x0[:, 3] = v[:, 1] / x0[:, 2]
+    return data, x0
+
+
+LINE_FIT_TS = (0.0, 0.5, 1.0, 1.5)
+
+
+def robust_line_fit_problem(data):
+    """Fit y = p0 + p1 t to the samples data[k] at t = LINE_FIT_TS[k], each
+    residual wrapped in a Huber loss (delta 0.5): two variables, no equality
+    row, no bound."""
+    import torch
+
+    from .nonlinear import Problem
+    from .residual import make_residual, robustify
+
+    return Problem(
+        dimension=2,
+        costs=tuple(
+            robustify(
+                make_residual([0, 1], lambda p, k=k, t=t: torch.stack([p[0] + p[1] * t - data[k]]), 1),
+                kind="huber",
+                delta=0.5,
+            )
+            for k, t in enumerate(LINE_FIT_TS)
+        ),
+    )
+
+
+def robust_line_fit_instances(B, seed=5):
+    """Samples of lines y = a + b t with unit noise and starts about them."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(0.0, 1.0, (B, len(LINE_FIT_TS))), rng.normal(0.0, 1.0, (B, 2))

@@ -106,6 +106,18 @@ def compute_chain(links: Pose, use_associative_scan: bool = False) -> ChainBuffe
     )
 
 
+def compute_all_poses(buffers: ChainBuffers) -> Pose:
+    """All intermediate poses start_T_i (transform_chains.cc:84-92), stacked
+    with leading dim L+1."""
+    start_T_end = buffers.start_T_end()
+
+    def one(q, t):
+        pose = start_T_end.compose(Pose(q, t).inverse())
+        return pose.rotation, pose.translation
+
+    return Pose(*torch.func.vmap(one)(buffers.i_R_end, buffers.i_t_end))
+
+
 @dataclasses.dataclass
 class ActuatorLink:
     """One link: XYZ-euler rotation + translation with a static 6-bit mask

@@ -4,8 +4,11 @@ Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a`` (Hopper), and the objects are linked into one
 shared library with a plain C interface. The library lands in
 ``build/kernels/`` at the repository root, named by a hash of the sources and
-flags, so an unchanged tree loads the library it already built. A failed
-build raises with nvcc's stderr; nothing falls back to another path.
+flags, so an unchanged tree loads the library it already built. A family
+generated from a Problem gets a library of its own, from the source that
+``ops/fused_emit.py`` emits for it, with the same flags
+(``load_generated``). A failed build raises with nvcc's stderr; nothing
+falls back to another path.
 
 No kernel is built at import: the CPU tests import every module, and this
 host may have no ``nvcc``.
@@ -114,6 +117,69 @@ def build():
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", partial]])
         os.replace(partial, target)  # atomic: a concurrent loader sees all or nothing
     return target
+
+
+def _generated_path(source):
+    """Where the library of an emitted family source lives: named by a hash
+    of the source, the flags and the csrc/ headers it includes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(source.encode())
+    for p in sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libmini_opt_generated_{h.hexdigest()[:16]}.so"
+
+
+def build_generated(sources):
+    """Build every emitted family source (ops/fused_emit.py) that is not
+    built yet, one nvcc process each, all started together; return their
+    library paths. The source is kept beside its library as ``.cu`` and
+    ptxas's report as ``.log``."""
+    paths = [_generated_path(s) for s in sources]
+    todo = {p: s for p, s in zip(paths, sources) if not p.exists()}
+    if todo:
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cmds, parts = [], []
+            for p, src in todo.items():
+                cu = p.with_suffix(".cu")
+                cu.write_text(src)
+                partial = os.path.join(tmp, p.name)
+                cmds.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v", "-shared", str(cu),
+                             "-o", partial])
+                parts.append((p, partial))
+            outs = _run_all(cmds)
+            for (p, partial), (_, err) in zip(parts, outs):
+                p.with_suffix(".log").write_text(err)
+                os.replace(partial, p)
+    return paths
+
+
+_generated = {}
+
+
+def load_generated(source):
+    """The bound library of an emitted family source, built on first use."""
+    path = build_generated([source])[0]
+    with _lock:
+        if path not in _generated:
+            lib = ctypes.CDLL(str(path))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.mo_generated_launch.argtypes = [
+                i,  # dtype
+                p, p,  # data, x0
+                ctypes.POINTER(ctypes.c_longlong),  # their 4 strides
+                p, p, p,  # x_out, state, history (or NULL)
+                i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
+                i, i,  # polynomial line search, Mehrotra barrier
+                p,  # cudaStream_t
+            ]
+            lib.mo_generated_launch.restype = i
+            lib.mo_generated_error_string.argtypes = [i]
+            lib.mo_generated_error_string.restype = ctypes.c_char_p
+            _generated[path] = lib
+        return _generated[path]
 
 
 def load_library():

@@ -599,13 +599,20 @@ def _blocked_solve_cuda(
     contract as ``_blocked_solve_plain``. Raises on anything the kernel does
     not take and on a refused launch."""
     global BLOCKED_LAUNCHES
+    if family.cuda_functor is None and family.cuda_program is not None:
+        raise NotImplementedError(
+            f"a family generated from a Problem past the register tier (n + m_eq = "
+            f"{family.n + family.m_eq} > {REGISTER_KKT_MAX}) needs the family-to-CUDA "
+            "emitter's blocked target, a warp-cooperative runtime-n functor for "
+            "csrc/blocked_sqp.cuh (ROADMAP.md, item 16), which the port does not have "
+            "yet; on the CPU the plain blocked version solves it"
+        )
     if family.cuda_functor is None or family.cuda_functor[0] not in _CUDA_FAMILY_IDS:
         what = "no device-code functor" if family.cuda_functor is None else (
             f"no blocked-tier functor for the {family.cuda_functor[0]!r} family")
         raise NotImplementedError(
             f"this FusedFamily has {what} in csrc/families.cuh; other families "
-            "need the family-to-CUDA emitter (ops/fused_auto.py), which a later "
-            "slice of the port brings"
+            "need the family-to-CUDA emitter's blocked target (ROADMAP.md, item 16)"
         )
     kind, link_len = family.cuda_functor
     n = family.n

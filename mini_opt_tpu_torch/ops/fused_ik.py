@@ -50,8 +50,11 @@ from ._common import (
 from .blocked import REGISTER_KKT_MAX
 
 # Launches of the CUDA kernel in this process: the wrapper adds one right
-# where it launches, and nowhere else.
+# where it launches, and nowhere else. KERNEL_LAUNCHES counts the
+# hand-written families' instances (csrc/fused_ik.cu), GENERATED_LAUNCHES
+# the instances emitted for families generated from a Problem.
 KERNEL_LAUNCHES = 0
+GENERATED_LAUNCHES = 0
 
 # The kernel's instances (csrc/fused_ik.cu): chain lengths and families.
 CUDA_MIN_N, CUDA_MAX_N = 2, 8
@@ -128,8 +131,20 @@ class FusedFamily:
       lower / upper: per-variable bound constants (None = unbounded).
       retract: optional update applied to every line-search candidate.
       cuda_functor: the device-code family in ``csrc/families.cuh`` and its
-        runtime constant, e.g. ``("planar", link_len)``; None for a family
-        that exists only as Python callables (it runs on the CPU only).
+        runtime constant, e.g. ``("planar", link_len)``.
+      g_pattern / eq_patterns: optional static sparsity hints, as the JAX
+        package's (pallas_ik.py:174-186): the lower-triangle (i, j) cells
+        of the cost Hessian and, per equality row, the variables its
+        Jacobian row touches, that MAY be nonzero (None = dense).
+        ``family_from_problem`` fills both from the Problem's index lists.
+        Nothing in the port reads them yet: the plain blocked tier solves
+        dense.
+      cuda_program: a generated family's device program
+        (``ops/fused_emit.py::FamilyProgram``), which emits, builds and
+        binds the family's own instance of the kernel at first use; set by
+        ``family_from_problem``. A family with neither ``cuda_functor`` nor
+        ``cuda_program`` exists only as Python callables and runs on the
+        CPU only.
     """
 
     n: int
@@ -141,10 +156,15 @@ class FusedFamily:
     upper: Tuple[Optional[float], ...]
     retract: Optional[Callable] = None
     cuda_functor: Optional[Tuple[str, float]] = None
+    g_pattern: Optional[frozenset] = None
+    eq_patterns: Optional[Tuple[frozenset, ...]] = None
+    cuda_program: Optional[object] = None
 
     def __post_init__(self):
         if len(self.lower) != self.n or len(self.upper) != self.n:
             raise ValueError("lower/upper need one entry per variable")
+        if self.eq_patterns is not None and len(self.eq_patterns) != self.m_eq:
+            raise ValueError("eq_patterns needs one entry per equality row")
 
 
 @functools.lru_cache(maxsize=None)
@@ -625,27 +645,32 @@ def _fused_solve_cuda(
     barrier="complementarity",
     debug_history=False,
 ):
-    """Launch ``csrc/fused_ik.cu`` on batch-major CUDA tensors at their own
-    strides, ``data (B, rows)`` and ``x0 (B, n)`` -> ``x (B, n)``, ``state
-    (B, 3)`` and, with ``debug_history``, ``history (B, iters, 7 + n)``
-    (else None): ``_fused_solve_plain``'s results, batch-major. Copies
-    nothing; raises on anything the kernel does not take and on a refused
-    launch."""
-    global KERNEL_LAUNCHES
-    if family.cuda_functor is None:
+    """Launch kernel 1 on batch-major CUDA tensors at their own strides,
+    ``data (B, rows)`` and ``x0 (B, n)`` -> ``x (B, n)``, ``state (B, 3)``
+    and, with ``debug_history``, ``history (B, iters, 7 + n)`` (else None):
+    ``_fused_solve_plain``'s results, batch-major. A hand-written family
+    runs its instance in ``csrc/fused_ik.cu``; a family generated from a
+    Problem runs the instance that ``ops/fused_emit.py`` emitted and built
+    for it. Copies nothing; raises on anything the kernel does not take and
+    on a refused launch."""
+    global KERNEL_LAUNCHES, GENERATED_LAUNCHES
+    if family.cuda_functor is None and family.cuda_program is None:
         raise NotImplementedError(
-            "this FusedFamily has no device-code functor (cuda_functor is "
-            "None); families generated from a Problem need the family-to-CUDA "
-            "emitter (ops/fused_auto.py), which a later slice of the port brings"
+            "this FusedFamily has neither a hand-written device functor "
+            "(cuda_functor) nor a generated device program (cuda_program): "
+            "build it with family_from_problem (ops/fused_auto.py), whose "
+            "program the family-to-CUDA emitter (ops/fused_emit.py) turns into "
+            "the family's instance of the kernel"
         )
-    kind, link_len = family.cuda_functor
-    if kind not in _CUDA_FAMILY_IDS:
-        raise NotImplementedError(f"no CUDA functor named {kind!r}")
     n = family.n
-    if not CUDA_MIN_N <= n <= CUDA_MAX_N:
-        raise NotImplementedError(
-            f"csrc/fused_ik.cu instantiates n = {CUDA_MIN_N}..{CUDA_MAX_N}; got n = {n}"
-        )
+    if family.cuda_functor is not None:
+        kind, link_len = family.cuda_functor
+        if kind not in _CUDA_FAMILY_IDS:
+            raise NotImplementedError(f"no CUDA functor named {kind!r}")
+        if not CUDA_MIN_N <= n <= CUDA_MAX_N:
+            raise NotImplementedError(
+                f"csrc/fused_ik.cu instantiates n = {CUDA_MIN_N}..{CUDA_MAX_N}; got n = {n}"
+            )
     dtype = data.dtype
     B = data.shape[0] if data.dim() == 2 else -1
     _check_cuda_tensors(
@@ -662,31 +687,38 @@ def _fused_solve_cuda(
     if B == 0:
         return x_out, state, history
     strides = (ctypes.c_longlong * 4)(*data.stride(), *x0.stride())
-    lib = _build.load_library()
+    io = (
+        _CUDA_DTYPE_IDS[dtype],
+        data.data_ptr(),
+        x0.data_ptr(),
+        strides,
+        x_out.data_ptr(),
+        state.data_ptr(),
+        history.data_ptr() if debug_history else None,
+        B,
+        max_iterations,
+        qp_iterations,
+        ls_iterations,
+        int(line_search == "polynomial"),
+        int(barrier == "mpc"),
+    )
+    if family.cuda_functor is not None:
+        lib = _build.load_library()
+        with torch.cuda.device(data.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = lib.mo_fused_ik_launch(_CUDA_FAMILY_IDS[kind], n, *io, ctypes.c_double(link_len), stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_ik kernel launch failed: {_build.error_string(rc)}")
+        KERNEL_LAUNCHES += 1
+        return x_out, state, history
+    lib = family.cuda_program.library()
     with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mo_fused_ik_launch(
-            _CUDA_FAMILY_IDS[kind],
-            n,
-            _CUDA_DTYPE_IDS[dtype],
-            data.data_ptr(),
-            x0.data_ptr(),
-            strides,
-            x_out.data_ptr(),
-            state.data_ptr(),
-            history.data_ptr() if debug_history else None,
-            B,
-            max_iterations,
-            qp_iterations,
-            ls_iterations,
-            int(line_search == "polynomial"),
-            int(barrier == "mpc"),
-            ctypes.c_double(link_len),
-            stream,
-        )
+        rc = lib.mo_generated_launch(*io, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_ik kernel launch failed: {_build.error_string(rc)}")
-    KERNEL_LAUNCHES += 1
+        raise RuntimeError(
+            f"generated fused_ik kernel launch failed: error {rc}: {lib.mo_generated_error_string(rc).decode()}"
+        )
+    GENERATED_LAUNCHES += 1
     return x_out, state, history
 
 
@@ -812,6 +844,108 @@ def fused_spatial_ik_solve_batch(
         family, targets, x0, max_iterations, qp_iterations, ls_iterations,
         line_search, barrier, debug_history, return_state, device,
     )
+
+
+def fused_solve_refined(
+    family: FusedFamily,
+    data,  # (B, data_rows)
+    x0,  # (B, n)
+    refine_fn,  # (data_k (K, rows) float64, x0_k (K, n) float64) -> (K, n) float64
+    refine_k: int = 64,
+    eq_penalty: float = 1.0,
+    **kernel_kwargs,
+):
+    """The fused solve plus a float64 refinement of the worst-merit lanes
+    (pallas_ik.py:1017-1070): the ``refine_k`` lanes of highest merit
+    f + eq_penalty * |eq|_1 (the solve's own state) are re-solved by
+    ``refine_fn``, typically the general path in float64
+    (``models.ik.make_spatial_refine_fn``); a refined lane replaces the
+    solve's answer only when its float64 merit, by the family's own
+    ``errors``, is strictly better. Returns (B, n) in x0's dtype. A
+    ``device`` keyword places numpy inputs, as in ``fused_solve_batch``."""
+    n = family.n
+    for reserved in ("return_state", "debug_history"):
+        if reserved in kernel_kwargs:
+            raise ValueError(
+                f"fused_solve_refined owns {reserved!r} (it reads the "
+                "solve's per-lane state to pick refinement lanes and "
+                "returns only the (B, n) solutions); call fused_solve_batch "
+                "directly for raw state/history access"
+            )
+    data, x0 = convert.to_batch_major(data, x0, kernel_kwargs.pop("device", None))
+    x, state = fused_solve_batch(family, data, x0, return_state=True, **kernel_kwargs)
+
+    def merit_of(xs, ds):
+        f, eq = family.errors(
+            [xs[:, i] for i in range(n)], [ds[:, i] for i in range(family.data_rows)]
+        )
+        return f + eq_penalty * eq
+
+    merit = state[:, 0] + eq_penalty * state[:, 1]
+    worst = torch.topk(merit, refine_k).indices
+    d64 = data[worst].to(torch.float64)
+    xr = refine_fn(d64, x0[worst].to(torch.float64))
+    x_worst = x[worst].to(torch.float64)
+    take = (merit_of(xr, d64) < merit_of(x_worst, d64))[:, None]
+    out = x.clone()
+    out[worst] = torch.where(take, xr, x_worst).to(x.dtype)
+    return out
+
+
+def fused_solve_proximal(
+    family: FusedFamily,
+    data,  # (B, data_rows - n): the family's payload WITHOUT x_ref
+    x0,  # (B, n)
+    stages: int = 4,
+    **kernel_kwargs,
+):
+    """Proximal-point continuation for redundant families
+    (pallas_ik.py:1073-1109): ``family`` carries ``x_ref`` as its LAST
+    ``n`` data rows (the ``prox_weight`` builders of ``models.ik``); each
+    stage solves with ``x_ref`` at the previous stage's result. All stages
+    run the same kernel instance. Returns (B, n)."""
+    if kernel_kwargs.get("debug_history"):
+        raise ValueError(
+            "fused_solve_proximal chains stage outputs into stage inputs; "
+            "debug_history's (x, history) tuple cannot be chained -- call "
+            "fused_solve_batch per stage yourself to collect histories"
+        )
+    if kernel_kwargs.get("return_state"):
+        raise ValueError("fused_solve_proximal returns the (B, n) solutions only")
+    data, x = convert.to_batch_major(data, x0, kernel_kwargs.pop("device", None))
+    for _ in range(stages):
+        d = torch.cat([data, x], dim=1)
+        x = fused_solve_batch(family, d, x, **kernel_kwargs)
+    return x
+
+
+def fused_solve_multi_start(
+    family: FusedFamily,
+    data,  # (B, data_rows)
+    x0s,  # (B, S, n): S starts per instance
+    eq_penalty: float = 1.0,
+    **kernel_kwargs,
+):
+    """Multi-start robustification of the fused path
+    (pallas_ik.py:1112-1140): all B*S starts in one solve, and per instance
+    the start of lowest merit f + eq_penalty * |eq|_1, by the family's own
+    ``errors`` on the solutions. Returns (B, n)."""
+    if kernel_kwargs.get("debug_history") or kernel_kwargs.get("return_state"):
+        raise ValueError("fused_solve_multi_start returns the (B, n) solutions only")
+    device = kernel_kwargs.pop("device", None)
+    if not torch.is_tensor(x0s):
+        x0s = torch.as_tensor(x0s, device=convert._resolve_device(device))
+    if x0s.dim() != 3 or x0s.shape[2] != family.n:
+        raise ValueError(f"x0s must be (B, S, {family.n}), not {tuple(x0s.shape)}")
+    B, S, n = x0s.shape
+    data = torch.as_tensor(data, device=x0s.device)
+    data_rep = torch.repeat_interleave(data, S, dim=0)
+    x = fused_solve_batch(family, data_rep, x0s.reshape(B * S, n), **kernel_kwargs)
+    f, eq = family.errors(
+        [x[:, i] for i in range(n)], [data_rep[:, i] for i in range(family.data_rows)]
+    )
+    best = torch.argmin((f + eq_penalty * eq).reshape(B, S), dim=1)
+    return x.reshape(B, S, n)[torch.arange(B, device=best.device), best]
 
 
 def fused_termination_status(

@@ -4,7 +4,8 @@ point, ``mini_opt_tpu_torch/ops/fused_qp.py``, and the register-tier fused IK
 SQP, ``ops/fused_ik.py``) on one CUDA card, so that two trees can be
 compared on one card.
 
-    python3 scripts/fused_kernel_times.py [--tree DIR] [--label NAME] [--spans] [--ptxas]
+    python3 scripts/fused_kernel_times.py [--tree DIR] [--label NAME] [--family hand|generated|both]
+                                          [--spans] [--ptxas]
 
 DIR (default: this checkout) is the root of the tree whose
 ``mini_opt_tpu_torch`` is timed; only its ``csrc/fused_*.cu`` are built,
@@ -27,7 +28,12 @@ the stream while the calls are issued). Rows, float32:
 * kernel 1 alone at planar n = 2, 4/2/1 Mehrotra + Armijo (bench.py's
   cell), B = 1, 8192 and 262144, and the entry point
   ``fused_ik_solve_batch`` on batch-major card tensors (held), with its
-  device kernels per call.
+  device kernels per call. ``--family generated`` times instead the
+  instance that ``ops/fused_emit.py`` emits for bench.py's default family
+  (``family_from_problem(scalar_planar_ik_builder(2), 2)`` with the
+  ``_mod_pi`` retraction) and the entry point ``fused_solve_batch`` on it;
+  ``--family both`` times the two in turns (generated, hand, hand,
+  generated), each in its own row.
 
 A tree whose wrappers take feature-major tensors (before the batch-major
 redesign) gets feature-major copies for its kernel-alone rows; its wrapper
@@ -35,7 +41,8 @@ rows include the copies it makes. ``--ptxas`` prints the registers, spill
 stores and stack frame of every kernel-6 and kernel-1 instance from the
 tree's build log, and the SASS instruction counts (all, MUFU.RCP, FCHK,
 CALL, BRA) of the main paths' instances, kernel 6 at float N = 2, K = 1 and
-kernel 1 at float planar n = 2, from the toolkit's cuobjdump.
+kernel 1 at float planar n = 2 (hand-written, or generated, or both, by
+``--family``), from the toolkit's cuobjdump.
 ``--spans`` builds the tree's two kernels once more with
 MO_FUSED_SPANS defined and prints the clock64() cycles of each
 phase of instance 0 at B = 1 and 8192 (kernel 6 at N = 2, both barriers;
@@ -129,21 +136,43 @@ SASS_KERNELS = {
 }
 
 
-def sass_counts(build, row):
+def sass_counts(build, row, library=None, kernels=SASS_KERNELS):
     """Instruction counts of the main paths' instances in the tree's
-    library (cuobjdump beside nvcc)."""
+    library, or in ``library`` (cuobjdump beside nvcc)."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(build.library_path())], capture_output=True, text=True,
-                          check=True).stdout
+    text = subprocess.run([str(tool), "-sass", str(library or build.library_path())], capture_output=True,
+                          text=True, check=True).stdout
     for block in text.split("Function : ")[1:]:
         name = block.split(None, 1)[0]
-        for label, pattern in SASS_KERNELS.items():
+        for label, pattern in kernels.items():
             if pattern.search(name):
                 ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", block)
                 count = lambda prefix: sum(op.startswith(prefix) for op in ops)  # noqa: E731
                 row(sass=label, function=name[:120], instructions=len(ops), mufu_rcp=count("MUFU.RCP"),
                     fchk=count("FCHK"), calls=count("CALL"), branches=count("BRA"), ffma=count("FFMA"),
                     fmul=count("FMUL"), fadd=count("FADD"))
+
+
+GENERATED_SASS = {"kernel 1, float, generated planar n = 2": re.compile(r"fused_ik_kernelIf")}
+
+
+def generated_family(mot):
+    """bench.py's default family: the planar n = 2 builder through
+    family_from_problem, with the angle-wrap retraction."""
+    from mini_opt_tpu_torch.models.ik import scalar_planar_ik_builder
+    from mini_opt_tpu_torch.ops._common import _mod_pi
+
+    return mot.family_from_problem(scalar_planar_ik_builder(2, LINK), 2, retract=lambda th: [_mod_pi(t) for t in th])
+
+
+def generated_ptxas(timer, build, row, family):
+    """The generated instances' ptxas lines and SASS counts."""
+    path = build.build_generated([family.cuda_program.source()])[0]
+    for name, regs, spill, _, stack in timer.ptxas_report(path.with_suffix(".log").read_text()):
+        if "fused_ik_kernel" in name:
+            row(ptxas=f"generated planar n = 2, {'float' if 'kernelIf' in name else 'double'}", registers=regs,
+                spill_store_bytes=spill, stack_frame_bytes=stack, library=path.name)
+    sass_counts(build, row, path, GENERATED_SASS)
 
 
 def spans(build, timer, row, fq, fik, mot):
@@ -223,6 +252,9 @@ def main():
     ap.add_argument("--ptxas", action="store_true",
                     help="print every kernel-6 and kernel-1 instance's ptxas line and the main-path "
                          "instances' SASS instruction counts")
+    ap.add_argument("--family", choices=("hand", "generated", "both"), default="hand",
+                    help="kernel 1's rows: the hand-written planar family, the one generated from a "
+                         "Problem, or both in turns")
     args = ap.parse_args()
     timer, _, row = open_tree("fused_kernel_times", args)
 
@@ -234,9 +266,16 @@ def main():
     from mini_opt_tpu_torch.ops import fused_qp as fq
 
     bind_subset(_build, {p.name for p in _build.CSRC.glob("fused_*.cu")})
+    families = {"hand": fik.planar_family(2, LINK)} if args.family != "generated" else {}
+    if args.family != "hand":
+        families["generated"] = generated_family(mot)
+        families["generated"].cuda_program.library()
     if args.ptxas:
         ptxas_rows(timer, _build, row)
-        sass_counts(_build, row)
+        if "hand" in families:
+            sass_counts(_build, row)
+        if "generated" in families:
+            generated_ptxas(timer, _build, row, families["generated"])
 
     cases = [("float32", n, B) for n in (2, 4, 8) for B in (1, 1024, 8192)]
     cases += [("float64", n, 8192) for n in (2, 4, 8)]
@@ -275,21 +314,29 @@ def main():
     row(kernel=6, call="_fused_qp_batch", inputs="general path, last outer iteration", B=8192, ms=ms,
         repeats=repeats, device_kernels_per_call=n_kernels)
 
-    family = fik.planar_family(2, LINK)
+    order = list(families) + list(families)[::-1]  # in turns: a, b, b, a
     for B in (1, 8192, 262144):
         targets, x0 = planar_x(mot, B)
-        ms, repeats = timer.time_ms(ik_kernel(fq, fik, family, targets, x0), held=True)
-        row(kernel=1, n=2, budget="4/2/1", B=B, ms=ms, repeats=repeats)
+        for name in order:
+            family = families[name]
+            ms, repeats = timer.time_ms(ik_kernel(fq, fik, family, targets, x0), held=True)
+            row(kernel=1, family=name, n=2, budget="4/2/1", B=B, ms=ms, repeats=repeats)
+        for name, family in families.items():
+            if name == "hand":
+                def entry():
+                    return mot.fused_ik_solve_batch(targets, x0, link_len=LINK, **BENCH)
+            else:
+                def entry(family=family):
+                    return mot.fused_solve_batch(family, targets, x0, **BENCH)
 
-        def entry():
-            return mot.fused_ik_solve_batch(targets, x0, link_len=LINK, **BENCH)
-
-        ms, repeats = timer.time_ms(entry, held=True)
-        entry()
-        torch.cuda.synchronize()
-        _, _, n_kernels, per_kernel = timer.profile_call(entry)
-        row(kernel=1, call="fused_ik_solve_batch", n=2, budget="4/2/1", B=B, ms=ms, repeats=repeats,
-            device_kernels_per_call=n_kernels, kernels=sorted(k[:60] for k in per_kernel))
+            ms, repeats = timer.time_ms(entry, held=True)
+            unheld_ms, _ = timer.time_ms(entry)
+            entry()
+            torch.cuda.synchronize()
+            _, _, n_kernels, per_kernel = timer.profile_call(entry)
+            row(kernel=1, family=name, call="fused_ik_solve_batch" if name == "hand" else "fused_solve_batch",
+                n=2, budget="4/2/1", B=B, ms=ms, unheld_ms=unheld_ms, repeats=repeats,
+                device_kernels_per_call=n_kernels, kernels=sorted(k[:60] for k in per_kernel))
 
     if args.spans:
         spans(_build, timer, row, fq, fik, mot)
