@@ -24,8 +24,9 @@ Phases, each of which exits non-zero on failure:
    B = 8192 outputs against the plain version's; then CUDA-event timings
    (median of 5 repeats of 20 calls) of the entry point as a caller issues
    it, of its device work, and of the kernel alone on the card; one device
-   kernel a call on card tensors (one launch on the counter, and 20 calls
-   under torch.profiler record no other device kernel; kernels_a_call),
+   kernel a call on card tensors (one launch on the counter, one kernel
+   node in a CUDA graph of one call, and 20 calls under torch.profiler
+   record no other device kernel; kernels_a_call),
    the kernel alone at B = 1, and the plain version's time at B = 8192;
 5. kernel 2, the blocked-tier fused SQP (csrc/blocked.cu, blocked_f64.cu),
    against its plain version, bit for bit in float64 and float32, on the
@@ -190,7 +191,34 @@ Phases, each of which exits non-zero on failure:
    at B = 8192, 262144 and 1; the entry point as a caller issues it and its
    device work; the plain version once and the bound from its operation
    count;
-25. the kernel line, then the device line as the last line of stdout.
+25. SE(2) pose graphs through the generated family
+   (models.pose_graph.scalar_pose_graph_builder -> family_from_problem),
+   emitted and built in phase 2's parallel nvcc pass: the ring N = 4 (D =
+   12, the register target: kernel 1) and the chains with closures N = 16
+   ((4, 12), D = 48) and N = 40 ((5, 34), (12, 27), D = 120, 4 rows a
+   lane), both on the emitter's blocked target (kernel 2); the emit seconds,
+   the programs' sizes, kernel 2's launch plan and CTAs per SM
+   (mo_generated_blocked_occupancy), and ptxas registers, spill stores and
+   stack frame of each instance;
+26. each pose instance against its plain version on card tensors, bit for
+   bit in float64 and float32: at B = 8192 + 13 with a NaN-measurement lane
+   (flagged, every other lane finite), at B = 1 and at B = W + 1 (a ragged
+   last CTA);
+27. the cells through the public entry point fused_solve_batch in float32
+   at B = 8192: fused_pose_graph_bench's (N = 4, 6/1/2) and
+   blocked_pose16_bench's (N = 16, 5/1/2, Mehrotra + Armijo), and N = 40 at
+   5/1/2, every launch counter set to 0 just before and read just after (one
+   generated launch a call, nothing else), one device kernel a call
+   (kernels_a_call), the converged share (cost < 2e-3 N) at least 0.99, the
+   outputs bit for bit against the plain version; and in float64 at
+   B = 512 against nls_solve on the same Problem at the matched fixed-trip
+   budget, x and the final cost within 1e-8 (relative);
+28. held times of each instance at B = 8192, 1024 and 1, the entry point
+   as a caller issues it and its device work, the plain version once and the
+   bound from its operation count, and the general twin
+   (make_pose_graph_problem + nls_solve at B = 512, float32, the bench's
+   parameters) per call and its cost median beside the kernel's;
+29. the kernel line, then the device line as the last line of stdout.
 
 Tolerances, kernel against plain version: the kernels sum in the plain
 versions' order and build without FMA contraction, so they are expected to
@@ -198,13 +226,15 @@ agree bit for bit (each comparison prints whether they did). Kernels 2 and
 3 and the blocked main paths (phases 5-7), kernels 4-6 and the general
 path (phases 10-12), kernel 7 and the pose-ring main path (phases 14-15)
 and kernels 8-9 (phases 18-19) are held bit for bit in both types, and so
-is kernel 1, hand-written (phases 3-4) and generated (phases 22-23).
+is kernel 1, hand-written (phases 3-4) and generated (phases 22-23), and
+the generated pose instances of kernels 1 and 2 (phases 26-27).
 """
 
 import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -223,6 +253,7 @@ from mini_opt_tpu_torch.instances import (
     robust_line_fit_problem,
     cartpole_mpc_instances,
     chain_closure_instances,
+    chain_edges,
     effector_error,
     medium_n_planar_instances,
     planar_instances,
@@ -504,7 +535,7 @@ def plan_bounds():
     for dtype in (torch.float64, torch.float32):
         for n in range(33, 400):
             try:
-                plan = blk.launch_plan(n, 1, dtype)
+                plan = blk.launch_plan(blk.planar_slab_shape(n), 1, dtype)
             except ValueError:
                 break
             last[dtype] = n
@@ -524,7 +555,7 @@ def blocked_vs_plain(max_err):
     per_dtype = (torch.float64, torch.float32)
 
     def ragged(dtype, n):  # a last CTA with one instance of its W
-        return blk.launch_plan(n, 1, dtype).warps + 1
+        return blk.launch_plan(blk.planar_slab_shape(n), 1, dtype).warps + 1
 
     cases = [
         ("planar n=33 (D=34) 4/2/2 complementarity polynomial", 33, poly, lambda dt, n: B, (5,), per_dtype),
@@ -557,7 +588,7 @@ def blocked_vs_plain(max_err):
                 fail(f"{name}: the blocked kernel wrapper did not count its launch")
             want = blk._blocked_solve_plain(*args)
             torch.cuda.synchronize()
-            plan = blk.launch_plan(n, Bc, dtype)
+            plan = blk.launch_plan(blk.planar_slab_shape(n), Bc, dtype)
             check_blocked(f"phase5 {name} B={Bc} ({plan.warps} warps/CTA, {plan.rows_per_lane} rows/lane)",
                           got, want, max_err, nan_lanes)
 
@@ -624,6 +655,7 @@ def reset_counts():
     fik.GENERATED_LAUNCHES = 0
     pr.KERNEL_LAUNCHES = 0
     blk.BLOCKED_LAUNCHES = 0
+    blk.GENERATED_LAUNCHES = 0
     blk.KKT_LAUNCHES = 0
     ldlt.LDLT_FACTOR_LAUNCHES = 0
     ldlt.LDLT_SOLVE_LAUNCHES = 0
@@ -634,7 +666,7 @@ def reset_counts():
 
 def counts():
     return dict(fused_ik=fik.KERNEL_LAUNCHES, fused_ik_generated=fik.GENERATED_LAUNCHES,
-                blocked=blk.BLOCKED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES,
+                blocked=blk.BLOCKED_LAUNCHES, blocked_generated=blk.GENERATED_LAUNCHES, blocked_kkt=blk.KKT_LAUNCHES,
                 ldlt_factor=ldlt.LDLT_FACTOR_LAUNCHES, ldlt_solve=ldlt.LDLT_SOLVE_LAUNCHES,
                 fused_qp=fq.FUSED_QP_LAUNCHES, pose_ring=pr.KERNEL_LAUNCHES,
                 mpc=pm.KERNEL_LAUNCHES, mpc_servo=pm.SERVO_LAUNCHES)
@@ -708,7 +740,7 @@ def blocked_paths(card, kind):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plans = []
     for dtype in (torch.float32, torch.float64):
-        plan = blk.launch_plan(ARM_N, B, dtype)
+        plan = blk.launch_plan(blk.planar_slab_shape(ARM_N), B, dtype)
         ctas = lib.mo_blocked_occupancy(0, ARM_N, blk._CUDA_DTYPE_IDS[dtype], plan.warps)
         if ctas < 1:
             fail(f"phase8: occupancy query for n={ARM_N} {dtype} returned {ctas}")
@@ -1029,27 +1061,58 @@ def fused_qp_vs_plain(max_err):
                    call, (r"fused_qp_kernel",))
 
 
+def graph_nodes(fn):
+    """The nodes of one call of fn captured in a CUDA graph, by type
+    ({"kernel": 1}: one device kernel and nothing else). An exact count,
+    where the profiler can miss records; the captured launches do not run,
+    but their wrappers count them."""
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+    out = {}
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+        kind = kinds.get(t.value, f"type {t.value}")
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
 def kernels_a_call(tag, fn, names, reps=20):
     """One device kernel a call for each regex in ``names`` and nothing
     else (each of ``fn``'s wrappers has just shown one launch a call on its
-    counter): ``reps`` calls under the profiler (profile_call). Fails where
-    the profiler recorded a device kernel that matches none of ``names``
-    (a copy, say), none of one of them, or more of one than ``reps``. The
-    profiler can miss records, so fewer than ``reps`` is printed, not
-    failed."""
+    counter): one call captured in a CUDA graph must hold len(names) kernel
+    nodes and no other node (graph_nodes), and ``reps`` calls under the
+    profiler (profile_call) must record no device kernel that matches none
+    of ``names`` (a copy, say) and no more of one than ``reps``. The
+    profiler can miss records (a session of long kernels once recorded none
+    of them), so fewer than ``reps`` is printed, not failed."""
 
     def calls():
         for _ in range(reps):
             fn()
 
+    nodes = graph_nodes(fn)
     _, _, _, per_kernel = profile_call(calls)
     seen = {pat: sum(c for k, (c, _) in per_kernel.items() if re.search(pat, k)) for pat in names}
     other = {k[:60]: c for k, (c, _) in per_kernel.items() if not any(re.search(p, k) for p in names)}
-    print(f"# {tag} under torch.profiler, {reps} calls: {len(names)} device kernel(s) a call, recorded "
-          f"{ {p: f'{c} of {reps}' for p, c in seen.items()} }, other device kernels {other}", flush=True)
-    if other or any(c == 0 or c > reps for c in seen.values()):
+    print(f"# {tag}: one call captured in a CUDA graph holds {nodes}; under torch.profiler, {reps} calls: "
+          f"{len(names)} device kernel(s) a call, recorded { {p: f'{c} of {reps}' for p, c in seen.items()} }, "
+          f"other device kernels {other}", flush=True)
+    if nodes != {"kernel": len(names)} or other or any(c > reps for c in seen.values()):
         fail(f"{tag}: not one device kernel a call for each of {names} and nothing else "
-             f"(recorded {seen}, others {other})")
+             f"(graph nodes {nodes}, recorded {seen}, others {other})")
 
 
 def profile_call(fn, sessions=3):
@@ -1869,14 +1932,18 @@ def generated_families():
     }
 
 
-def emit_and_build(families):
-    """Emit every family's source and build them all (one nvcc each, all
-    together); returns (emit seconds, build seconds, {name: library path})."""
-    t0 = time.perf_counter()
-    sources = {name: fam.cuda_program.source() for name, (fam, _, _) in families.items()}
+def emit_and_build(emitters):
+    """Emit every source (name -> a call that returns it) and build them all
+    (one nvcc each, all together); returns ({name: emit seconds}, build
+    seconds, {name: library path})."""
+    sources, emit_s = {}, {}
+    for name, emit in emitters.items():
+        t0 = time.perf_counter()
+        sources[name] = emit()
+        emit_s[name] = time.perf_counter() - t0
     t1 = time.perf_counter()
     paths = _build.build_generated(list(sources.values()))
-    return t1 - t0, time.perf_counter() - t1, dict(zip(sources, paths))
+    return emit_s, time.perf_counter() - t1, dict(zip(sources, paths))
 
 
 def generated_build_report(families, emit_s, build_s, paths):
@@ -2076,6 +2143,365 @@ def generated_paths(card, kind, families, max_err):
         card=card)
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-28: SE(2) pose graphs through the generated family
+# (scalar_pose_graph_builder -> family_from_problem -> fused_solve_batch):
+# kernel 1 at D = 12, kernel 2 past D = 32 (the emitter's blocked target).
+# ---------------------------------------------------------------------------
+
+POSE_BUDGET_4 = dict(max_iterations=6, qp_iterations=1, ls_iterations=2, barrier="mpc", line_search="armijo")
+POSE_BUDGET = dict(max_iterations=5, qp_iterations=1, ls_iterations=2, barrier="mpc", line_search="armijo")
+# (N, closures or None for the ring, budget): fused_pose_graph_bench's cell
+# (scripts/bench_extras.py:469, the ring N = 4), blocked_pose16_bench's
+# (:1084, the chain with the closure (4, 12)) and the wider instance of
+# tests/test_pallas_blocked.py:415-437 (D = 120, 4 rows a lane).
+POSE_CELLS = ((4, None, POSE_BUDGET_4), (16, ((4, 12),), POSE_BUDGET), (40, ((5, 34), (12, 27)), POSE_BUDGET))
+POSE_B = 8192
+POSE_GENERAL_B = 512  # blocked_pose16_bench's general twin
+POSE_TOL = 1e-8  # tests/test_pallas_blocked.py:324, x and the cost against nls_solve in float64
+
+
+def pose_families():
+    """Phases 25-28's families: N -> (family, closures, budget)."""
+    out = {}
+    for N, closures, budget in POSE_CELLS:
+        edges = pg.ring_edges(N) if closures is None else chain_edges(N, closures)
+        out[N] = (mot.family_from_problem(pg.scalar_pose_graph_builder(N, edges), 3 * len(edges)), closures, budget)
+    return out
+
+
+def pose_register(fam):
+    return fam.n + fam.m_eq <= blk.REGISTER_KKT_MAX
+
+
+def pose_emitters(poses):
+    """Phase 2's emit calls for the pose families: the register target up to
+    D = 32, the blocked target past it."""
+    return {f"pose N={N}": (fam.cuda_program.source if pose_register(fam) else fam.cuda_program.blocked_source)
+            for N, (fam, _, _) in poses.items()}
+
+
+def pose_instances(N, closures, B, seed):
+    """The cells' data: the N-gon ring (fused_pose_graph_bench) or the
+    wandering chain with closures (blocked_pose16_bench)."""
+    return ring_instances(B, N, seed=seed) if closures is None else chain_closure_instances(B, N, closures, seed=seed)
+
+
+def pose_lean_family(fam, edges, anchor_weight=100.0):
+    """The pose family with the linearization that the solve needs, for
+    phase 28's bound alone: each edge's primal once and the nonzero entries
+    of its analytic Jacobian (the unit weights are static and not
+    multiplied, a +-1 entry is no product), each J^T J and J^T r cell summed
+    over its nonzero products only. The generated family evaluates the
+    primal again for each basis tangent and keeps every zero-tangent
+    product: what its plain version counts past this one is the emitter's
+    overhead, not work of the solve."""
+
+    def mul(a, b):
+        if isinstance(a, float):
+            a, b = b, a
+        if not isinstance(b, float) or isinstance(a, float):
+            return a * b
+        return a if b == 1.0 else -a if b == -1.0 else a * b
+
+    def linearize(x, d):
+        zero = torch.zeros_like(x[0])
+        G = [[zero] * (i + 1) for i in range(fam.n)]
+        c = [zero] * fam.n
+        f = zero
+
+        def add(idx, rows, jac):
+            nonlocal f
+            for r in rows:
+                f = f + 0.5 * r * r
+            for a, ga in enumerate(idx):
+                for b, gb in enumerate(idx):
+                    if gb <= ga:
+                        for k in range(len(rows)):
+                            if (k, a) in jac and (k, b) in jac:
+                                G[ga][gb] = G[ga][gb] + mul(jac[k, a], jac[k, b])
+                for k in range(len(rows)):
+                    if (k, a) in jac:
+                        c[ga] = c[ga] + mul(jac[k, a], rows[k])
+
+        for e, (i, j) in enumerate(edges):
+            idx = (3 * i, 3 * i + 1, 3 * i + 2, 3 * j, 3 * j + 1, 3 * j + 2)
+            xi, yi, thi, xj, yj, thj = (x[v] for v in idx)
+            co, si = torch.cos(thi), torch.sin(thi)
+            dx, dy = xj - xi, yj - yi
+            rx, ry = co * dx + si * dy, co * dy - si * dx
+            nc, ns = -co, -si
+            add(idx, [rx - d[3 * e], ry - d[3 * e + 1], pg._wrap(thj - thi - d[3 * e + 2])],
+                {(0, 0): nc, (0, 1): ns, (0, 2): ry, (0, 3): co, (0, 4): si,
+                 (1, 0): si, (1, 1): nc, (1, 2): -rx, (1, 3): ns, (1, 4): co, (2, 2): -1.0, (2, 5): 1.0})
+        w = anchor_weight
+        add((0, 1, 2), [w * x[0], w * x[1], w * pg._wrap(x[2])], {(0, 0): w, (1, 1): w, (2, 2): w})
+        return f, [], [], G, c
+
+    return dataclasses.replace(fam, linearize=linearize, cuda_program=None)
+
+
+def pose_report(poses, emit_s, build_s, paths):
+    """Phase 25: emit and build seconds, program sizes, launch plans and
+    ptxas per instance."""
+    lib_occ = {}
+    for N, (fam, closures, _) in poses.items():
+        name = f"pose N={N}"
+        if pose_register(fam):
+            sizes = {k: len(v.stmts) for k, v in fam.cuda_program.programs(torch.float32).items() if v is not None}
+            what = f"register target (kernel 1), float32 statements {sizes}"
+        else:
+            bp = fam.cuda_program.blocked_programs(torch.float32)
+            plans = []
+            lib = fam.cuda_program.blocked_library()
+            for dtype in (torch.float32, torch.float64):
+                plan = blk.launch_plan(blk.slab_shape(fam), POSE_B, dtype)
+                ctas = lib.mo_generated_blocked_occupancy(blk._CUDA_DTYPE_IDS[dtype], plan.warps)
+                if ctas < 1:
+                    fail(f"phase25 {name}: occupancy query for {dtype} returned {ctas}")
+                lib_occ[(N, dtype)] = ctas
+                plans.append(f"{str(dtype).replace('torch.', '')}: {plan.warps} warps/CTA, {plan.rows_per_lane} "
+                             f"rows/lane, {plan.warp_bytes} B/warp, grid {plan.grid}, {ctas} CTAs/SM")
+            what = (f"blocked target (kernel 2), {len(bp.lin)} residual groups, float32 block programs "
+                    f"{[len(p.stmts) for p in bp.lin]} statements (linearize) and {[len(p.stmts) for p in bp.err]} "
+                    f"(errors), scratch {fam.cuda_program.blocked_scratch()} slots; launch plan at B={POSE_B}: "
+                    + "; ".join(plans))
+        print(f"# phase25 {name} (closures {closures}): n={fam.n} m_eq={fam.m_eq} rows={fam.data_rows}, "
+              f"g_pattern {len(fam.g_pattern)} of {fam.n * (fam.n + 1) // 2} cells; emitted in {emit_s[name]:.1f} s, "
+              f"built in {build_s:.1f} s (phase 2's pass); {what}; library {paths[name].name}", flush=True)
+        log = paths[name].with_suffix(".log")
+        for kname, nreg, spill, _, stack in ptxas_report(log.read_text() if log.exists() else ""):
+            m = re.search(r"(fused_ik|blocked_sqp)_kernelI([fd])(?:Li(\d+)E)?", kname)
+            if m:
+                kernel, t, rows = m.groups()
+                label = f"{kernel}<{'float' if t == 'f' else 'double'}" + (f", R={rows}" if rows else "")
+                print(f"# phase25 ptxas {label}, pose N={N}>: {nreg} registers, {spill} bytes spill stores, "
+                      f"{stack} bytes stack frame", flush=True)
+
+
+def pose_kernel(fam, d, x, budget):
+    """The family's generated instance on batch-major card tensors, and its
+    plain version on the same: ((x, state), (x, state)), batch-major."""
+    bud = tuple(budget[k] for k in ("max_iterations", "qp_iterations", "ls_iterations", "line_search", "barrier"))
+    if pose_register(fam):
+        before = fik.GENERATED_LAUNCHES
+        got = fik._fused_solve_cuda(fam, d, x, *bud, False)[:2]
+        torch.cuda.synchronize()
+        if fik.GENERATED_LAUNCHES != before + 1:
+            fail("phase26: the generated kernel 1 wrapper did not count its launch")
+        return got, fik._fused_solve_plain_batch(fam, d, x, *bud, False)[:2]
+    before = blk.GENERATED_LAUNCHES
+    got = blk._blocked_solve_cuda(fam, d.T, x.T, *bud)
+    torch.cuda.synchronize()
+    if blk.GENERATED_LAUNCHES != before + 1:
+        fail("phase26: the generated kernel 2 wrapper did not count its launch")
+    want = blk._blocked_solve_plain(fam, d.T, x.T, *bud)
+    return (got[0].T, got[1].T), (want[0].T, want[1].T)
+
+
+def pose_vs_plain(poses, max_err):
+    """Phase 26: every generated pose instance against its plain version,
+    bit for bit, in both types: B = 8192 + 13 with a NaN-measurement lane
+    (flagged, every other lane finite), B = 1 and B = W + 1 (a ragged last
+    CTA: W warps of kernel 2, or kernel 1's 128 threads)."""
+    t0 = time.perf_counter()
+    for N, (fam, closures, budget) in poses.items():
+        for dtype in (torch.float64, torch.float32):
+            W = 128 if pose_register(fam) else blk.launch_plan(blk.slab_shape(fam), 1, dtype).warps
+            for B in (POSE_B + 13, 1, W + 1):
+                data, x0 = pose_instances(N, closures, B, seed=7)
+                if B > 9:
+                    data[5, 0] = np.nan
+                d = torch.as_tensor(data, dtype=dtype, device="cuda")
+                x = torch.as_tensor(x0, dtype=dtype, device="cuda")
+                (xk, sk), (xp, sp) = pose_kernel(fam, d, x, budget)
+                torch.cuda.synchronize()
+                same = bit_identical((xk, xp), (sk, sp))
+                diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk, sp)}
+                t = str(dtype).replace("torch.", "")
+                max_err[t] = max(max_err[t], max(diffs.values()))
+                note = ""
+                if B > 9:
+                    others = torch.ones(B, dtype=torch.bool, device="cuda")
+                    others[5] = False
+                    flagged, finite = float(sk[5, 2]) != 0, bool(torch.isfinite(xk[others]).all())
+                    note = f", NaN lane flagged {flagged}, other lanes finite {finite}"
+                    if not (flagged and finite):
+                        fail(f"phase26 pose N={N} B={B} {t}: NaN lane not contained{note}")
+                print(f"# phase26 pose N={N} B={B} {t}: bit-identical {same}, max|kernel - plain| {diffs}{note}",
+                      flush=True)
+                if not same:
+                    fail(f"phase26 pose N={N} B={B} {t}: the generated kernel disagrees with its plain version")
+    print(f"# phase26 {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def pose_general_params(iters, ls, matched):
+    """nls_solve at the cell's budget: ``matched``, the fused kernel's fixed
+    trip counts and constants (tests/test_torch_pose_graph_fused_tiers.py);
+    else blocked_pose16_bench's general twin."""
+    if not matched:
+        return mot.NLSParams(
+            max_iterations=iters, max_qp_iterations=1, max_line_search_iterations=ls,
+            line_search_strategy=mot.LineSearchStrategy.ARMIJO_BACKTRACK, armijo_search_tau=0.5,
+            record_history=False, early_exit=False, qp_barrier_strategy=mot.BarrierStrategy.PREDICTOR_CORRECTOR,
+        )
+    return mot.NLSParams(
+        max_iterations=iters, max_qp_iterations=1, max_line_search_iterations=ls,
+        line_search_strategy=mot.LineSearchStrategy.ARMIJO_BACKTRACK, armijo_search_tau=0.5,
+        equality_penalty_initial=0.01, lambda_initial=0.001, lambda_failure_init=0.001, min_lambda=1e-9,
+        termination_kkt_tolerance=1e-14, absolute_exit_tol=1e-30, relative_exit_tol=0.0,
+        absolute_first_derivative_tol=0.0, early_exit=False, kkt_solver="ldlt", record_history=False,
+        qp_barrier_strategy=mot.BarrierStrategy.PREDICTOR_CORRECTOR,
+    )
+
+
+def pose_paths(card, kind, poses):
+    """Phases 26-28; returns the pose instances' kernel rows."""
+    max_err = {"float64": 0.0, "float32": 0.0}
+    pose_vs_plain(poses, max_err)
+    rows = []
+    for N, (fam, closures, budget) in poses.items():
+        register = pose_register(fam)
+        key, pattern = ("fused_ik_generated", r"fused_ik_kernel") if register else ("blocked_generated",
+                                                                                  r"blocked_sqp_kernel")
+        iters, ls = budget["max_iterations"], budget["ls_iterations"]
+        bud = (iters, 1, ls, "armijo", "mpc")
+        edges = pg.ring_edges(N) if closures is None else chain_edges(N, closures)
+        builder = pg.scalar_pose_graph_builder(N, edges)
+
+        # Phase 27: the cell through the public entry point, float32.
+        t_cell = time.perf_counter()
+        data, x0 = pose_instances(N, closures, POSE_B, seed=0)
+        d32, x32 = data.astype(np.float32), x0.astype(np.float32)
+        reset_counts()
+        x, state = mot.fused_solve_batch(fam, d32, x32, return_state=True, **budget)
+        torch.cuda.synchronize()
+        launched = counts()
+        if launched[key] != 1 or any(v for k, v in launched.items() if k != key):
+            fail(f"phase27 pose N={N}: fused_solve_batch launched {launched}, not one generated kernel")
+        if x.shape != (POSE_B, fam.n) or state.shape != (POSE_B, 3) or not x.is_cuda or not torch.isfinite(x).all():
+            fail(f"phase27 pose N={N}: unexpected outputs {tuple(x.shape)} {tuple(state.shape)}")
+        f = state[:, 0].double().cpu().numpy()
+        converged = float(np.mean(f < 2e-3 * N))
+        t_d, x_d = (torch.as_tensor(a, device="cuda") for a in (d32, x32))
+        (xk, sk), (xp, sp) = pose_kernel(fam, t_d, x_d, budget)
+        same = bit_identical((x, xp), (state, sp))
+        max_err["float32"] = max(max_err["float32"], max_abs_diff(x, xp), max_abs_diff(state, sp))
+        print(f"# phase27 pose N={N} (D={fam.n}) fused_solve_batch B={POSE_B} float32 {iters}/1/{ls} mpc armijo on "
+              f"{kind} ({card}): launches {launched} for 1 call; cost median {np.median(f):.4e}, p99 "
+              f"{np.quantile(f, 0.99):.4e}, converged share (cost < {2e-3 * N:.3g}) {converged:.6f}, flags 0 share "
+              f"{float((state[:, 2] == 0).double().mean()):.6f}; bit-identical to the plain version {same}",
+              flush=True)
+        if converged < 0.99 or not same:
+            fail(f"phase27 pose N={N}: converged share {converged} or bits ({same})")
+        entry = lambda: mot.fused_solve_batch(fam, t_d, x_d, **budget)  # noqa: E731
+        # Fewer calls a session where one call runs for tens of ms.
+        kernels_a_call(f"phase27 pose N={N} fused_solve_batch B={POSE_B} float32 on card tensors", entry, (pattern,),
+                       reps=20 if N <= 16 else 4)
+
+        # The same Problem through nls_solve in float64 at the general twin's
+        # width: the JAX test's bound on x and on the final cost.
+        Bg = POSE_GENERAL_B
+        d64, x64 = (torch.as_tensor(a[:Bg], device="cuda") for a in (data, x0))
+        xf, sf = mot.fused_solve_batch(fam, d64, x64, return_state=True, **budget)
+        res = mot.nls_solve(builder, pose_general_params(iters, ls, matched=True), x64, data=d64)
+        torch.cuda.synchronize()
+        dev_x = float((xf - res.x).abs().max()) / (1.0 + float(res.x.abs().max()))
+        dev_f = float(((sf[:, 0] - res.errors.f).abs() / res.errors.f.abs().clamp_min(1e-300)).max())
+        print(f"# phase27 pose N={N} float64 B={Bg}: the fused route against nls_solve on the same Problem "
+              f"(matched fixed-trip budget): max |dx| / (1 + max|x|) {dev_x:.3e}, max relative cost difference "
+              f"{dev_f:.3e} (bound {POSE_TOL:g})", flush=True)
+        if not (dev_x < POSE_TOL and dev_f < POSE_TOL):
+            fail(f"phase27 pose N={N}: the fused route is not within {POSE_TOL} of nls_solve ({dev_x}, {dev_f})")
+
+        # Phase 28: held times, the plain version, the bound, the general twin.
+        if register:
+            kern = lambda d_, x_: fik._fused_solve_cuda(fam, d_, x_, *bud, False)  # noqa: E731
+            plain_of = lambda F, d_, x_: fik._fused_solve_plain_batch(F, d_, x_, *bud, False)  # noqa: E731
+        else:
+            kern = lambda d_, x_: blk._blocked_solve_cuda(fam, d_.T, x_.T, *bud)  # noqa: E731
+            plain_of = lambda F, d_, x_: blk._blocked_solve_plain(F, d_.T, x_.T, *bud)  # noqa: E731
+        plain = functools.partial(plain_of, fam)
+        k_ms, k_all = time_ms(lambda: kern(t_d, x_d), launches=10, held=True)
+        k_at = {Bs: time_ms(lambda: kern(t_d[:Bs].contiguous(), x_d[:Bs].contiguous()), launches=10, held=True)[0]
+                for Bs in (1, 1024)}
+        e_ms, _ = time_ms(entry, launches=10)
+        ed_ms, _ = time_ms(entry, launches=10, held=True)
+        plain_ms, _ = event_ms(lambda: plain(t_d, x_d))
+        # Every operation of the plain version is elementwise over the
+        # instances at fixed trip counts: the count on the first 256
+        # instances, times B / 256, is the count at B (and a dispatch-mode
+        # run at B = 8192 would take a minute at N = 40). The bound counts
+        # the operations the solve needs: the plain solve with the lean
+        # linearization (pose_lean_family), which must agree with the
+        # generated one in float64 first; the generated plain version's
+        # count is printed beside it as the emitter's overhead.
+        lean = pose_lean_family(fam, edges)
+        x_gen, x_lean = (plain_of(F, t_d[:64].double(), x_d[:64].double())[0] for F in (fam, lean))
+        dev_lean = float((x_gen - x_lean).abs().max()) / (1.0 + float(x_gen.abs().max()))
+        if not dev_lean < POSE_TOL:
+            fail(f"phase28 pose N={N}: the lean linearization's solve is {dev_lean} off the generated family's")
+        ops_generated = count_ops(lambda: plain(t_d[:256], x_d[:256])) * (POSE_B // 256)
+        ops_lean = count_ops(lambda: plain_of(lean, t_d[:256], x_d[:256])) * (POSE_B // 256)
+        ops = min(ops_generated, ops_lean)
+        # Reads the 3E measurements and 3N starts, writes 3N poses and 3
+        # state scalars per instance.
+        bound_ms, bound_by = roofline(ops, POSE_B * (fam.data_rows + 2 * fam.n + 3) * 4)
+        ones = torch.ones(len(edges), dtype=torch.float32, device="cuda")
+
+        def problem_fn(dd, N=N, edges=edges, ones=ones):
+            return pg.make_pose_graph_problem(N, edges, dd.reshape(len(edges), 3), ones, anchor_weight=100.0)
+
+        d_g, x_g = t_d[:Bg].contiguous(), x_d[:Bg].contiguous()
+        general = lambda: mot.nls_solve(problem_fn, pose_general_params(iters, ls, matched=False),  # noqa: E731
+                                        x_g, data=d_g)
+        general()
+        torch.cuda.synchronize()
+        gen_ms, gres = event_ms(general)
+        f_gen = gres.errors.f.double().cpu().numpy()
+        print(f"# phase28 pose N={N} B={POSE_B} float32 on {kind} ({card}) ({time.perf_counter() - t_cell:.1f} s "
+              f"for the cell's phases 27-28): kernel alone {k_ms:.4f} ms "
+              f"({POSE_B / k_ms * 1e3:.4e} graphs/s), at B=1 {k_at[1]:.4f} ms, at B=1024 {k_at[1024]:.4f} ms; "
+              f"fused_solve_batch issued back to back {e_ms:.4f} ms/call, its device work {ed_ms:.4f} ms; plain "
+              f"{plain_ms:.3f} ms; {ops_generated / POSE_B:.0f} elementwise ops per instance in the generated "
+              f"plain version, {ops_lean / POSE_B:.0f} with the lean linearization (its solve {dev_lean:.1e} off in "
+              f"float64; the emitter's overhead {ops_generated / ops_lean - 1:+.1%}) -> bound from "
+              f"{ops / POSE_B:.0f}: {bound_ms:.6f} ms ({bound_by}), kernel = {k_ms / bound_ms:.1f}x bound; general "
+              f"twin make_pose_graph_problem + nls_solve at B={Bg} {gen_ms:.3f} ms/call ({Bg / gen_ms * 1e3:.4e} graphs/s, cost median "
+              f"{np.median(f_gen):.4e} against the kernel's {np.median(f[:Bg]):.4e} on the same lanes), kernel "
+              f"graphs/s over the twin's {(POSE_B / k_ms) / (Bg / gen_ms):.1f}x; repeats {k_all}", flush=True)
+        rows.append({
+            "name": f"{'fused_ik_sqp' if register else 'blocked_sqp'}_generated_pose_graph_n{N}",
+            "route": "cuda",
+            "source": ("mini_opt_tpu_torch/ops/fused_emit.py + csrc/"
+                       + ("fused_ik_launch.cuh + csrc/fused_sqp.cuh" if register
+                          else "blocked_launch.cuh + csrc/blocked_sqp.cuh")),
+            "replaces": "mini_opt_tpu/ops/pallas_ik.py:323" if register else "mini_opt_tpu/ops/pallas_blocked.py:96",
+            "function": ("_make_kernel" if register else "_make_blocked_kernel")
+            + f" (generated SE(2) pose graph, N={N}, closures {closures})",
+            "launches": launched[key],
+            "max_abs_err": max(max_err.values()),
+            "max_abs_diff_f64": max_err["float64"],
+            "ms": k_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "shape": f"B={POSE_B} N={N} (D={fam.n}) float32 {iters}/1/{ls} mpc armijo",
+            "ops_per_instance": ops / POSE_B,
+            "ops_per_instance_generated_plain": ops_generated / POSE_B,
+            "ms_at_B1": k_at[1],
+            "ms_at_B1024": k_at[1024],
+            "entry_ms": e_ms,
+            "converged_share": converged,
+            "f64_dev_x_vs_nls_solve": dev_x,
+            "f64_dev_cost_vs_nls_solve": dev_f,
+            "general_twin_ms_B512": gen_ms,
+            "card": card,
+        })
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -2092,12 +2518,16 @@ def main():
     print(card, flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
 
-    # Phase 2: build. Phase 21's generated families are emitted and built at
-    # the same time: every nvcc process of both runs at once.
+    # Phase 2: build. Phase 21's generated families and phase 25's pose
+    # families are emitted and built at the same time: every nvcc process of
+    # both runs at once.
     t0 = time.perf_counter()
     families = generated_families()
+    poses = pose_families()
+    emitters = {name: fam.cuda_program.source for name, (fam, _, _) in families.items()}
+    emitters.update(pose_emitters(poses))
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        generated = pool.submit(emit_and_build, families)
+        generated = pool.submit(emit_and_build, emitters)
         lib_path = _build.build()
         gen_emit_s, gen_build_s, gen_paths = generated.result()
     _build.load_library()
@@ -2248,10 +2678,13 @@ def main():
     general_rows = general_paths(card, kind)
     ring_rows = pose_ring_paths(card, kind)
     mpc_rows = mpc_paths(card, kind)
-    generated_build_report(families, gen_emit_s, gen_build_s, gen_paths)
+    generated_build_report(families, sum(gen_emit_s[name] for name in families), gen_build_s, gen_paths)
     gen_err = {"float64": 0.0, "float32": 0.0}
     generated_rows = [generated_paths(card, kind, families, gen_err)]
+    pose_report(poses, gen_emit_s, gen_build_s, gen_paths)
+    pose_rows = pose_paths(card, kind, poses)
 
+    print(f"# chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build's start", flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_ik_sqp",
         "route": "cuda",
@@ -2271,7 +2704,7 @@ def main():
         "ms_b262144": rows[262144]["kernel_ms"],
         "ops_per_instance": ops_per_instance,
         "card": card,
-    }] + generated_rows + blocked_rows + general_rows + ring_rows + mpc_rows}), flush=True)
+    }] + generated_rows + blocked_rows + general_rows + ring_rows + mpc_rows + pose_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
 

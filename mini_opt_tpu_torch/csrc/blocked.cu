@@ -31,18 +31,18 @@ int launch(int family, int n, int dtype, double link, const mo::blocked::LaunchA
 }  // namespace
 
 // family: 0 planar; dtype: 0 float, 1 double; warps: instances per CTA
-// (1..4). Feature-major data (2, B), x0 (n, B), x_out (n, B), state (3, B).
+// (1..4). data (B, 2) and x0 (B, n) at the element strides in `strides`
+// (data's instance and row stride, then x0's); x_out (n, B) and state (3, B)
+// contiguous.
 extern "C" int mo_blocked_launch(int family, int n, int dtype, const void* data, const void* x0,
-                                 void* x_out, void* state, int B, int warps, int max_iterations,
-                                 int qp_iterations, int ls_iterations, int polynomial, int mpc,
-                                 double link, void* stream) {
-  if (max_iterations < 1 || qp_iterations < 0 || ls_iterations < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                                 const long long* strides, void* x_out, void* state, int B, int warps,
+                                 int max_iterations, int qp_iterations, int ls_iterations, int polynomial,
+                                 int mpc, double link, void* stream) {
+  mo::blocked::LaunchArgs a;
+  if (const int rc = mo::blocked::launch_args(data, x0, strides, x_out, state, B, warps, max_iterations,
+                                              qp_iterations, ls_iterations, polynomial, mpc, stream, &a)) {
+    return rc;
   }
-  const mo::SolveOptions opt{max_iterations, qp_iterations, ls_iterations, polynomial != 0,
-                             mpc != 0};
-  const mo::blocked::LaunchArgs a{data, x0, x_out, state, B, warps, opt,
-                                  static_cast<cudaStream_t>(stream)};
   return launch(family, n, dtype, link, a, false);
 }
 
@@ -53,7 +53,5 @@ extern "C" int mo_blocked_occupancy(int family, int n, int dtype, int warps) {
   if (n < 1 || warps < 1 || warps > mo::blocked::kMaxWarps) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
-  const mo::SolveOptions opt{1, 0, 0, false, false};
-  const mo::blocked::LaunchArgs a{nullptr, nullptr, nullptr, nullptr, 1, warps, opt, nullptr};
-  return launch(family, n, dtype, 0.0, a, true);
+  return launch(family, n, dtype, 0.0, mo::blocked::occupancy_args(warps), true);
 }

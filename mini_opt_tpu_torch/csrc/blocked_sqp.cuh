@@ -147,7 +147,7 @@ __device__ __forceinline__ void warp_sync() { __syncwarp(kAll); }
 // KKT rows per lane of the kernel instance that takes a D-row system (lane
 // l owns rows l, l + 32, ...): 2 up to D = 64, 4 up to 128, 6 up to 192;
 // 0 past that (no instance).
-__host__ __device__ inline int rows_per_lane(int D) {
+__host__ __device__ constexpr int rows_per_lane(int D) {
   return D <= 64 ? 2 : (D <= 128 ? 4 : (D <= 192 ? 6 : 0));
 }
 
@@ -811,13 +811,28 @@ __device__ T qp_solve(const Slab<T>& s, const Lane<R>& L, const T (&ib_lo)[R], c
   return bad;
 }
 
+// The caller's tensors: data (B, ROWS) and x0 (B, n) at their element
+// strides (instance, row), so that a batch-major tensor and the transposed
+// view of a feature-major one are read where they lie; x_out (n, B) and
+// state (3, B) written feature-major and contiguous (their transposes are
+// the caller's (B, n) and (B, 3)). Writing them batch-major cost kernel 2
+// 2-3% at B = 8192, D = 49: ptxas then spilled 104 bytes where it spills 8.
+struct BlockedIO {
+  const void* data;
+  const void* x0;
+  void* x_out;
+  void* state;
+  long long ds[2];  // data: instance, row
+  long long xs[2];  // x0: instance, row
+};
+
 // The whole fused solve of instance `inst` of family `fam` by one warp
-// (this lane: `lane`) on its slab. Inputs and outputs are feature-major:
-// data (ROWS, B), x0 (n, B), x_out (n, B), state (3, B).
+// (this lane: `lane`) on its slab, on the tensors of BlockedIO.
 template <typename T, int R, class F>
 __device__ void blocked_sqp_solve(const F& fam, const T* __restrict__ data, const T* __restrict__ x0,
-                                  T* __restrict__ x_out, T* __restrict__ state, int B,
-                                  const SolveOptions& opt, unsigned char* slab, int inst, int lane) {
+                                  T* __restrict__ x_out, T* __restrict__ state, long long ds0, long long ds1,
+                                  long long xs0, long long xs1, int B, const SolveOptions& opt,
+                                  unsigned char* slab, int inst, int lane) {
   Slab<T> s;
   carve<T, F>(fam, slab, &s);
   Lane<R> L;
@@ -834,14 +849,15 @@ __device__ void blocked_sqp_solve(const F& fam, const T* __restrict__ data, cons
     L.shi[r] = L.var(r) ? fam.hi_slot(L.row(r)) : -1;
   }
   const int n = L.n, m = L.m;
-  const size_t b = static_cast<size_t>(inst), nb = static_cast<size_t>(B);
+  const long long b = inst;
+  const size_t nb = static_cast<size_t>(B);
 
-  for (int k = lane; k < F::ROWS; k += kWarp) s.tgt[k] = data[k * nb + b];
+  for (int k = lane; k < F::ROWS; k += kWarp) s.tgt[k] = data[b * ds0 + k * ds1];
   fill_tile_table(s.tiles, L.D, lane);
   T th[R], th_best[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    th[r] = L.var(r) ? x0[L.row(r) * nb + b] : T(0);
+    th[r] = L.var(r) ? x0[b * xs0 + L.row(r) * xs1] : T(0);
     if (L.var(r)) s.th[L.row(r)] = th[r];
     // Best-merit iterate under the current penalty, from f_best = +inf
     // (pallas_blocked.py:607-610): a lane whose merit is never finite keeps
@@ -1028,13 +1044,14 @@ __device__ void blocked_sqp_solve(const F& fam, const T* __restrict__ data, cons
 template <typename T, int R, class F>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
     blocked_sqp_kernel(F fam, const T* __restrict__ data, const T* __restrict__ x0, T* __restrict__ x_out,
-                       T* __restrict__ state, int B, SolveOptions opt) {
+                       T* __restrict__ state, long long ds0, long long ds1, long long xs0, long long xs1, int B,
+                       SolveOptions opt) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / kWarp;
   const int inst = blockIdx.x * (blockDim.x / kWarp) + warp;
   if (inst >= B) return;  // the whole warp, before its first __syncwarp
   const size_t slab = carve<T, F>(fam, nullptr, nullptr);
-  blocked_sqp_solve<T, R, F>(fam, data, x0, x_out, state, B, opt, smem + warp * slab, inst,
+  blocked_sqp_solve<T, R, F>(fam, data, x0, x_out, state, ds0, ds1, xs0, xs1, B, opt, smem + warp * slab, inst,
                              threadIdx.x % kWarp);
 }
 
@@ -1055,15 +1072,34 @@ int allow_dynamic_smem(Kernel kernel, int threads, int max_threads, size_t bytes
 }
 
 struct LaunchArgs {
-  const void* data;
-  const void* x0;
-  void* x_out;
-  void* state;
+  BlockedIO io;
   int B;
   int warps;  // instances per CTA
   SolveOptions opt;
   cudaStream_t stream;
 };
+
+// A launcher's arguments (strides: data's instance and row stride, then
+// x0's); cudaErrorInvalidValue for a budget the kernel does not take.
+inline int launch_args(const void* data, const void* x0, const long long* strides, void* x_out, void* state,
+                       int B, int warps, int max_iterations, int qp_iterations, int ls_iterations,
+                       int polynomial, int mpc, void* stream, LaunchArgs* a) {
+  if (max_iterations < 1 || qp_iterations < 0 || ls_iterations < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *a = LaunchArgs{BlockedIO{data, x0, x_out, state, {strides[0], strides[1]}, {strides[2], strides[3]}},
+                  B,
+                  warps,
+                  SolveOptions{max_iterations, qp_iterations, ls_iterations, polynomial != 0, mpc != 0},
+                  static_cast<cudaStream_t>(stream)};
+  return 0;
+}
+
+// The arguments of an occupancy query for CTAs of `warps` instances.
+inline LaunchArgs occupancy_args(int warps) {
+  return LaunchArgs{BlockedIO{nullptr, nullptr, nullptr, nullptr, {0, 0}, {0, 0}}, 1, warps,
+                    SolveOptions{1, 0, 0, false, false}, nullptr};
+}
 
 // Kernel 2 with R rows a lane: a launch, or (occupancy_only) the CTAs of
 // a.warps instances that fit one SM, negative on an error.
@@ -1082,8 +1118,8 @@ int launch_rows(const F& fam, const LaunchArgs& a, bool occupancy_only) {
   if (rc != 0) return rc;
   const int grid = (a.B + a.warps - 1) / a.warps;
   blocked_sqp_kernel<T, R, F><<<grid, threads, bytes, a.stream>>>(
-      fam, static_cast<const T*>(a.data), static_cast<const T*>(a.x0), static_cast<T*>(a.x_out),
-      static_cast<T*>(a.state), a.B, a.opt);
+      fam, static_cast<const T*>(a.io.data), static_cast<const T*>(a.io.x0), static_cast<T*>(a.io.x_out),
+      static_cast<T*>(a.io.state), a.io.ds[0], a.io.ds[1], a.io.xs[0], a.io.xs[1], a.B, a.opt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -123,10 +123,10 @@ def chain_edges(n, closures):
     return tuple((t, t + 1) for t in range(n - 1)) + tuple(tuple(c) for c in closures)
 
 
-def chain_closure_instances(B, n, closures, seed=0, step=0.5, start_noise=0.08):
+def chain_closure_instances(B, n, closures, seed=0, step=0.5, start_noise=0.08, meas_noise=0.02):
     """A wandering chain (headings a running sum of U(-0.5, 0.5), steps of
     ``step``) with consistent measurements on the chain edges and the
-    closures plus N(0, 0.02) noise; starts are the true poses plus
+    closures plus N(0, meas_noise) noise; starts are the true poses plus
     N(0, start_noise), with pose 0 set to the origin."""
     rng = np.random.default_rng(seed)
     th = np.cumsum(rng.uniform(-0.5, 0.5, (B, n)), axis=1)
@@ -141,7 +141,7 @@ def chain_closure_instances(B, n, closures, seed=0, step=0.5, start_noise=0.08):
 
     edges = chain_edges(n, closures)
     meas = np.stack([edge_meas(poses[:, i], poses[:, j]) for (i, j) in edges], 1)
-    meas += rng.normal(scale=0.02, size=meas.shape)
+    meas += rng.normal(scale=meas_noise, size=meas.shape)
     x0 = poses + rng.normal(scale=start_noise, size=poses.shape)
     x0[:, 0] = 0.0
     return meas.reshape(B, 3 * len(edges)), x0.reshape(B, 3 * n)

@@ -8,9 +8,10 @@ in frame i contributes the residual
 
     r = [ R(theta_i)^T (t_j - t_i) - (dx, dy) ;  wrap(theta_j - theta_i - dtheta) ]
 
-weighted per edge. Not ported yet (ROADMAP.md queue 1): the scalar builder
-for the generated fused families, and the large-graph CG path with its
-Jacobi and tree preconditioners and the chordal initialization.
+weighted per edge. ``scalar_pose_graph_builder`` states a small graph in the
+fused compiler's scalar style, for ``family_from_problem``. Not ported yet
+(ROADMAP.md queue 1): the large-graph CG path with its Jacobi and tree
+preconditioners and the chordal initialization.
 """
 
 from __future__ import annotations
@@ -109,6 +110,30 @@ def make_pose_graph_problem(
             equality_constraints=(make_residual([0, 1, 2], gauge, 3),),
         )
     return Problem(dimension=3 * n_poses, costs=(block, make_residual([0, 1, 2], anchor, 3)))
+
+
+def scalar_pose_graph_builder(n_poses, edges_ij, anchor_weight: float = 100.0):
+    """``data -> Problem`` builder in the fused compiler's scalar style
+    (``ops/fused_auto.py``): a whole small SE(2) pose graph as one generated
+    family, the register tier's kernel 1 up to D = 3N = 32 and the blocked
+    tier's kernel 2 past it. Payload rows: the E edge measurements raveled,
+    ``data[3e:3e+3] = (dx, dy, dtheta)`` of edge e (unit weights; the edge
+    set and the anchor are static). The general-path twin is
+    ``make_pose_graph_problem`` with the same edges and soft anchor."""
+    indices = _edge_indices(edges_ij)
+    E = len(indices)
+
+    def builder(data):
+        one = torch.ones_like(data[0])
+        rows = [torch.stack([data[3 * e], data[3 * e + 1], data[3 * e + 2], one, one, one]) for e in range(E)]
+        block = BlockResidual(fn=_edge_residual, indices=indices, dim=3, data=torch.stack(rows))
+
+        def anchor(xl):
+            return anchor_weight * torch.stack([xl[0], xl[1], _wrap(xl[2])])
+
+        return Problem(dimension=3 * n_poses, costs=(block, make_residual([0, 1, 2], anchor, 3)))
+
+    return builder
 
 
 def ring_edges(n_poses: int):

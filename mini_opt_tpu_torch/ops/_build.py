@@ -160,22 +160,39 @@ _generated = {}
 
 
 def load_generated(source):
-    """The bound library of an emitted family source, built on first use."""
+    """The bound library of an emitted family source, built on first use:
+    kernel 1's instance (``mo_generated_launch``) or kernel 2's
+    (``mo_generated_blocked_launch``), whichever the library exports."""
     path = build_generated([source])[0]
     with _lock:
         if path not in _generated:
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.mo_generated_launch.argtypes = [
-                i,  # dtype
-                p, p,  # data, x0
-                ctypes.POINTER(ctypes.c_longlong),  # their 4 strides
-                p, p, p,  # x_out, state, history (or NULL)
-                i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
-                i, i,  # polynomial line search, Mehrotra barrier
-                p,  # cudaStream_t
-            ]
-            lib.mo_generated_launch.restype = i
+            if hasattr(lib, "mo_generated_launch"):
+                lib.mo_generated_launch.argtypes = [
+                    i,  # dtype
+                    p, p,  # data, x0
+                    ctypes.POINTER(ctypes.c_longlong),  # their 4 strides
+                    p, p, p,  # x_out, state, history (or NULL)
+                    i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
+                    i, i,  # polynomial line search, Mehrotra barrier
+                    p,  # cudaStream_t
+                ]
+                lib.mo_generated_launch.restype = i
+            if hasattr(lib, "mo_generated_blocked_launch"):
+                lib.mo_generated_blocked_launch.argtypes = [
+                    i,  # dtype
+                    p, p,  # data, x0
+                    ctypes.POINTER(ctypes.c_longlong),  # their 4 strides
+                    p, p,  # x_out, state
+                    i, i,  # B, warps per CTA
+                    i, i, i,  # max_iterations, qp_iterations, ls_iterations
+                    i, i,  # polynomial line search, Mehrotra barrier
+                    p,  # cudaStream_t
+                ]
+                lib.mo_generated_blocked_launch.restype = i
+                lib.mo_generated_blocked_occupancy.argtypes = [i, i]  # dtype, warps per CTA
+                lib.mo_generated_blocked_occupancy.restype = i
             lib.mo_generated_error_string.argtypes = [i]
             lib.mo_generated_error_string.restype = ctypes.c_char_p
             _generated[path] = lib
@@ -203,7 +220,9 @@ def load_library():
             lib.mo_fused_ik_launch.restype = i
             lib.mo_blocked_launch.argtypes = [
                 i, i, i,  # family, n, dtype
-                p, p, p, p,  # data, x0, x_out, state
+                p, p,  # data, x0
+                ctypes.POINTER(ctypes.c_longlong),  # their 4 strides
+                p, p,  # x_out, state
                 i, i,  # B, warps per CTA
                 i, i, i,  # max_iterations, qp_iterations, ls_iterations
                 i, i,  # polynomial line search, Mehrotra barrier

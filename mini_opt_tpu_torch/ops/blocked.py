@@ -8,10 +8,15 @@ of ``pallas_blocked.py``:
 
 * ``csrc/blocked.cu`` and ``blocked_f64.cu`` (device code
   ``csrc/blocked_sqp.cuh``): the whole fused SQP, one warp per instance and
-  ``launch_plan(n, B, dtype).warps`` instances per CTA, the instance's
-  KKT matrix (its lower triangle in 4-row tiles) factored in its slab of
-  shared memory. It replaces
-  ``_make_blocked_kernel``.
+  ``launch_plan(slab_shape(family), B, dtype).warps`` instances per CTA,
+  the instance's KKT matrix (its lower triangle in 4-row tiles) factored in
+  its slab of shared memory. It replaces ``_make_blocked_kernel``. The hand-written planar chain's instances are
+  in ``blocked.cu``; a family generated from a Problem gets its own
+  instance, emitted by ``ops/fused_emit.py``'s blocked target and built at
+  first use (``csrc/blocked_launch.cuh``). Both read the caller's
+  batch-major tensors at their strides, so a ``blocked_solve_batch`` call on
+  card tensors is one device kernel; its results are the transposed views of
+  feature-major outputs.
 * ``csrc/blocked_kkt.cu``: one dense LDL^T factor and solve per system,
   one warp per system up to D = 192 (kernel 2's routines, ``kkt_launch_plan``)
   and one CTA per system past it. It replaces the kernel of
@@ -53,8 +58,11 @@ REGISTER_KKT_MAX = 32
 _TAU_FTB = 0.995
 
 # Launches of the two CUDA kernels in this process: each wrapper adds one
-# right where it launches, and nowhere else.
+# right where it launches, and nowhere else. BLOCKED_LAUNCHES counts kernel
+# 2's hand-written instances (csrc/blocked.cu), GENERATED_LAUNCHES the
+# instances emitted for families generated from a Problem.
 BLOCKED_LAUNCHES = 0
+GENERATED_LAUNCHES = 0
 KKT_LAUNCHES = 0
 
 # Families with a blocked-tier device functor (csrc/families.cuh).
@@ -81,23 +89,59 @@ def kkt_slots(D: int) -> int:
     return sum(Dp - (j & ~3) for j in range(D))
 
 
-def slab_slots(n: int, dtype: torch.dtype) -> int:
-    """Slots (of ``dtype``) of one planar-chain instance's slab at n joints
-    (D = n + 1): csrc/blocked_sqp.cuh's ``carve`` -- the tiled KKT matrix
-    (``kkt_slots(D)``), the factor's w / the published vector (D), the
-    packed Gauss-Newton Hessian (tri(n)), J_eq (n), c (n), r_eq (1), the
-    iterate (n), the two targets, the scratch area (the largest of the
-    family's 3n, the four arrays of n - 1 step candidates each padded to
-    whole tiles of 4, and n terms of a sum; in whole tiles), and the 2-byte
-    table of the KKT matrix's tiles."""
-    D = n + 1
+@dataclasses.dataclass(frozen=True)
+class SlabShape:
+    """What kernel 2's slab of one instance holds for a family
+    (csrc/blocked_sqp.cuh ``carve``): ``n`` variables, ``m`` equality rows,
+    ``rows`` data rows, ``nlo`` / ``nhi`` bounded variables and the family's
+    own ``scratch`` slots."""
 
-    def round4(k):
-        return -(-k // 4) * 4
+    n: int
+    m: int
+    rows: int
+    nlo: int
+    nhi: int
+    scratch: int
 
-    scratch = round4(max(3 * n, 4 * round4(n - 1), n))
+
+def planar_slab_shape(n: int) -> SlabShape:
+    """The hand-written planar chain's (csrc/families.cuh ``PlanarChain``):
+    one equality row, two data rows, joints 1..n-1 bounded on both sides, and
+    3n scratch slots (the cumulative angles' cosines and sines, J_y)."""
+    return SlabShape(n, 1, 2, n - 1, n - 1, 3 * n)
+
+
+def slab_shape(family) -> SlabShape:
+    """The slab shape of ``family`` on kernel 2: the planar functor's, or a
+    generated family's with the scratch of its emitted blocked functor
+    (``ops/fused_emit.py``)."""
+    if family.cuda_functor is not None:
+        return planar_slab_shape(family.n)
+    return SlabShape(
+        family.n, family.m_eq, family.data_rows,
+        sum(v is not None for v in family.lower), sum(v is not None for v in family.upper),
+        family.cuda_program.blocked_scratch(),
+    )
+
+
+def _round4(k):
+    return -(-k // 4) * 4
+
+
+def slab_slots(s: SlabShape, dtype: torch.dtype) -> int:
+    """Slots (of ``dtype``) of one instance's slab, counted as
+    csrc/blocked_sqp.cuh's ``carve`` takes them, for the family of slab
+    shape ``s`` (``slab_shape(family)``, ``planar_slab_shape(n)``): the
+    tiled KKT matrix (``kkt_slots(D)``, D = n + m), the scratch area (the largest of the
+    family's own scratch, the four arrays of step candidates, each padded to
+    whole tiles of 4, and n terms of a sum; in whole tiles), the factor's w
+    / the published vector (D), the packed Gauss-Newton Hessian (tri(n)),
+    J_eq (m n), c (n), r_eq (m), the iterate (n), the data rows, and the
+    2-byte table of the KKT matrix's tiles."""
+    D = s.n + s.m
+    scratch = _round4(max(s.scratch, 2 * (_round4(s.nlo) + _round4(s.nhi)), s.n))
     table = -(-2 * (kkt_slots(D) // 4) // torch.empty((), dtype=dtype).element_size())
-    return kkt_slots(D) + D + _tri(n) + n + n + 1 + n + 2 + scratch + table
+    return kkt_slots(D) + scratch + D + _tri(s.n) + s.m * s.n + s.n + s.m + s.n + s.rows + table
 
 
 def rows_per_lane(D: int) -> int:
@@ -108,7 +152,7 @@ def rows_per_lane(D: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How kernel 2 launches for B planar-chain instances: ``warps``
+    """How kernel 2 launches for B instances of a family: ``warps``
     (instances) per CTA, ``rows_per_lane`` of the KKT system, ``slots`` of
     one instance's slab and its ``warp_bytes`` (rounded up to 16),
     ``cta_bytes`` of dynamic shared memory per CTA, ``grid`` CTAs."""
@@ -121,20 +165,22 @@ class LaunchPlan:
     grid: int
 
 
-def launch_plan(n: int, B: int, dtype: torch.dtype) -> LaunchPlan:
-    """The launch plan of kernel 2 for B instances of the n-joint planar
-    chain in ``dtype``: WARPS_PER_CTA instances per CTA, fewer where that
-    many slabs do not fit MAX_CTA_SMEM. Raises ValueError where one slab
-    does not fit a CTA or D = n + 1 exceeds 32 * MAX_ROWS_PER_LANE: the
-    kernel has no route for those sizes (the CPU path takes them)."""
-    slots = slab_slots(n, dtype)
+def launch_plan(s: SlabShape, B: int, dtype: torch.dtype) -> LaunchPlan:
+    """The launch plan of kernel 2 for B instances in ``dtype`` of the family
+    of slab shape ``s`` (``slab_shape(family)``, ``planar_slab_shape(n)``):
+    WARPS_PER_CTA instances per CTA, fewer where that many slabs do not fit
+    MAX_CTA_SMEM. Raises ValueError where one slab does not fit a CTA
+    or D = n + m exceeds 32 * MAX_ROWS_PER_LANE: the kernel has no route for
+    those sizes (the CPU path takes them)."""
+    D = s.n + s.m
+    slots = slab_slots(s, dtype)
     # Whole 16-byte units, so that every slab is aligned alike.
     warp_bytes = -(-slots * torch.empty((), dtype=dtype).element_size() // 16) * 16
-    rows = rows_per_lane(n + 1)
+    rows = rows_per_lane(D)
     if rows == 0 or warp_bytes > MAX_CTA_SMEM:
         raise ValueError(
-            f"the blocked kernel takes no n = {n} in {dtype}: one instance's slab "
-            f"({warp_bytes} B, D = {n + 1}) does not fit a CTA ({MAX_CTA_SMEM} B, D <= "
+            f"the blocked kernel takes no n = {s.n} in {dtype}: one instance's slab "
+            f"({warp_bytes} B, D = {D}) does not fit a CTA ({MAX_CTA_SMEM} B, D <= "
             f"{32 * MAX_ROWS_PER_LANE})"
         )
     warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // warp_bytes)
@@ -595,46 +641,64 @@ def _blocked_solve_cuda(
     line_search="armijo",
     barrier="mpc",
 ):
-    """Launch ``csrc/blocked.cu`` on feature-major CUDA tensors; same
-    contract as ``_blocked_solve_plain``. Raises on anything the kernel does
-    not take and on a refused launch."""
-    global BLOCKED_LAUNCHES
-    if family.cuda_functor is None and family.cuda_program is not None:
+    """Launch kernel 2 on feature-major CUDA tensors at their own strides
+    (the transposed views of batch-major tensors are read where they lie);
+    same contract as ``_blocked_solve_plain``. A hand-written family runs its
+    instance in ``csrc/blocked.cu``; a family generated from a Problem runs
+    the instance that ``ops/fused_emit.py`` emitted and built for it. Copies
+    nothing; raises on anything the kernel does not take and on a refused
+    launch."""
+    global BLOCKED_LAUNCHES, GENERATED_LAUNCHES
+    if family.cuda_functor is not None and family.cuda_functor[0] not in _CUDA_FAMILY_IDS:
         raise NotImplementedError(
-            f"a family generated from a Problem past the register tier (n + m_eq = "
-            f"{family.n + family.m_eq} > {REGISTER_KKT_MAX}) needs the family-to-CUDA "
-            "emitter's blocked target, a warp-cooperative runtime-n functor for "
-            "csrc/blocked_sqp.cuh (ROADMAP.md, item 16), which the port does not have "
-            "yet; on the CPU the plain blocked version solves it"
+            f"no blocked-tier functor for the {family.cuda_functor[0]!r} family in "
+            "csrc/families.cuh; build the family with family_from_problem, whose program "
+            "the family-to-CUDA emitter's blocked target turns into its instance of the kernel"
         )
-    if family.cuda_functor is None or family.cuda_functor[0] not in _CUDA_FAMILY_IDS:
-        what = "no device-code functor" if family.cuda_functor is None else (
-            f"no blocked-tier functor for the {family.cuda_functor[0]!r} family")
+    if family.cuda_functor is None and family.cuda_program is None:
         raise NotImplementedError(
-            f"this FusedFamily has {what} in csrc/families.cuh; other families "
-            "need the family-to-CUDA emitter's blocked target (ROADMAP.md, item 16)"
+            "this FusedFamily has neither a hand-written device functor (cuda_functor) "
+            "nor a generated device program (cuda_program): build it with "
+            "family_from_problem, whose program the family-to-CUDA emitter's blocked "
+            "target turns into the family's instance of the kernel"
         )
-    kind, link_len = family.cuda_functor
     n = family.n
     B = data_t.shape[1] if data_t.dim() == 2 else -1
     _check_cuda_tensors(
         (("data", data_t, (family.data_rows, B)), ("x0", x0_t, (n, B))),
-        data_t.dtype, data_t.device, B,
+        data_t.dtype, data_t.device, B, contiguous=False,
     )
+    # A size without a route raises ValueError, and an emitted source is
+    # built, before anything is allocated: an operation the emitter cannot
+    # mirror raises UnsupportedOp here.
+    plan = launch_plan(slab_shape(family), max(B, 1), data_t.dtype)
+    if family.cuda_functor is not None:
+        kind, link_len = family.cuda_functor
+        lib = _build.load_library()
+
+        def launch(*io):
+            return lib.mo_blocked_launch(_CUDA_FAMILY_IDS[kind], n, *io[:-1], ctypes.c_double(link_len), io[-1])
+
+        error_text = _build.error_string
+    else:
+        lib = family.cuda_program.blocked_library()
+        launch = lib.mo_generated_blocked_launch
+
+        def error_text(rc):
+            return f"error {rc}: {lib.mo_generated_error_string(rc).decode()}"
+
     kw = dict(dtype=data_t.dtype, device=data_t.device)
     x_out = torch.empty((n, B), **kw)
     state = torch.empty((3, B), **kw)
     if B == 0:
         return x_out, state
-    plan = launch_plan(n, B, data_t.dtype)
-    lib = _build.load_library()
+    strides = (ctypes.c_longlong * 4)(data_t.stride(1), data_t.stride(0), x0_t.stride(1), x0_t.stride(0))
     with torch.cuda.device(data_t.device):
-        rc = lib.mo_blocked_launch(
-            _CUDA_FAMILY_IDS[kind],
-            n,
+        rc = launch(
             _CUDA_DTYPE_IDS[data_t.dtype],
             data_t.data_ptr(),
             x0_t.data_ptr(),
+            strides,
             x_out.data_ptr(),
             state.data_ptr(),
             B,
@@ -644,12 +708,14 @@ def _blocked_solve_cuda(
             ls_iterations,
             int(line_search == "polynomial"),
             int(barrier == "mpc"),
-            ctypes.c_double(link_len),
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"blocked kernel launch failed: {_build.error_string(rc)}")
-    BLOCKED_LAUNCHES += 1
+        raise RuntimeError(f"blocked kernel launch failed: {error_text(rc)}")
+    if family.cuda_functor is not None:
+        BLOCKED_LAUNCHES += 1
+    else:
+        GENERATED_LAUNCHES += 1
     return x_out, state
 
 
@@ -680,12 +746,15 @@ def blocked_solve_batch(
     lanes = 128 if lanes is None else lanes
     if lanes <= 0 or lanes % 128:
         raise ValueError(f"lanes must be a positive multiple of 128, not {lanes}")
-    data_t, x0_t = convert.to_feature_major(data, x0, device)
-    if data_t.shape[0] != family.data_rows or x0_t.shape[0] != family.n:
+    data, x0 = convert.to_batch_major(data, x0, device)
+    if data.shape[1] != family.data_rows or x0.shape[1] != family.n:
         raise ValueError(
             f"expected data (B, {family.data_rows}) and x0 (B, {family.n}); got "
-            f"{tuple(data_t.T.shape)} and {tuple(x0_t.T.shape)}"
+            f"{tuple(data.shape)} and {tuple(x0.shape)}"
         )
+    # The kernel and the plain version read the feature-major views where
+    # they lie: a call on card tensors copies nothing.
+    data_t, x0_t = data.T, x0.T
     args = (
         family, data_t, x0_t, max_iterations, qp_iterations, ls_iterations,
         line_search, barrier,

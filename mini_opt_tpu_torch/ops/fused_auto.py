@@ -16,9 +16,11 @@ column by column, as the JAX package does; custom ``Residual.jac``
 callables are not consulted. The family's ``linearize`` / ``errors``
 accumulate in exactly the JAX package's order, and they are the plain
 version of the generated kernel: CPU tensors run them inside
-``_fused_solve_plain``; on the card the family's ``cuda_program``
-(``ops/fused_emit.py``) traces them into the family's own instance of
-kernel 1.
+``_fused_solve_plain`` (or ``_blocked_solve_plain`` past D = 32); on the
+card the family's ``cuda_program`` (``ops/fused_emit.py``) traces them into
+the family's own instance of kernel 1, or, past D = 32, traces each residual
+group's block evaluation (``ResidualGroup``, ``_eval_one``) into its own
+instance of kernel 2.
 
 The structure (variable count, residual indices and dims, box bounds) is
 read from one eager probe of the builder with zero data.
@@ -28,14 +30,15 @@ against the general path on sample instances.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..residual import BlockResidual, Residual
-from .fused_emit import FamilyProgram
+from .fused_emit import BlockCallables, FamilyProgram
 from .fused_ik import FusedFamily
 
 
@@ -115,6 +118,93 @@ def _basis_tangents(p, one, zero):
     return [torch.stack([one if i == a else zero for i in range(p)]) for a in range(p)]
 
 
+def _eval_one(fn, dim, idx, x_regs, with_jac):
+    """Evaluate one residual block ``fn(xl) -> (dim, B)``.
+
+    Returns (rows, cols): rows[k] is output row k and cols[a][k] is
+    d rows[k] / d local-param a (None without jac)."""
+    p = len(idx)
+    xl = torch.stack([x_regs[i] for i in idx])  # (P, B)
+    if not with_jac:
+        r = fn(xl)
+        return [r[k] for k in range(dim)], None
+    one = torch.ones_like(x_regs[0])
+    zero = torch.zeros_like(x_regs[0])
+    rows = None
+    cols = []
+    for tangent in _basis_tangents(p, one, zero):
+        r, dr = torch.func.jvp(fn, (xl,), (tangent,))
+        # In the variables' type: a tangent that no variable feeds can come
+        # out float64 from float32 inputs (a Python float times a zero
+        # tangent), and the emitted float32 program holds no float64 value.
+        # A no-op otherwise.
+        dr = dr.to(xl.dtype)
+        if rows is None:
+            rows = [r[k] for k in range(dim)]
+        cols.append([dr[k] for k in range(dim)])
+    return rows, cols
+
+
+def _block_fn(res, b):
+    """Block b of a static-index BlockResidual as ``fn(xl)``, its data row
+    bound."""
+    if res.data is None:
+        return lambda xl: res.fn(xl, torch.zeros((0,), dtype=xl.dtype, device=xl.device))
+    drow = res.data[b]
+    return lambda xl: res.fn(xl, drow)
+
+
+def _iter_blocks(res, x_regs, with_jac):
+    """Yield (global_idx, rows, cols) per block: one for a plain Residual,
+    ``num_blocks`` for a static-index BlockResidual (each with its own data
+    row bound)."""
+    if isinstance(res, BlockResidual):
+        for b in range(res.num_blocks):
+            idx = tuple(res.indices[b])
+            yield idx, *_eval_one(_block_fn(res, b), res.dim, idx, x_regs, with_jac)
+    else:
+        yield res.index, *_eval_one(res.fn, res.dim, res.index, x_regs, with_jac)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualGroup:
+    """One Residual or static-index BlockResidual of a generated family's
+    Problem, as the emitter's blocked target evaluates it: ``role`` "cost" or
+    "eq", its ``position`` in that tuple of the Problem, ``dim`` rows a
+    block, each block's global variable ``indices``, and the shape of one
+    block's data row without the batch axis (None: a Residual, or a
+    BlockResidual without data)."""
+
+    role: str
+    position: int
+    dim: int
+    indices: Tuple[Tuple[int, ...], ...]
+    data_shape: Optional[Tuple[int, ...]]
+
+    @property
+    def data_len(self) -> int:
+        return 0 if self.data_shape is None else int(np.prod(self.data_shape, dtype=np.int64))
+
+
+def _residual_groups(probe):
+    """The probe Problem's residuals as ResidualGroups, costs first, in
+    ``linearize``'s order."""
+    groups = []
+    for role, residuals in (("cost", probe.costs), ("eq", probe.equality_constraints)):
+        for pos, r in enumerate(residuals):
+            if isinstance(r, BlockResidual):
+                shape = None if r.data is None else tuple(int(d) for d in r.data.shape[1:])
+                idx = tuple(tuple(int(i) for i in row) for row in r.indices)
+                groups.append(ResidualGroup(role, pos, r.dim, idx, shape))
+            else:
+                groups.append(ResidualGroup(role, pos, r.dim, (tuple(int(i) for i in r.index),), None))
+    return tuple(groups)
+
+
+def _residual(problem, group):
+    return (problem.costs if group.role == "cost" else problem.equality_constraints)[group.position]
+
+
 def family_from_problem(
     problem_builder: Callable,
     data_rows: int,
@@ -138,50 +228,6 @@ def family_from_problem(
     """
     probe, n, lower, upper, m_eq = _probe_structure(problem_builder, data_rows)
     g_pattern, eq_patterns = _sparsity_patterns(probe, n)
-
-    def _eval_one(fn, dim, idx, x_regs, with_jac):
-        """Evaluate one residual block ``fn(xl) -> (dim, B)``.
-
-        Returns (rows, cols): rows[k] is output row k and cols[a][k] is
-        d rows[k] / d local-param a (None without jac)."""
-        p = len(idx)
-        xl = torch.stack([x_regs[i] for i in idx])  # (P, B)
-        if not with_jac:
-            r = fn(xl)
-            return [r[k] for k in range(dim)], None
-        one = torch.ones_like(x_regs[0])
-        zero = torch.zeros_like(x_regs[0])
-        rows = None
-        cols = []
-        for tangent in _basis_tangents(p, one, zero):
-            r, dr = torch.func.jvp(fn, (xl,), (tangent,))
-            # In the variables' type: a tangent that no variable feeds can
-            # come out float64 from float32 inputs (a Python float times a
-            # zero tangent), and the emitted float32 program holds no
-            # float64 value. A no-op otherwise.
-            dr = dr.to(xl.dtype)
-            if rows is None:
-                rows = [r[k] for k in range(dim)]
-            cols.append([dr[k] for k in range(dim)])
-        return rows, cols
-
-    def _iter_blocks(res, x_regs, with_jac):
-        """Yield (global_idx, rows, cols) per block: one for a plain
-        Residual, ``num_blocks`` for a static-index BlockResidual (each with
-        its own data row bound)."""
-        if isinstance(res, BlockResidual):
-            for b in range(res.num_blocks):
-                idx = tuple(res.indices[b])
-                if res.data is None:
-                    fn = lambda xl, _fn=res.fn: _fn(  # noqa: E731
-                        xl, torch.zeros((0,), dtype=xl.dtype, device=xl.device)
-                    )
-                else:
-                    drow = res.data[b]
-                    fn = lambda xl, _fn=res.fn, _d=drow: _fn(xl, _d)  # noqa: E731
-                yield idx, *_eval_one(fn, res.dim, idx, x_regs, with_jac)
-        else:
-            yield res.index, *_eval_one(res.fn, res.dim, res.index, x_regs, with_jac)
 
     def linearize(x_regs, data_regs):
         problem = problem_builder(torch.stack(data_regs))
@@ -234,6 +280,38 @@ def family_from_problem(
                     eq_l1 = eq_l1 + torch.abs(r)
         return f, eq_l1
 
+    groups = _residual_groups(probe)
+
+    def group_outputs(group, x_local, drow, payload, with_jac):
+        """One block of ``group`` on its local variables and its data row
+        (and, for a residual that reads the payload itself, the payload): the
+        rows, then with ``with_jac`` the columns cols[a][k], a-major, by the
+        same ``_eval_one`` as ``linearize`` / ``errors``."""
+        res = _residual(problem_builder(torch.stack(payload)), group)
+        if not isinstance(res, BlockResidual):
+            fn = res.fn
+        elif res.data is None:
+            fn = _block_fn(res, 0)
+        else:
+            batch = tuple(x_local[0].shape)
+            d = torch.stack(drow).reshape(group.data_shape + batch) if drow else \
+                x_local[0].new_zeros(group.data_shape + batch)
+            fn = lambda xl: res.fn(xl, d)  # noqa: E731
+        rows, cols = _eval_one(fn, group.dim, tuple(range(len(x_local))), x_local, with_jac)
+        return rows + ([] if cols is None else [v for col in cols for v in col])
+
+    def block_data(payload):
+        """Every data row of every BlockResidual with data, flattened: group
+        by group, block by block, each row in C order."""
+        problem = problem_builder(torch.stack(payload))
+        out = []
+        for group in groups:
+            if group.data_shape is not None:
+                data = _residual(problem, group).data
+                for b in range(len(group.indices)):
+                    out.extend(data[b].reshape((group.data_len,) + tuple(payload[0].shape)).unbind(0))
+        return out
+
     return FusedFamily(
         n=n,
         data_rows=data_rows,
@@ -245,7 +323,10 @@ def family_from_problem(
         retract=retract,
         g_pattern=g_pattern,
         eq_patterns=eq_patterns,
-        cuda_program=FamilyProgram(n, m_eq, data_rows, lower, upper, linearize, errors, retract),
+        cuda_program=FamilyProgram(
+            n, m_eq, data_rows, lower, upper, linearize, errors, retract,
+            blocks=BlockCallables(groups, group_outputs, block_data),
+        ),
     )
 
 

@@ -1,6 +1,7 @@
-"""The family-to-CUDA emitter, register target: a family that
-``family_from_problem`` generated from a ``Problem`` becomes its own
-instance of kernel 1 (``csrc/fused_sqp.cuh``).
+"""The family-to-CUDA emitter: a family that ``family_from_problem``
+generated from a ``Problem`` becomes its own instance of kernel 1
+(``csrc/fused_sqp.cuh``, the register target, D = n + m_eq <= 32) or of
+kernel 2 (``csrc/blocked_sqp.cuh``, the blocked target, D up to 192).
 
 It adds no kernel. The JAX package traces a generated family's register
 callables into its Pallas kernel (``pallas_ik.py::_make_kernel``); here the
@@ -36,11 +37,29 @@ Jacobians).
 ``run_program`` runs a ``Program`` statement by statement on ``(B,)``
 tensors; on the CPU it reproduces the plain callables bit for bit, which is
 how the tests hold the lowering.
+
+The blocked target traces no whole linearization. Kernel 2 runs one
+instance per warp, so the family's work is split by residual block: each
+residual group (a Residual, or a static-index BlockResidual whose blocks
+share one function) is traced once, one block on its P local variables and
+its data row, into the program of that block's rows and Jacobian columns
+(``blocked_programs``); the emitted functor (``blocked_source``, with
+``csrc/blocked_launch.cuh``) evaluates block l, l + 32, ... on lane l into
+the slab's scratch and then sums them into f, G, c and takes r_eq and J_eq
+in the plain ``linearize``'s order. Its program is O(groups) statements and
+its tables O(blocks) entries; after clearing G, c and J_eq it sums into only
+the cells its blocks touch, which are the family's ``g_pattern`` and
+``eq_patterns``.
+``run_blocked`` runs the same computation on ``(B,)`` tensors. The blocked
+target takes no retract (kernel 2 retracts one variable at a time), no block
+that reads a variable twice and no block data row computed from the
+payload: each raises ``UnsupportedOp`` by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import operator
 from typing import Callable, Tuple
@@ -526,18 +545,50 @@ def _ternary_chain(values, fmt, default):
     return expr
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockCallables:
+    """What the blocked target needs of a generated family beyond its
+    ``linearize`` / ``errors``: the Problem's residuals as
+    ``fused_auto.ResidualGroup``s, ``outputs(group, x_local, drow, payload,
+    with_jac)`` (one block's rows, then its columns a-major) and
+    ``data(payload)`` (every block's data row, flattened)."""
+
+    groups: tuple
+    outputs: Callable
+    data: Callable
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedPrograms:
+    """A generated family's blocked target in one dtype: per residual group,
+    the program of one block's linearization (``lin``: rows, then columns
+    a-major) and of its rows alone (``err``), on the block's P local
+    variables, its data row and the payload; and per group and block, each
+    data-row element's source: ``(k, 0.0)`` payload row k, or ``(-1, v)``
+    the constant v."""
+
+    lin: tuple
+    err: tuple
+    data_src: tuple
+
+
 class FamilyProgram:
     """The device program of a generated family: its callables traced per
     dtype, the emitted ``.cu`` and, at first use, the built and bound
-    library. ``family_from_problem`` makes one per family."""
+    library, for the register target (kernel 1) and the blocked target
+    (kernel 2). ``family_from_problem`` makes one per family."""
 
-    def __init__(self, n, m_eq, data_rows, lower, upper, linearize, errors, retract):
+    def __init__(self, n, m_eq, data_rows, lower, upper, linearize, errors, retract, blocks=None):
         self.n, self.m_eq, self.data_rows = n, m_eq, data_rows
         self.lower, self.upper = tuple(lower), tuple(upper)
         self._linearize, self._errors, self._retract = linearize, errors, retract
+        self._blocks = blocks
         self._programs = {}
+        self._blocked = {}
         self._source = None
+        self._blocked_source = None
         self._lib = None
+        self._blocked_lib = None
 
     @property
     def lo(self):
@@ -639,6 +690,279 @@ class FamilyProgram:
             self._lib = _build.load_generated(self.source())
         return self._lib
 
+    # -- the blocked target (kernel 2) -------------------------------------
+    def _check_blocked(self):
+        """Raise UnsupportedOp for what the blocked target does not take."""
+        if self._blocks is None:
+            raise UnsupportedOp("the family carries no residual structure for the blocked target")
+        if self._retract is not None:
+            raise UnsupportedOp(
+                "a retract on the blocked target: kernel 2 applies its family's retraction to one "
+                "variable at a time, and the emitter does not split a traced retract by variable")
+        for g in self._blocks.groups:
+            for idx in g.indices:
+                if len(set(idx)) != len(idx):
+                    raise UnsupportedOp(
+                        f"a residual block that reads a variable twice (indices {idx}) on the blocked "
+                        "target: its lanes scatter one block's Hessian cells side by side")
+        D = self.n + self.m_eq
+        if not 1 <= D <= 192:
+            raise UnsupportedOp(f"D = n + m_eq = {D} on the blocked target, which takes D = 1..192")
+
+    def _layout(self):
+        """Per group: (first slot in scr, slots a block, first block) -- the
+        blocks' outputs block-major in the family's scratch, the blocks
+        dealt to the lanes in one run over all groups."""
+        out, slot, block = [], 0, 0
+        for g in self._blocks.groups:
+            P = len(g.indices[0])
+            k = g.dim * (1 + P)
+            out.append((slot, k, block))
+            slot += k * len(g.indices)
+            block += len(g.indices)
+        return out
+
+    def blocked_scratch(self):
+        """Slots of kernel 2's scratch that the blocked functor takes: every
+        block's linearization outputs."""
+        if self._blocks is None:
+            raise UnsupportedOp("the family carries no residual structure for the blocked target")
+        return sum(g.dim * (1 + len(g.indices[0])) * len(g.indices) for g in self._blocks.groups)
+
+    def blocked_programs(self, dtype):
+        """The blocked target's :class:`BlockedPrograms` in ``dtype``, traced
+        once: a few small programs (one block of each residual group) where
+        the register target traces the whole linearization."""
+        self._check_blocked()
+        if dtype not in self._blocked:
+            bl, rows = self._blocks, self.data_rows
+            lin, err = [], []
+            for g in bl.groups:
+                P, L = len(g.indices[0]), g.data_len
+
+                def flat(*ts, g=g, P=P, L=L, jac=True):
+                    return bl.outputs(g, list(ts[:P]), list(ts[P:P + L]), list(ts[P + L:]), jac)
+
+                lin.append(trace(flat, P + L + rows, dtype))
+                err.append(trace(functools.partial(flat, jac=False), P + L + rows, dtype))
+            srcs = []
+            if any(g.data_shape is not None for g in bl.groups):
+                prog = trace(lambda *ts: bl.data(list(ts)), rows, dtype)
+                for o in prog.outputs:
+                    if isinstance(o, Const):
+                        srcs.append((-1, float(o.value)))
+                    elif prog.stmts[o].op == "in":
+                        srcs.append((prog.stmts[o].args[0], 0.0))
+                    else:
+                        raise UnsupportedOp(
+                            "a block's data row computed from the payload on the blocked target: "
+                            "each element must be a payload row or a constant")
+            data_src, it = [], iter(srcs)
+            for g in bl.groups:
+                data_src.append(tuple(tuple(next(it) for _ in range(g.data_len)) for _ in g.indices))
+            self._blocked[dtype] = BlockedPrograms(tuple(lin), tuple(err), tuple(data_src))
+        return self._blocked[dtype]
+
+    def run_blocked(self, dtype, fn, x, d):
+        """The blocked functor's computation on (B,) tensors: each block's
+        program run statement by statement (``run_program``), then the
+        scatter in the order of csrc/blocked_launch.cuh -- what the kernel
+        computes, as ``linearize`` / ``errors`` return it."""
+        bp = self.blocked_programs(dtype)
+        like = x[0]
+        outs = []
+        for g, group in enumerate(self._blocks.groups):
+            prog = (bp.lin if fn == "linearize" else bp.err)[g]
+            outs.append([
+                run_program(prog, [x[i] for i in idx]
+                            + [d[k] if k >= 0 else torch.full_like(like, v) for k, v in bp.data_src[g][b]] + list(d))
+                for b, idx in enumerate(group.indices)])
+        zero = torch.zeros_like(like)
+        f = zero
+        for group, per in zip(self._blocks.groups, outs):
+            if group.role == "cost":
+                for o in per:
+                    for r in o[:group.dim]:
+                        f = f + 0.5 * r * r
+        if fn == "errors":
+            eq = zero
+            for group, per in zip(self._blocks.groups, outs):
+                if group.role == "eq":
+                    for o in per:
+                        for r in o[:group.dim]:
+                            eq = eq + torch.abs(r)
+            return f, eq
+        n = self.n
+        G = [[zero] * (i + 1) for i in range(n)]
+        c = [zero] * n
+        r_eq, J_eq = [], []
+        for group, per in zip(self._blocks.groups, outs):
+            dim = group.dim
+            for idx, o in zip(group.indices, per):
+                rows, cols = o[:dim], [o[dim + a * dim: dim * (a + 2)] for a in range(len(idx))]
+                if group.role == "eq":
+                    for k in range(dim):
+                        r_eq.append(rows[k])
+                        row = [zero] * n
+                        for a, ga in enumerate(idx):
+                            row[ga] = cols[a][k]
+                        J_eq.append(row)
+                    continue
+                for a in range(len(idx)):
+                    for a2 in range(a + 1):
+                        i, j = max(idx[a], idx[a2]), min(idx[a], idx[a2])
+                        acc = G[i][j]
+                        for k in range(dim):
+                            acc = acc + cols[a][k] * cols[a2][k]
+                        G[i][j] = acc
+                for a, ga in enumerate(idx):
+                    acc = c[ga]
+                    for k in range(dim):
+                        acc = acc + cols[a][k] * rows[k]
+                    c[ga] = acc
+        return f, r_eq, J_eq, G, c
+
+    def blocked_source(self):
+        """The family's .cu for kernel 2: the GeneratedFamily functor of
+        csrc/blocked_launch.cuh's interface (float and double members) and
+        its plain-C launcher, emitted once."""
+        if self._blocked_source is None:
+            self._blocked_source = self._emit_blocked()
+        return self._blocked_source
+
+    def _emit_blocked(self):
+        n, m, rows = self.n, self.m_eq, self.data_rows
+        groups = self._blocks.groups
+        layout = self._layout()
+        lo = [i for i, v in enumerate(self.lower) if v is not None]
+        hi = [i for i, v in enumerate(self.upper) if v is not None]
+        progs = {dt: self.blocked_programs(dt) for dt in (torch.float32, torch.float64)}
+
+        def table(ctype, name, values):
+            return f"__device__ const {ctype} {name}[] = {{{', '.join(values)}}};"
+
+        def dliteral(v):
+            return _literal(Const(float(v), torch.float64), "double")
+
+        tables = []
+        if lo:
+            slots = [-1] * n
+            for j, i in enumerate(lo):
+                slots[i] = j
+            tables += [table("int", "kLoSlot", map(str, slots)),
+                       table("double", "kLoVal", (dliteral(self.lower[i]) for i in lo))]
+        if hi:
+            slots = [-1] * n
+            for j, i in enumerate(hi):
+                slots[i] = j
+            tables += [table("int", "kHiSlot", map(str, slots)),
+                       table("double", "kHiVal", (dliteral(self.upper[i]) for i in hi))]
+        for g, group in enumerate(groups):
+            tables.append(table("int", f"kIx{g}", (str(i) for idx in group.indices for i in idx)))
+            if group.data_len:
+                src32, src64 = progs[torch.float32].data_src[g], progs[torch.float64].data_src[g]
+                if [[k for k, _ in b] for b in src32] != [[k for k, _ in b] for b in src64]:
+                    raise UnsupportedOp("the blocks' data rows read other payload rows in float32 and float64")
+                tables += [
+                    table("int", f"kDs{g}", (str(k) for b in src64 for k, _ in b)),
+                    table("float", f"kDf{g}", (_literal(Const(v, torch.float32), "float")
+                                               for b in src32 for _, v in b)),
+                    table("double", f"kDd{g}", (_literal(Const(v, torch.float64), "double")
+                                                for b in src64 for _, v in b)),
+                ]
+
+        members = []
+        for dtype, T, dv in ((torch.float32, "float", "kDf"), (torch.float64, "double", "kDd")):
+            bp = progs[dtype]
+            for g, group in enumerate(groups):
+                P, L = len(group.indices[0]), group.data_len
+                xs = [f"th[ix[{a}]]" for a in range(P)]
+                ds = [f"mo::gen::drow(tgt, ds[{q}], dv[{q}])" for q in range(L)]
+                ps = [f"tgt[{k}]" for k in range(rows)]
+                head = [f"    const int* ix = kIx{g} + b * {P};"]
+                if L:
+                    head += [f"    const int* ds = kDs{g} + b * {L};", f"    const {T}* dv = {dv}{g} + b * {L};"]
+                for kind, prog, k_out in (("lin", bp.lin[g], group.dim * (1 + P)), ("err", bp.err[g], group.dim)):
+                    body = cpp_body(prog, xs + ds + ps, [f"out[{o}]" for o in range(k_out)])
+                    members += [
+                        "",
+                        f"  __device__ __forceinline__ static void {kind}{g}(const {T}* th, const {T}* tgt, int b, "
+                        f"{T}* out) {{",
+                        *(head if "ix[" in body or "ds[" in body else []),
+                        body,
+                        "  }",
+                    ]
+
+        def evaluate(kind):
+            lines = []
+            for g, group in enumerate(groups):
+                base, k, first = layout[g]
+                lines.append(f"    for (int b = mo::gen::first_block(lane, {first}); b < {len(group.indices)}; "
+                             f"b += mo::gen::kLanes) {kind}{g}(th, tgt, b, scr + {base} + b * {k});")
+            return lines
+
+        lin = ["    for (int p = lane; p < N * (N + 1) / 2; p += mo::gen::kLanes) G[p] = T(0);",
+               "    for (int p = lane; p < N; p += mo::gen::kLanes) c[p] = T(0);",
+               "    for (int p = lane; p < M * N; p += mo::gen::kLanes) Jeq[p] = T(0);",
+               *evaluate("lin"), "    __syncwarp();", "    f = T(0);"]
+        err = [*evaluate("err"), "    __syncwarp();", "    f = T(0);", "    eq = T(0);"]
+        row = 0
+        for g, group in enumerate(groups):
+            base, k, _ = layout[g]
+            P, nb, dim = len(group.indices[0]), len(group.indices), group.dim
+            if group.role == "cost":
+                lin.append(f"    mo::gen::scatter_cost<T, {P}, {dim}>(lane, {nb}, kIx{g}, scr + {base}, G, c);")
+                lin.append(f"    f = mo::gen::sum_squares<T, {dim}, {k}>(f, {nb}, scr + {base});")
+                err.append(f"    f = mo::gen::sum_squares<T, {dim}, {k}>(f, {nb}, scr + {base});")
+            else:
+                lin.append(f"    mo::gen::scatter_eq<T, {P}, {dim}>(lane, {nb}, kIx{g}, scr + {base}, {row}, N, req, "
+                           "Jeq);")
+                err.append(f"    eq = mo::gen::sum_abs<T, {dim}, {k}>(eq, {nb}, scr + {base});")
+                row += dim * nb
+        lin.append("    __syncwarp();")
+        err.append("    __syncwarp();")
+
+        struct = [
+            f"  static constexpr int N = {n};",
+            f"  static constexpr int M = {m};",
+            f"  static constexpr int ROWS = {rows};",
+            f"  static constexpr int NLO = {len(lo)};",
+            f"  static constexpr int NHI = {len(hi)};",
+            f"  static constexpr int SCRATCH = {self.blocked_scratch()};",
+            "  __host__ __device__ int nvar() const { return N; }",
+            "  __host__ __device__ int nlo() const { return NLO; }",
+            "  __host__ __device__ int nhi() const { return NHI; }",
+            "  __host__ __device__ int scratch() const { return SCRATCH; }",
+            f"  __device__ int lo_slot(int i) const {{ return {'kLoSlot[i]' if lo else '-1'}; }}",
+            f"  __device__ int hi_slot(int i) const {{ return {'kHiSlot[i]' if hi else '-1'}; }}",
+            f"  __device__ double lo_val(int j) const {{ return {'kLoVal[j]' if lo else '0.0'}; }}",
+            f"  __device__ double hi_val(int j) const {{ return {'kHiVal[j]' if hi else '0.0'}; }}",
+            "  template <typename T>",
+            "  __device__ T retract(T a) const { return a; }",
+            *members,
+            "",
+            "  template <typename T>",
+            "  __device__ void linearize(int lane, const T* th, const T* tgt, T* scr, T* G, T* Jeq, T* c, T* req,",
+            "                            T& f) const {",
+            *lin,
+            "  }",
+            "",
+            "  template <typename T>",
+            "  __device__ void errors(int lane, const T* th, const T* tgt, T* scr, T& f, T& eq) const {",
+            *err,
+            "  }",
+        ]
+        return _BLOCKED_SOURCE.format(n=n, m=m, rows=rows, nlo=len(lo), nhi=len(hi), groups=len(groups),
+                                      tables="\n".join(tables), struct="\n".join(struct))
+
+    def blocked_library(self):
+        """The family's kernel-2 library, emitted, built and bound at first
+        use and kept; raises UnsupportedOp for what the blocked target does
+        not take, and with nvcc's stderr when the build fails."""
+        if self._blocked_lib is None:
+            self._blocked_lib = _build.load_generated(self.blocked_source())
+        return self._blocked_lib
+
 
 _SOURCE = """\
 // Kernel 1's instance for one family generated from a Problem
@@ -687,4 +1011,57 @@ extern "C" int mo_generated_launch(int dtype, const void* data, const void* x0, 
 }}
 
 extern "C" const char* mo_generated_error_string(int rc) {{ return error_text(rc); }}
+"""
+
+
+_BLOCKED_SOURCE = """\
+// Kernel 2's instance for one family generated from a Problem
+// (ops/fused_auto.py::family_from_problem), emitted by ops/fused_emit.py's
+// blocked target: N = {n}, M = {m}, ROWS = {rows}, NLO = {nlo}, NHI = {nhi},
+// {groups} residual groups. Each group's block program is one aten operation
+// a statement of the plain version's per-block evaluation, traced on (B,)
+// tensors; the lanes evaluate the blocks side by side into the scratch, and
+// the scatter (csrc/blocked_launch.cuh) sums them in the plain linearize's
+// order, so that the kernel reproduces the plain version bit for bit. Do not
+// edit: it is rebuilt from the family at first use.
+#include "blocked_launch.cuh"
+
+namespace {{
+
+__device__ __forceinline__ float mo_opaque(float v) {{
+  asm("" : "+f"(v));
+  return v;
+}}
+__device__ __forceinline__ double mo_opaque(double v) {{
+  asm("" : "+d"(v));
+  return v;
+}}
+
+{tables}
+
+struct GeneratedFamily {{
+{struct}
+}};
+
+}}  // namespace
+
+// dtype: 0 float, 1 double; the other arguments as mo_blocked_launch's.
+extern "C" int mo_generated_blocked_launch(int dtype, const void* data, const void* x0, const long long* strides,
+                                           void* x_out, void* state, int B, int warps, int max_iterations,
+                                           int qp_iterations, int ls_iterations, int polynomial, int mpc,
+                                           void* stream) {{
+  mo::blocked::LaunchArgs a;
+  if (const int rc = mo::blocked::launch_args(data, x0, strides, x_out, state, B, warps, max_iterations,
+                                              qp_iterations, ls_iterations, polynomial, mpc, stream, &a)) {{
+    return rc;
+  }}
+  return mo::gen::launch_generated(GeneratedFamily{{}}, dtype, a, false);
+}}
+
+// CTAs of `warps` instances that fit one SM at once; negative on an error.
+extern "C" int mo_generated_blocked_occupancy(int dtype, int warps) {{
+  return mo::gen::launch_generated(GeneratedFamily{{}}, dtype, mo::blocked::occupancy_args(warps), true);
+}}
+
+extern "C" const char* mo_generated_error_string(int rc) {{ return mo::gen::error_text(rc); }}
 """

@@ -136,9 +136,9 @@ class FusedFamily:
         package's (pallas_ik.py:174-186): the lower-triangle (i, j) cells
         of the cost Hessian and, per equality row, the variables its
         Jacobian row touches, that MAY be nonzero (None = dense).
-        ``family_from_problem`` fills both from the Problem's index lists.
-        Nothing in the port reads them yet: the plain blocked tier solves
-        dense.
+        ``family_from_problem`` fills both from the Problem's index lists;
+        the emitter's blocked functor writes just those cells, and the plain
+        blocked tier solves dense (the other cells are exact zeros).
       cuda_program: a generated family's device program
         (``ops/fused_emit.py::FamilyProgram``), which emits, builds and
         binds the family's own instance of the kernel at first use; set by

@@ -55,7 +55,9 @@ def main():
         ms, repeats = timer.time_ms(solve(B, (6, 3, 2)), launches=10, held=True)
         extra = {}
         if plan is not None:
-            p = plan(ARM_N, B, torch.float32)
+            # A tree before slab shapes takes the joint count itself.
+            shape = blk.planar_slab_shape(ARM_N) if hasattr(blk, "planar_slab_shape") else ARM_N
+            p = plan(shape, B, torch.float32)
             extra = dict(warps_per_cta=p.warps, cta_bytes=p.cta_bytes, grid=p.grid)
         row(kernel=2, B=B, D=ARM_N + 1, budget="6/3/2 mpc armijo", ms=ms, repeats=repeats, **extra)
 

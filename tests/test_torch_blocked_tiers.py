@@ -267,7 +267,7 @@ LIMIT = {torch.float32: 191, torch.float64: 161}
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("n", [1, 2, 33, 48, 63, 64, 111, 127, 161])
 def test_launch_plan_bytes_per_warp_count_the_slab(n, dtype):
-    plan = blk.launch_plan(n, 8192, dtype)
+    plan = blk.launch_plan(blk.planar_slab_shape(n), 8192, dtype)
     size = torch.empty((), dtype=dtype).element_size()
     assert plan.slots == sum(_slab_arrays(n, dtype).values())
     # Whole 16-byte units, so that every slab is aligned alike.
@@ -285,7 +285,7 @@ def test_launch_plan_warps_fall_where_slabs_pass_a_cta(dtype):
     within 232,448 B and W + 1 past it."""
     seen = set()
     for n in range(1, LIMIT[dtype] + 1):
-        plan = blk.launch_plan(n, 1, dtype)
+        plan = blk.launch_plan(blk.planar_slab_shape(n), 1, dtype)
         seen.add(plan.warps)
         assert 1 <= plan.warps <= blk.WARPS_PER_CTA
         assert plan.warps * plan.warp_bytes <= CTA_SMEM
@@ -297,12 +297,12 @@ def test_launch_plan_warps_fall_where_slabs_pass_a_cta(dtype):
 @pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 def test_every_size_the_first_design_launched_gets_a_plan(dtype):
     for n in range(33, PARENT_LIMIT[dtype] + 1):
-        plan = blk.launch_plan(n, 8192, dtype)
+        plan = blk.launch_plan(blk.planar_slab_shape(n), 8192, dtype)
         assert plan.rows_per_lane == blk.rows_per_lane(n + 1)
         assert 32 * plan.rows_per_lane >= n + 1 > 32 * (plan.rows_per_lane - 2)
-    blk.launch_plan(LIMIT[dtype], 1, dtype)
+    blk.launch_plan(blk.planar_slab_shape(LIMIT[dtype]), 1, dtype)
     with pytest.raises(ValueError, match="does not fit a CTA"):
-        blk.launch_plan(LIMIT[dtype] + 1, 1, dtype)
+        blk.launch_plan(blk.planar_slab_shape(LIMIT[dtype] + 1), 1, dtype)
 
 
 @pytest.mark.parametrize("case", [(48, torch.float32, 4), (48, torch.float64, 4), (111, torch.float64, 2),
@@ -310,9 +310,9 @@ def test_every_size_the_first_design_launched_gets_a_plan(dtype):
                          ids=["n48-f32", "n48-f64", "n111-f64", "n112-f64", "n159-f32", "n191-f32"])
 def test_launch_plan_grid(case):
     n, dtype, W = case
-    assert blk.launch_plan(n, 1, dtype).warps == W
+    assert blk.launch_plan(blk.planar_slab_shape(n), 1, dtype).warps == W
     for B, grid in ((1, 1), (W, 1), (W + 1, 2), (8192, -(-8192 // W))):
-        plan = blk.launch_plan(n, B, dtype)
+        plan = blk.launch_plan(blk.planar_slab_shape(n), B, dtype)
         assert (plan.warps, plan.grid) == (W, grid)
         assert plan.grid * plan.warps >= B > (plan.grid - 1) * plan.warps
 
@@ -410,7 +410,7 @@ def test_kernel_2_bit_identical_to_plain_on_card(batch, dtype):
     a NaN-target lane, at the main path's width and budget: bit for bit,
     the NaN lane flagged."""
     n = 48
-    W = blk.launch_plan(n, 1, dtype).warps
+    W = blk.launch_plan(blk.planar_slab_shape(n), 1, dtype).warps
     B = {"one": 1, "ragged": W + 1, "full": 8192 + 13}[batch]
     data, x0 = medium_n_planar_instances(B, n, seed=3)
     if B > 5:

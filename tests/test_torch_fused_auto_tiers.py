@@ -281,7 +281,8 @@ def test_cpu_tensors_run_the_plain_generated_family():
 
 def test_generated_family_past_the_register_tier_runs_blocked_on_cpu():
     """A generated family past D = 32 goes to the blocked tier: its plain
-    version on the CPU (the card raises; see the cuda cases)."""
+    version on the CPU (on the card its own kernel 2 instance; see the cuda
+    cases)."""
     n = 32
 
     def builder(data):
@@ -495,7 +496,16 @@ def test_missing_device_code_raises_on_card():
             equality_constraints=(port.make_residual([0], lambda p: torch.stack([p[0] - data[0]]), 1),))
 
     big = port.family_from_problem(builder, 1)
-    before = blk.BLOCKED_LAUNCHES
-    with pytest.raises(NotImplementedError, match="item 16"):
-        port.fused_solve_batch(big, np.full((4, 1), 0.5), np.zeros((4, n)), max_iterations=1)
-    assert blk.BLOCKED_LAUNCHES == before
+    python_big = dataclasses.replace(big, cuda_program=None)
+    hand, generated = blk.BLOCKED_LAUNCHES, blk.GENERATED_LAUNCHES
+    with pytest.raises(NotImplementedError, match="cuda_program"):
+        port.fused_solve_batch(python_big, np.full((4, 1), 0.5), np.zeros((4, n)), max_iterations=1)
+    assert (blk.BLOCKED_LAUNCHES, blk.GENERATED_LAUNCHES) == (hand, generated)
+    # Past the register tier a generated family runs its own kernel 2
+    # instance (the emitter's blocked target), bit for bit as on the CPU.
+    kw = dict(max_iterations=2, qp_iterations=1, ls_iterations=1)
+    got = port.fused_solve_batch(big, np.full((4, 1), 0.5), np.zeros((4, n)), **kw)
+    torch.cuda.synchronize()
+    assert (blk.BLOCKED_LAUNCHES, blk.GENERATED_LAUNCHES) == (hand, generated + 1)
+    want = port.fused_solve_batch(big, np.full((4, 1), 0.5), np.zeros((4, n)), device="cpu", **kw)
+    assert _bit_equal(got.cpu(), want)
