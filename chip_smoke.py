@@ -218,7 +218,45 @@ Phases, each of which exits non-zero on failure:
    bound from its operation count, and the general twin
    (make_pose_graph_problem + nls_solve at B = 512, float32, the bench's
    parameters) per call and its cost median beside the kernel's;
-29. the kernel line, then the device line as the last line of stdout.
+29. the matrix-free large-problem path (``nls_solve`` with ``qp_solver="cg"``,
+   PyTorch on the card, no kernel of its own) at scripts/bench_extras.py's
+   pose_graph_bench: the 1,200-pose SE(2) circle graph
+   (instances.circle_graph, seed 1), chordal_initialization + 3
+   Gauss-Newton iterations of solve_pose_graph_large, under Jacobi (CG
+   1,200 / 300 trips) and under the spanning-chain tree preconditioner
+   (200 / 100), float32; gates, against the port's float64 CPU result at
+   the same budgets: the final cost within CG_F_GATE and the drift from the
+   ground truth within CG_X_GATE (relative), and the drift lower than the
+   start's; printed: wall seconds, the device memory
+   allocated at the peak above what was allocated before,
+   one Gauss-Newton step's device operations a CG trip and outside the
+   trips (a step captured in a CUDA graph, at 1 and 3 trips), ms a trip,
+   the tree factor's ms;
+30. bundle_adjustment_bench's dense exact-Schur solve, 16 cameras x 2,048
+   landmarks (make_synthetic_scene), 20 Gauss-Newton iterations of 2 CG
+   trips, float32; gates: the final cost within CG_F_GATE and the largest
+   landmark error within CG_X_GATE of the float64 CPU result; the same
+   printout;
+31. pose_graph3_bench's 400-pose SE(3) helix (instances.helix_graph, seed 4):
+   chordal_initialization3 + 3 Gauss-Newton iterations, Jacobi with the
+   hard gauge anchor (CG 300 / 150) and the tree (80 / 50), float32; gates
+   as phase 29's, against float64 on the CPU, and the polish lowered the
+   cost; the same printout;
+32. the emitter's blocked target with a retract (ROADMAP item 16a):
+   bench.py's generated planar family (scalar_planar_ik_builder, the
+   _mod_pi retraction) at n = 33 and n = 48 on kernel 2, its traces made by
+   worker processes from phase 1 on (minutes of Python), its source emitted
+   and built in a thread beside phases 2-31 (nvcc at -O1 for sources this
+   large: ops/_build.py), against its plain version bit for bit in both types at
+   6/3/2 Mehrotra + Armijo, B = 2048 + 7 with a NaN-target lane and starts a
+   turn away (the retract's floor at work); then bench.py's route itself at
+   n = 33, float32: fused_solve_batch launches the generated kernel 2 once
+   (the counts set to 0 just before it), bit for bit against the plain
+   blocked version, one device kernel a call (kernels_a_call);
+33. the kernel line, then the device line as the last line of stdout.
+
+The 10,000-pose scale point and the sparse bundle adjustment (64 x 8,192,
+4 cameras a landmark) run in scripts/cg_path_times.py, not here.
 
 Tolerances, kernel against plain version: the kernels sum in the plain
 versions' order and build without FMA contraction, so they are expected to
@@ -227,7 +265,11 @@ agree bit for bit (each comparison prints whether they did). Kernels 2 and
 path (phases 10-12), kernel 7 and the pose-ring main path (phases 14-15)
 and kernels 8-9 (phases 18-19) are held bit for bit in both types, and so
 is kernel 1, hand-written (phases 3-4) and generated (phases 22-23), and
-the generated pose instances of kernels 1 and 2 (phases 26-27).
+the generated pose instances of kernels 1 and 2 (phases 26-27) and the
+generated instances of kernel 2 with a retract (phase 32). The CG path
+(phases 29-31) runs no kernel: float32 on the card against float64 on the
+CPU, CG_F_GATE on the final cost and CG_X_GATE on the drift or landmark
+error, each set from the readings in PERF.md's PR 16 section.
 """
 
 import concurrent.futures
@@ -237,9 +279,11 @@ import dataclasses
 import functools
 import json
 import math
+import multiprocessing
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2502,6 +2546,374 @@ def pose_paths(card, kind, poses):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 29-31: the matrix-free large-problem path (nls_solve with
+# qp_solver="cg"; no kernel of its own) at the JAX repo's bench widths
+# (scripts/bench_extras.py), float32 on the card, each against the port's
+# float64 CPU result at the same budgets; and phase 32, kernel 2's
+# generated instances with a per-variable retract.
+# ---------------------------------------------------------------------------
+
+# float32 on the card against float64 on the CPU at the same budgets,
+# relative, each about 4x its largest reading (PERF.md, PR 16): f_final
+# 2.8e-5 (SE(3) Jacobi; SE(2) 1.1e-7, BA 8.0e-7, SE(3) tree 3.9e-7), the
+# drift 2.5e-3 (SE(3) Jacobi; SE(2) 1.6e-5, SE(3) tree 3.8e-6) and BA's
+# largest landmark error 5.0e-4. The card's float32 runs differ from run
+# to run (SE(3) Jacobi's drift: 2.0e-3 and 2.5e-3 in two runs).
+CG_F_GATE = 1e-4  # f_final
+CG_X_GATE = 1e-2  # a distance from the ground truth: the drift, BA's largest landmark error
+# pose_graph_bench's two pipelines on the 1200-pose circle (scripts/bench_extras.py:200):
+# name -> (chordal CG trips, chordal preconditioner, polish CG trips, polish preconditioner).
+SE2_PIPELINES = {"jacobi": (1200, "none", 300, "jacobi"), "tree": (200, "tree", 100, "tree")}
+# pose_graph3_bench's (:367): the hard anchor under Jacobi, and the tree.
+SE3_PIPELINES = {"jacobi": (300, "none", 150, "jacobi"), "tree": (80, "tree", 50, "tree")}
+
+
+def device_ops(fn):
+    """Device operations of one call of fn: the nodes of one call captured
+    in a CUDA graph (graph_nodes), exact. Fails if the call does not
+    capture (a copy from the host inside it, say): the profiler's count of
+    a CG step's tens of thousands of operations took minutes on the card."""
+    try:
+        return sum(graph_nodes(fn).values())
+    except RuntimeError as e:
+        fail(f"one CG step did not capture in a CUDA graph: {e}")
+
+
+def wall_s(fn):
+    """(seconds, result) of one call of fn on the host's clock, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def cg_step_profile(problem, x, diag_fn=None, prec_fn=None, trips=(1, 3, 11)):
+    """One Gauss-Newton step of the CG path (``_cg_step_direction`` on one
+    lane, as nls_solve runs a single instance) at the iterate x (n,): device
+    operations a CG trip and outside the trips (graph counts at 1 and 3
+    trips), ms a trip (host clock, 11 trips less 1, median of 3, the
+    preconditioner factored once beforehand so that its time does not
+    enter), and the preconditioner factory's ms with one apply."""
+    from mini_opt_tpu_torch.nonlinear import NLSParams, _cg_step_direction
+
+    lam = torch.full((), 1e-4, dtype=x.dtype, device=x.device)
+
+    def step(k, prec=prec_fn):
+        params = NLSParams(qp_solver="cg", cg_iterations=k)
+        return _cg_step_direction(problem, x, lam, params, diag_fn, None, None, prec)[0]
+
+    ops = {k: device_ops(lambda k=k: step(k)) for k in trips[:2]}
+    per_trip = (ops[trips[1]] - ops[trips[0]]) / (trips[1] - trips[0])
+    factored = None if prec_fn is None else prec_fn(x, lam)
+    once = None if prec_fn is None else (lambda xx, ll: factored)
+    times = {k: float(np.median([wall_s(lambda k=k: step(k, once))[0] for _ in range(3)]))
+             for k in (trips[0], trips[2])}
+    out = dict(ops_per_trip=per_trip, ops_outside_trips=ops[trips[0]] - per_trip * trips[0],
+               ms_per_trip=(times[trips[2]] - times[trips[0]]) / (trips[2] - trips[0]) * 1e3)
+    if prec_fn is not None:
+        out["factor_ms"] = float(np.median([wall_s(lambda: prec_fn(x, lam)(x))[0] for _ in range(3)])) * 1e3
+    return out
+
+
+def device_bytes(fn):
+    """(device bytes fn allocates at its peak beyond what was allocated
+    before it, its result)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
+def rel_diff(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def se2_pipeline(graph, pre, device, dtype):
+    """pose_graph_bench's pipeline: chordal_initialization, then 3 Gauss-Newton
+    iterations of solve_pose_graph_large, at the pipeline's CG budgets."""
+    n, edges, meas, x0 = graph
+    c_trips, c_pre, g_trips, g_pre = SE2_PIPELINES[pre]
+    m = torch.as_tensor(meas, dtype=dtype, device=device)
+    w = torch.ones(len(edges), dtype=dtype, device=device)
+    anchor = torch.as_tensor(x0[0], dtype=dtype, device=device)
+    xc = pg.chordal_initialization(n, edges, m, w, anchor_pose=anchor, cg_iterations=c_trips, preconditioner=c_pre)
+    return pg.solve_pose_graph_large(n, edges, m, w, xc, params=pg.default_pose_graph_params(dtype, 3),
+                                     cg_iterations=g_trips, preconditioner=g_pre)
+
+
+def se3_pipeline(graph, pre, device, dtype):
+    """pose_graph3_bench's pipelines: chordal_initialization3, then 3
+    Gauss-Newton iterations (Jacobi with the hard anchor, or the tree)."""
+    from mini_opt_tpu_torch.models import pose_graph3 as pg3
+
+    n, edges, meas, x0 = graph
+    c_trips, c_pre, g_trips, g_pre = SE3_PIPELINES[pre]
+    m = torch.as_tensor(meas, dtype=dtype, device=device)
+    w = torch.ones(len(edges), dtype=dtype, device=device)
+    anchor = torch.as_tensor(x0[0], dtype=dtype, device=device)
+    xc = pg3.chordal_initialization3(n, edges, m, w, anchor_pose=anchor, cg_iterations=c_trips,
+                                     preconditioner=c_pre)
+    return pg3.solve_pose_graph3_large(n, edges, m, w, xc, params=pg3.default_pose_graph3_params(dtype, 3),
+                                       cg_iterations=g_trips, preconditioner=g_pre, hard_anchor=pre == "jacobi")
+
+
+def ba_scene(C, L, k=None):
+    """bundle_adjustment_bench's scene and start (:1472; :1552 with k)."""
+    from mini_opt_tpu_torch.models import bundle_adjustment as ba
+
+    obs, uv, x_true, scale_ref = ba.make_synthetic_scene(C, L, pixel_noise=1e-3, cameras_per_landmark=k,
+                                                         device="cpu")
+    rng = np.random.default_rng(1 if k is None else 2)
+    x0 = x_true.numpy().copy()
+    x0[6:6 * C] += rng.normal(0, 0.01, 6 * (C - 1))
+    x0[6 * C:] += rng.normal(0, 0.03, len(x0) - 6 * C)
+    return obs, uv.numpy(), x_true.numpy(), scale_ref, x0
+
+
+def ba_solve(scene, C, L, device, dtype, sparse=False):
+    """The bench's exact-Schur CG solve: 20 Gauss-Newton iterations of 2 CG
+    trips, the bench's exit tolerances."""
+    from mini_opt_tpu_torch.models import bundle_adjustment as ba
+
+    obs, uv, _, scale_ref, x0 = scene
+    uv_t = torch.as_tensor(uv, dtype=dtype, device=device)
+    x0_t = torch.as_tensor(x0, dtype=dtype, device=device)
+    params = dataclasses.replace(ba.default_ba_params(dtype, 20), absolute_exit_tol=1e-8, relative_exit_tol=1e-6,
+                                 qp_solver="cg", cg_iterations=2)
+    problem = ba.make_ba_problem(C, L, obs, uv_t, scale_ref=scale_ref, anchor_ref=x0_t[0:6])
+    make = ba.make_ba_schur_preconditioner_sparse if sparse else ba.make_ba_schur_preconditioner
+    res = mot.nls_solve(problem, params, x0_t[None], retraction=ba.make_ba_retraction(C),
+                        cg_preconditioner=make(C, L, obs, uv_t))
+    return res, problem, make(C, L, obs, uv_t)
+
+
+def drift(x, gt, d):
+    return float(np.abs(np.asarray(x, dtype=np.float64).reshape(-1, gt.shape[1]) - gt)[:, :d].max())
+
+
+def cg_report(tag, card, **row):
+    print(f"# {tag} on {card}: " + json.dumps(row), flush=True)
+
+
+def se2_path(card, graph, gt):
+    """Phase 29: the 1200-pose SE(2) pipelines, Jacobi and tree."""
+    n, edges, meas, x0 = graph
+    drift0 = drift(x0, gt, 2)
+    for pre in SE2_PIPELINES:
+        peak, (secs, res) = device_bytes(lambda: wall_s(lambda: se2_pipeline(graph, pre, "cuda", torch.float32)))
+        t0 = time.perf_counter()
+        ref = se2_pipeline(graph, pre, "cpu", torch.float64)
+        cpu_s = time.perf_counter() - t0
+        if res.x.dtype != torch.float32 or not res.x.is_cuda or not torch.isfinite(res.x).all():
+            fail(f"phase29 {pre}: {res.x.dtype} {res.x.device}, finite {bool(torch.isfinite(res.x).all())}")
+        f32, f64 = float(res.errors.f), float(ref.errors.f)
+        d_after, d64 = drift(res.x.cpu(), gt, 2), drift(ref.x, gt, 2)
+        m = torch.as_tensor(meas, dtype=torch.float32, device="cuda")
+        w = torch.ones(len(edges), dtype=torch.float32, device="cuda")
+        problem = pg.make_pose_graph_problem(n, edges, m, w)
+        kw = (dict(prec_fn=pg.make_tree_preconditioner(n, edges, m, w)) if pre == "tree"
+              else dict(diag_fn=pg.make_jacobi_preconditioner(edges, m, w)))
+        prof = cg_step_profile(problem, res.x, **kw)
+        c_trips, _, g_trips, _ = SE2_PIPELINES[pre]
+        cg_report(f"phase29 SE(2) {n} poses, {pre}", card, wall_s=secs, cpu_float64_s=cpu_s, peak_bytes=peak,
+                  f_final=f32, f_final_cpu_float64=f64, rel_diff=rel_diff(f32, f64), drift_before=drift0,
+                  drift_after=d_after, drift_after_cpu_float64=d64, drift_rel_diff=rel_diff(d_after, d64),
+                  gn_iterations=int(res.num_iterations), status=int(res.termination_state),
+                  cg_trips=f"chordal {c_trips} x 2 stages, polish {g_trips} x 3", **prof)
+        if rel_diff(f32, f64) > CG_F_GATE or rel_diff(d_after, d64) > CG_X_GATE or not d_after < drift0:
+            fail(f"phase29 {pre}: f_final {f32} against {f64} in float64 on the CPU, drift {drift0} -> {d_after} "
+                 f"({d64} in float64)")
+
+
+def ba_path(card):
+    """Phase 30: bundle_adjustment_bench's dense-Schur solve, C = 16, L = 2048."""
+    C, L = 16, 2048
+    scene = ba_scene(C, L)
+    x_true = scene[2]
+    peak, (secs, (res, problem, prec)) = device_bytes(lambda: wall_s(lambda: ba_solve(scene, C, L, "cuda",
+                                                                                      torch.float32)))
+    t0 = time.perf_counter()
+    ref, _, _ = ba_solve(scene, C, L, "cpu", torch.float64)
+    cpu_s = time.perf_counter() - t0
+    x = res.x[0].double().cpu().numpy()
+    lm, lm64 = (float(np.abs(v[6 * C:] - x_true[6 * C:]).max()) for v in (x, ref.x[0].numpy()))
+    f32, f64 = float(res.errors.f[0]), float(ref.errors.f[0])
+    prof = cg_step_profile(problem, res.x[0], prec_fn=prec, trips=(1, 2, 11))
+    cg_report(f"phase30 BA dense Schur C={C} L={L}", card, wall_s=secs, cpu_float64_s=cpu_s, peak_bytes=peak,
+              f_final=f32, f_final_cpu_float64=f64, rel_diff=rel_diff(f32, f64), max_landmark_err=lm,
+              max_landmark_err_cpu_float64=lm64, landmark_err_rel_diff=rel_diff(lm, lm64), gn_iterations=int(res.num_iterations[0]), status=int(res.termination_state[0]), **prof)
+    if res.x.dtype != torch.float32 or not torch.isfinite(res.x).all():
+        fail("phase30: not a finite float32 result")
+    if rel_diff(f32, f64) > CG_F_GATE or rel_diff(lm, lm64) > CG_X_GATE:
+        fail(f"phase30: f_final {f32} / {f64}, max landmark error {lm} / {lm64} (float32 card / float64 CPU)")
+
+
+def se3_path(card):
+    """Phase 31: pose_graph3_bench's 400-pose helix, Jacobi (hard anchor) and
+    tree, against the float64 CPU result at the same budgets, as phase 29."""
+    from mini_opt_tpu_torch.instances import helix_graph
+    from mini_opt_tpu_torch.models import pose_graph3 as pg3
+
+    gt, edges, meas, x0 = helix_graph(400, seed=4, noise=0.01, loop_every=10)
+    graph = (400, edges, meas, x0)
+    for pre in SE3_PIPELINES:
+        peak, (secs, res) = device_bytes(lambda: wall_s(lambda: se3_pipeline(graph, pre, "cuda", torch.float32)))
+        cpu_s, ref = wall_s(lambda: se3_pipeline(graph, pre, "cpu", torch.float64))
+        f_start, f_final, f64 = float(res.iterations.errors_initial.f[0]), float(res.errors.f), float(ref.errors.f)
+        d_after, d64 = drift(res.x.cpu(), gt, 3), drift(ref.x, gt, 3)
+        m = torch.as_tensor(meas, dtype=torch.float32, device="cuda")
+        w = torch.ones(len(edges), dtype=torch.float32, device="cuda")
+        problem = pg3.make_pose_graph3_problem(400, edges, m, w, hard_anchor=pre == "jacobi")
+        kw = (dict(prec_fn=pg3.make_tree_preconditioner3(400, edges, m, w)) if pre == "tree"
+              else dict(diag_fn=pg3.make_jacobi_preconditioner3(edges, m, w, anchor_weight=0.0)))
+        prof = cg_step_profile(problem, res.x, **kw)
+        cg_report(f"phase31 SE(3) 400 poses, {pre}", card, wall_s=secs, cpu_float64_s=cpu_s, peak_bytes=peak,
+                  f_chordal_start=f_start, f_final=f_final, f_final_cpu_float64=f64, rel_diff=rel_diff(f_final, f64),
+                  drift_before=drift(x0, gt, 3), drift_after=d_after, drift_after_cpu_float64=d64,
+                  drift_rel_diff=rel_diff(d_after, d64), gauge_residual=float(res.x[:6].abs().max()), gn_iterations=int(res.num_iterations),
+                  status=int(res.termination_state), **prof)
+        if res.x.dtype != torch.float32 or not torch.isfinite(res.x).all() or not f_final <= f_start:
+            fail(f"phase31 {pre}: {res.x.dtype}, finite {bool(torch.isfinite(res.x).all())}, f {f_start} -> "
+                 f"{f_final}")
+        if rel_diff(f_final, f64) > CG_F_GATE or rel_diff(d_after, d64) > CG_X_GATE:
+            fail(f"phase31 {pre}: f_final {f_final} against {f64} in float64 on the CPU, drift {d_after} against "
+                 f"{d64}")
+
+
+def cg_paths(card):
+    """Phases 29-31."""
+    from mini_opt_tpu_torch.instances import circle_graph
+
+    gt, edges, meas, x0 = circle_graph(1200, seed=1, noise=0.01, loop_every=10)
+    se2_path(card, (1200, edges, meas, x0), gt)
+    ba_path(card)
+    se3_path(card)
+
+
+# Phase 32: the generated planar family with the _mod_pi retraction past
+# D = 32, on kernel 2 (ROADMAP item 16a). Its blocked target's traces take
+# minutes of Python, so worker processes trace them from the start of the
+# run (retract_traces), beside the other phases.
+RETRACT_NS = (33, 48)
+
+
+def retract_family(n):
+    """bench.py's default family at n joints: scalar_planar_ik_builder with
+    the _mod_pi retraction of every joint."""
+    return mot.family_from_problem(scalar_planar_ik_builder(n, LINK), 2, retract=_wrap)
+
+
+def trace_retract_family(n, dtype_name):
+    """A worker's job: the blocked target's traces of retract_family(n)."""
+    return retract_family(n).cuda_program.blocked_traces(getattr(torch, dtype_name))
+
+
+def retract_traces(pool):
+    """Start the traces: {(n, dtype name): async result}."""
+    return {(n, dt): pool.apply_async(trace_retract_family, (n, dt))
+            for n in RETRACT_NS for dt in ("float64", "float32")}
+
+
+class RetractBuild(threading.Thread):
+    """Phase 32's set-up beside the other phases: waits for the workers'
+    traces, emits each family's kernel-2 source and builds them (one nvcc
+    each, outside the GIL)."""
+
+    def __init__(self, jobs):
+        super().__init__(daemon=True)
+        self.jobs, self.result, self.error = jobs, None, None
+
+    def run(self):
+        try:
+            t0 = time.perf_counter()
+            fams = {}
+            for n in RETRACT_NS:
+                fams[n] = retract_family(n)
+                for dt in ("float64", "float32"):
+                    fams[n].cuda_program.adopt_blocked_traces(getattr(torch, dt), self.jobs[(n, dt)].get())
+            traced = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            paths = _build.build_generated([f.cuda_program.blocked_source() for f in fams.values()])
+            self.result = (fams, traced, time.perf_counter() - t1, paths)
+        except Exception as e:  # noqa: BLE001 -- handed to the main thread, which fails the run
+            self.error = e
+
+
+def retract_paths(builder, max_err, wait_s=900):
+    """Phase 32: each family's kernel 2 instance, emitted from the workers'
+    traces and built beside the other phases (RetractBuild), against its
+    plain version bit for bit in both types at the arm's budget (6/3/2
+    Mehrotra + Armijo), B = 2048 + 7 with a NaN-target lane."""
+    t0 = time.perf_counter()
+    builder.join(wait_s)
+    if builder.is_alive() or builder.error is not None:
+        fail(f"phase32: the retract families' traces and build did not finish ({builder.error!r})")
+    fams, traced, build_s, paths = builder.result
+    print(f"# phase32 traces ready {traced:.1f} s after the run began (4 worker processes); kernel-2 instances "
+          f"emitted and built in {build_s:.1f} s ({[p.name for p in paths]}), beside phases 2-31; this phase "
+          f"waited {time.perf_counter() - t0:.1f} s for them", flush=True)
+    for path in paths:
+        log = path.with_suffix(".log")
+        for kname, nreg, spill, _, stack in ptxas_report(log.read_text() if log.exists() else ""):
+            print(f"# phase32 ptxas {path.name} {kname[:60]}: {nreg} registers, {spill} bytes spill stores, {stack} "
+                  "bytes stack frame", flush=True)
+    B = 2048 + 7
+    for n, fam in fams.items():
+        progs = fam.cuda_program.blocked_retract(torch.float32)
+        print(f"# phase32 planar n={n} (D={n + 1}): {len(set(progs))} distinct retract program(s) over {n} "
+              f"variables, {sum(s.op != 'in' for s in progs[0].stmts)} statements each", flush=True)
+        for dtype in (torch.float64, torch.float32):
+            data, x0 = medium_n_planar_instances(B, n, seed=n)
+            x0 = x0 + np.where(np.arange(n) % 2, 2 * np.pi, 0.0)  # a turn away: the retract's floor
+            data[5, 0] = np.nan
+            data_t, x0_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
+            args = (fam, data_t, x0_t, ARM["max_iterations"], ARM["qp_iterations"], ARM["ls_iterations"],
+                    ARM["line_search"], ARM["barrier"])
+            before = blk.GENERATED_LAUNCHES
+            got = blk._blocked_solve_cuda(*args)
+            torch.cuda.synchronize()
+            if blk.GENERATED_LAUNCHES != before + 1:
+                fail(f"phase32 n={n}: the generated kernel 2 wrapper did not count its launch")
+            want = blk._blocked_solve_plain(*args)
+            torch.cuda.synchronize()
+            check_blocked(f"phase32 generated planar n={n} with _mod_pi, 6/3/2 mpc armijo B={B}", got, want,
+                          max_err, (5,))
+    return retract_entry(fams[RETRACT_NS[0]], RETRACT_NS[0], B)
+
+
+def retract_entry(fam, n, B):
+    """Phase 32's main path: bench.py's route, Problem -> family_from_problem
+    -> fused_solve_batch, at n joints (D = n + 1 > 32: the blocked tier) in
+    float32 at the arm's budget: one generated kernel 2 launch and no other,
+    bit for bit against the plain blocked version, one device kernel a call.
+    Returns the launches of the counted run."""
+    data, x0 = medium_n_planar_instances(B, n, seed=n)
+    x0 = x0 + np.where(np.arange(n) % 2, 2 * np.pi, 0.0)
+    data[5, 0] = np.nan
+    d32, x32 = data.astype(np.float32), x0.astype(np.float32)
+    reset_counts()
+    x, state = mot.fused_solve_batch(fam, d32, x32, return_state=True, **ARM)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["blocked_generated"] != 1 or any(v for k, v in launched.items() if k != "blocked_generated"):
+        fail(f"phase32 n={n}: fused_solve_batch launched {launched}, not one generated kernel 2")
+    t_d, x_d = (torch.as_tensor(a, device="cuda") for a in (d32, x32))
+    xp, sp = blk._blocked_solve_plain(fam, t_d.T, x_d.T, *ARM_ARGS)
+    same = bit_identical((x, xp.T), (state, sp.T))
+    print(f"# phase32 generated planar n={n} fused_solve_batch B={B} float32 6/3/2 mpc armijo: launches {launched} "
+          f"for 1 call; bit-identical to the plain blocked version {same}; lane 5 (NaN target) flagged "
+          f"{bool(state[5, 2] != 0)}", flush=True)
+    if x.shape != (B, n) or state.shape != (B, 3) or not same or not bool(state[5, 2] != 0):
+        fail(f"phase32 n={n}: fused_solve_batch gave {tuple(x.shape)} {tuple(state.shape)}, bit-identical {same}")
+    kernels_a_call(f"phase32 n={n} fused_solve_batch B={B} float32 on card tensors",
+                   lambda: mot.fused_solve_batch(fam, t_d, x_d, **ARM), (r"blocked_sqp_kernel",), reps=4)
+    return launched["blocked_generated"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -2517,7 +2929,20 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
+    # Phase 32's traces, in worker processes from here on; every worker is
+    # stopped on the way out, failed or not.
+    pool = multiprocessing.get_context("spawn").Pool(2 * len(RETRACT_NS))
+    try:
+        builder = RetractBuild(retract_traces(pool))
+        builder.start()
+        run_phases(card, kind, builder)
+    finally:
+        pool.terminate()
+        pool.join()
 
+
+def run_phases(card, kind, retract_builder):
+    """Phases 2-33."""
     # Phase 2: build. Phase 21's generated families and phase 25's pose
     # families are emitted and built at the same time: every nvcc process of
     # both runs at once.
@@ -2683,6 +3108,10 @@ def main():
     generated_rows = [generated_paths(card, kind, families, gen_err)]
     pose_report(poses, gen_emit_s, gen_build_s, gen_paths)
     pose_rows = pose_paths(card, kind, poses)
+    cg_paths(card)
+    retract_err = {"float64": 0.0, "float32": 0.0}
+    blocked_rows[0]["generated_retract_launches"] = retract_paths(retract_builder, retract_err)
+    blocked_rows[0]["generated_retract_max_abs_err"] = max(retract_err.values())
 
     print(f"# chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build's start", flush=True)
     print(json.dumps({"kernels": [{

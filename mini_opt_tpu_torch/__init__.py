@@ -25,6 +25,13 @@ grows slice by slice. It carries:
   chain-plus-closure graphs, ``models.pose_graph.solve_pose_graph_rings``,
   solved by one bordered block-Thomas CUDA kernel (``csrc/pose_ring.cu``,
   reached through ``ops.pose_ring``);
+* the matrix-free large-problem path, ``nls_solve`` with
+  ``qp_solver="cg"``: SE(2) and SE(3) pose graphs of thousands of poses
+  (``solve_pose_graph_large``, ``solve_pose_graph3_large`` and their chordal
+  initializations, under the Jacobi or the spanning-chain tree
+  preconditioner, ``ops.tree_prec``) and bundle adjustment
+  (``models.bundle_adjustment``, with its block and Schur-complement
+  preconditioners), in PyTorch on the card (no kernel of its own);
 * model-predictive control of plant fleets: the cart-pole transcription on
   the general path (``models.mpc``, with the structured Riccati KKT backend
   ``kkt_solver="riccati:T:NX:NU"``), and the fused serving tier, one MPC
@@ -56,7 +63,27 @@ from .models.ik import (
     solve_ik_batch,
     solve_ik_multi_start,
 )
-from .models.pose_graph import make_pose_graph_problem, solve_pose_graph
+from .models.bundle_adjustment import (
+    make_ba_problem,
+    make_ba_schur_preconditioner_sparse,
+    make_synthetic_scene,
+    solve_bundle_adjustment,
+    solve_bundle_adjustment_large,
+)
+from .models.pose_graph import (
+    chordal_initialization,
+    make_pose_graph_problem,
+    make_tree_preconditioner,
+    solve_pose_graph,
+    solve_pose_graph_large,
+)
+from .models.pose_graph3 import (
+    chordal_initialization3,
+    make_pose_graph3_problem,
+    make_tree_preconditioner3,
+    solve_pose_graph3,
+    solve_pose_graph3_large,
+)
 from .models.mpc import CartPole, default_mpc_params, serving_mpc_params, solve_mpc
 from .nonlinear import NLSParams, Problem, nls_solve
 from .ops.blocked import REGISTER_KKT_MAX, blocked_kkt_solve, blocked_solve_batch
@@ -176,6 +203,19 @@ __all__ = [
     "make_ik_problem",
     "make_planar_chain",
     "make_pose_graph_problem",
+    "make_pose_graph3_problem",
+    "make_tree_preconditioner",
+    "make_tree_preconditioner3",
+    "make_ba_problem",
+    "make_ba_schur_preconditioner_sparse",
+    "make_synthetic_scene",
+    "chordal_initialization",
+    "chordal_initialization3",
+    "solve_bundle_adjustment",
+    "solve_bundle_adjustment_large",
+    "solve_pose_graph3",
+    "solve_pose_graph3_large",
+    "solve_pose_graph_large",
     "make_residual",
     "make_spatial_chain",
     "make_spatial_ik_problem",

@@ -6,7 +6,8 @@
 // takes (2, 4 or 6 KKT rows a lane), in float and double.
 //
 // The functor has PlanarChain's interface (families.cuh): nvar(), M, ROWS,
-// nlo() / nhi(), lo_slot / hi_slot / lo_val / hi_val, scratch(), retract,
+// nlo() / nhi(), lo_slot / hi_slot / lo_val / hi_val, scratch(), retract(i, a)
+// (variable i's retraction of the value a),
 // and the warp-cooperative linearize(lane, th, tgt, scr, G, Jeq, c, req, f)
 // and errors(lane, th, tgt, scr, f, eq), G the Hessian's lower triangle
 // packed by rows. Its work is split over the warp by residual block: a

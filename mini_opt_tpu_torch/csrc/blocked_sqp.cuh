@@ -982,7 +982,12 @@ __device__ void blocked_sqp_solve(const F& fam, const T* __restrict__ data, cons
       }
       T cand[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) cand[r] = fam.retract(th[r] + alpha * xy[r]);
+      for (int r = 0; r < R; ++r) {
+        // The family retracts variable i = l + 32 r by itself; the KKT's
+        // rows past n are never stored and stay as they are.
+        const T step = th[r] + alpha * xy[r];
+        cand[r] = L.var(r) ? fam.retract(L.row(r), step) : step;
+      }
       warp_sync();  // the family's last reads of th are done
 #pragma unroll
       for (int r = 0; r < R; ++r) {

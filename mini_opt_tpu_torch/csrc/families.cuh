@@ -251,8 +251,9 @@ struct PlanarChain {
   // straight to J_eq).
   __host__ __device__ int scratch() const { return 3 * n; }
 
+  // Variable i's retraction (every joint wraps alike).
   template <typename T>
-  __device__ __forceinline__ T retract(T a) const {
+  __device__ __forceinline__ T retract(int, T a) const {
     const T two_pi = T(2.0 * kPi);
     return a - two_pi * floor((a + T(kPi)) / two_pi);
   }

@@ -25,6 +25,15 @@ JAX package's generated-family test problems (``tests/test_fused_auto.py``):
 bound; :251-295, with ``block_chain_instances``) and
 ``robust_line_fit_problem`` (four Huber-robustified line-fit samples, no
 equality row and no bound; :438-455, with ``robust_line_fit_instances``).
+
+``circle_graph`` and ``helix_graph`` are copies of the JAX repo's large
+pose-graph test graphs (``tests/test_pose_graph.py::_circle_graph`` :127,
+``tests/test_pose_graph3.py::_helix_graph`` :26), which its benches
+(``scripts/bench_extras.py``: ``pose_graph_bench`` :200,
+``pose_graph_scale_bench`` :301, ``pose_graph3_bench`` :367) solve:
+``(gt (N, d), edges (E, 2), meas (E, d), x0 (N, d))``, float64 numpy.
+The helix's quaternion arithmetic is the port's ``utils/so3.py`` on CPU
+float64 tensors.
 """
 
 from __future__ import annotations
@@ -262,3 +271,92 @@ def robust_line_fit_instances(B, seed=5):
     """Samples of lines y = a + b t with unit noise and starts about them."""
     rng = np.random.default_rng(seed)
     return rng.normal(0.0, 1.0, (B, len(LINE_FIT_TS))), rng.normal(0.0, 1.0, (B, 2))
+
+
+def circle_graph(n, seed=0, noise=0.01, loop_every=10):
+    """Noisy circle odometry plus a loop closure every ``loop_every`` poses,
+    ground truth in the pose-0 frame, and the dead-reckoned start."""
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    R = 10.0
+    gt = np.stack([R * np.cos(th), R * np.sin(th), th + np.pi / 2], 1)
+    c0, s0 = np.cos(gt[0, 2]), np.sin(gt[0, 2])
+    Rw = np.array([[c0, s0], [-s0, c0]])
+    gt = np.concatenate(
+        [(gt[:, :2] - gt[0, :2]) @ Rw.T, ((gt[:, 2:] - gt[0, 2] + np.pi) % (2 * np.pi) - np.pi)], 1)
+    edges, meas = [], []
+
+    def rel(i, j):
+        dxw = gt[j, 0] - gt[i, 0]
+        dyw = gt[j, 1] - gt[i, 1]
+        c, s = np.cos(gt[i, 2]), np.sin(gt[i, 2])
+        return [c * dxw + s * dyw, -s * dxw + c * dyw, (gt[j, 2] - gt[i, 2] + np.pi) % (2 * np.pi) - np.pi]
+
+    for i in range(n - 1):
+        edges.append([i, i + 1])
+        meas.append(rel(i, i + 1))
+    for i in range(0, n - loop_every, loop_every):
+        edges.append([i, i + loop_every])
+        meas.append(rel(i, i + loop_every))
+    meas = np.asarray(meas) + rng.normal(0, noise, (len(edges), 3))
+    x0 = np.zeros((n, 3))
+    x0[0] = gt[0]
+    for i in range(n - 1):
+        c, s = np.cos(x0[i, 2]), np.sin(x0[i, 2])
+        m = meas[i]
+        x0[i + 1, 0] = x0[i, 0] + c * m[0] - s * m[1]
+        x0[i + 1, 1] = x0[i, 1] + s * m[0] + c * m[1]
+        x0[i + 1, 2] = x0[i, 2] + m[2]
+    return gt, np.asarray(edges), meas, x0
+
+
+def helix_graph(n, seed=0, noise=0.01, loop_every=8):
+    """Ground-truth SE(3) poses (t, rotation vector) along a rising helix
+    with tangent-aligned yaw and a slow roll, pose 0 the identity; odometry
+    and a closure every ``loop_every`` poses, noisy; the dead-reckoned
+    start."""
+    import torch
+
+    from .utils.so3 import quat_conjugate, quat_exp, quat_log, quat_multiply, quat_rotate
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64))
+
+    def npy(a):
+        return a.numpy()
+
+    rng = np.random.default_rng(seed)
+    th = np.linspace(0, 3 * np.pi, n)
+    R_c, pitch = 5.0, 0.4
+    ts = np.stack([R_c * np.cos(th), R_c * np.sin(th), pitch * th], 1)
+    qs = np.stack([
+        npy(quat_multiply(quat_exp(t([0.0, 0.0, th[k] + np.pi / 2])), quat_exp(t([0.2 * np.sin(th[k]), 0.0, 0.0]))))
+        for k in range(n)])
+    q0c = quat_conjugate(t(qs[0]))
+    t0 = ts[0].copy()
+    gt = np.zeros((n, 6))
+    for k in range(n):
+        gt[k, :3] = npy(quat_rotate(q0c, t(ts[k] - t0)))
+        gt[k, 3:] = npy(quat_log(quat_multiply(q0c, t(qs[k]))))
+
+    def rel(i, j):
+        qi, qj = quat_exp(t(gt[i, 3:])), quat_exp(t(gt[j, 3:]))
+        dt = quat_rotate(quat_conjugate(qi), t(gt[j, :3] - gt[i, :3]))
+        dw = quat_log(quat_multiply(quat_conjugate(qi), qj))
+        return np.concatenate([npy(dt), npy(dw)])
+
+    edges, meas = [], []
+    for i in range(n - 1):
+        edges.append([i, i + 1])
+        meas.append(rel(i, i + 1))
+    for i in range(0, n - loop_every, loop_every):
+        edges.append([i, i + loop_every])
+        meas.append(rel(i, i + loop_every))
+    meas = np.stack(meas) + rng.normal(0, noise, (len(edges), 6))
+    x0 = np.zeros((n, 6))
+    for k in range(n - 1):
+        qk = quat_exp(t(x0[k, 3:]))
+        dt, dw = meas[k, :3], meas[k, 3:]
+        x0[k + 1, :3] = x0[k, :3] + npy(quat_rotate(qk, t(dt)))
+        x0[k + 1, 3:] = npy(quat_log(quat_multiply(qk, quat_exp(t(dw)))))
+    return gt, np.asarray(edges), meas, x0

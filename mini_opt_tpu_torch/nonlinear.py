@@ -16,17 +16,28 @@ routes) per iteration. The loops are masked (``qp.bounded_loop``): each
 lane's state freezes once it terminates, which is what JAX's ``vmap`` of a
 ``while_loop`` computes.
 
+``qp_solver="cg"`` is the matrix-free path (nonlinear.py:363-567): each
+lane's Gauss-Newton step is solved by a fixed-trip preconditioned conjugate
+gradient on ``(J^T J + lam I) v`` products through ``torch.func.jvp`` /
+``vjp`` of the stacked residual, the whole step one instance's function run
+per lane under ``torch.func.vmap`` as the JAX package runs it under its
+``vmap``; box bounds by two-metric gradient projection (the line search's
+candidates clipped into the box by ``_Clamped``), equality constraints by
+the projected-CG composite step.
+
 Not ported yet (ROADMAP.md queue 1, "nonlinear.py, the rest"), each raising
-``NotImplementedError``: ``qp_solver="cg"`` (with its preconditioner
-arguments), ``parallel_line_search``, ``fuse_probe_linearize``,
-``exit_callback``, ``axis_name`` and ``log_qp_eigenvalues``.
+``NotImplementedError``: ``parallel_line_search``, ``fuse_probe_linearize``,
+``exit_callback``, ``axis_name`` and ``log_qp_eigenvalues``; and the
+distributed CG preconditioner (item 9, "parallel/batch.py, the rest").
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch.func import vmap
 
@@ -75,6 +86,7 @@ Retraction = Callable
 CostTerm = Union[Residual, BlockResidual]
 
 _TODO = "is not ported yet (ROADMAP.md queue 1: nonlinear.py, the rest)"
+_TODO_SHARDED = "is not ported yet (ROADMAP.md queue 1, item 9: parallel/batch.py, the rest)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +294,192 @@ def evaluate_nonlinear_errors(problem, x, axis_name=None, data=None) -> Errors:
     return Errors(f=f, equality=eq)
 
 
+# ---------------------------------------------------------------------------
+# The matrix-free CG step (nonlinear.py:341-567), of ONE instance.
+# ---------------------------------------------------------------------------
+
+
+def _stacked_residual(problem: Problem, x):
+    """All cost residuals as one flat vector (for matrix-free J^T J
+    products)."""
+    parts = [
+        cost.error_vectors(x).reshape(-1) if isinstance(cost, BlockResidual) else cost.error_vector(x)
+        for cost in problem.costs
+    ]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _stacked_equality(problem: Problem, x):
+    """All equality-constraint residuals as one flat vector (block-major for
+    a BlockResidual, ``fill_jacobian_rows``' row order)."""
+    parts = [
+        c_.error_vectors(x).reshape(-1) if isinstance(c_, BlockResidual) else c_.error_vector(x)
+        for c_ in problem.equality_constraints
+    ]
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def _pcg(matvec, b, prec_apply, iterations: int):
+    """Fixed-trip preconditioned conjugate gradient; ``prec_apply`` is the
+    M^-1 application. The JAX package's ``lax.scan`` of ``iterations``
+    trips as a Python loop with the same guards, which keep alpha and beta
+    finite at exact convergence (converged iterates stay put)."""
+    tiny = torch.finfo(b.dtype).tiny
+    one, zero = torch.ones((), dtype=b.dtype, device=b.device), torch.zeros((), dtype=b.dtype, device=b.device)
+    x = torch.zeros_like(b)
+    r = b
+    z = prec_apply(r)
+    p = z
+    rz = torch.dot(r, z)
+    for _ in range(iterations):
+        Ap = matvec(p)
+        denom = torch.dot(p, Ap)
+        live = torch.abs(denom) > tiny
+        alpha = torch.where(live, rz / torch.where(live, denom, one), zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = prec_apply(r)
+        rz1 = torch.dot(r, z)
+        moving = torch.abs(rz) > tiny
+        beta = torch.where(moving, rz1 / torch.where(moving, rz, one), zero)
+        p = z + beta * p
+        rz = rz1
+    return x
+
+
+def _box_bounds(problem: Problem, dtype, device):
+    """Per-variable (lo, hi) bound vectors from the diagonal inequality list
+    (+-inf where unbounded): ``a x_v + b >= 0`` gives ``x_v >= -b/a`` for
+    a > 0 and ``x_v <= -b/a`` for a < 0 (qp.hpp:28-70). Bounds that are
+    Python numbers are assembled on the host and moved to ``device`` once;
+    tensor bounds (per lane, from ``data``) are assembled with tensor
+    operations, so that the caller can run this per lane under vmap."""
+    n = problem.dimension
+    cons = problem.inequality_constraints
+    if not any(torch.is_tensor(c_.a) or torch.is_tensor(c_.b) for c_ in cons):
+        lo, hi = np.full((n,), -np.inf), np.full((n,), np.inf)
+        for c_ in cons:
+            a = float(c_.a)
+            bound = -float(c_.b) / a
+            v = int(c_.variable)
+            if a > 0:
+                lo[v] = max(lo[v], bound)
+            else:
+                hi[v] = min(hi[v], bound)
+        return (torch.as_tensor(lo, dtype=dtype, device=device), torch.as_tensor(hi, dtype=dtype, device=device))
+    kw = dict(dtype=dtype, device=device)
+    lo = [torch.full((), -math.inf, **kw)] * n
+    hi = [torch.full((), math.inf, **kw)] * n
+    for c_ in cons:
+        a = torch.as_tensor(c_.a, **kw)
+        bound = -torch.as_tensor(c_.b, **kw) / a
+        v = int(c_.variable)
+        lo[v] = torch.where(a > 0, torch.maximum(lo[v], bound), lo[v])
+        hi[v] = torch.where(a < 0, torch.minimum(hi[v], bound), hi[v])
+    return torch.stack(lo), torch.stack(hi)
+
+
+@traced_phase("ComputeStepDirection")
+def _cg_step_direction(problem: Problem, x, lam, params: NLSParams, diag_fn, axis_name=None, bounds=None,
+                       prec_fn=None):
+    """Matrix-free Gauss-Newton step of ONE instance: solve (J^T J + lam I)
+    dx = -J^T r by PCG without materializing the Hessian
+    (nonlinear.py:437-567). Returns (dx, errors_pre, derivatives,
+    lagrange_l_inf or None).
+
+    One ``torch.func.vjp`` of the stacked residual is taken per step and
+    reused by every CG trip, as the JAX package reuses its ``jax.vjp``;
+    each trip's J v is a ``torch.func.jvp``. Equality constraints take the
+    projected-CG composite step (Nocedal & Wright 16.3): the minimum-norm
+    restoration ``dx_p = -A^T (A A^T)^-1 c`` plus a tangential step by CG in
+    null(A), only the m x m ``A A^T`` factored (``ops/kkt.py``'s LDL^T).
+    Box bounds (``bounds = (lo, hi)``) take two-metric gradient
+    projection: a variable pinned at a bound with its gradient pushing
+    outward is frozen (its row the identity)."""
+    _no_axis(axis_name)
+    from torch.func import jacrev, jvp, vjp
+
+    from .ops.kkt import ldlt_factorize, ldlt_solve
+
+    def res(xx):
+        return _stacked_residual(problem, xx)
+
+    r0, pullback = vjp(res, x)
+    f_total = 0.5 * torch.sum(r0 * r0)
+    (g,) = pullback(r0)  # J^T r
+
+    def matvec(v):
+        _, jv = jvp(res, (x,), (v,))
+        (jtjv,) = pullback(jv)
+        return jtjv + lam * v
+
+    if prec_fn is not None:
+        # A general M^-1 apply (block-Jacobi, tree, Schur); the factory sees
+        # (x, lam) and owns any damping of its blocks.
+        prec_apply = prec_fn(x, lam)
+    else:
+        diag = diag_fn(x) + lam if diag_fn is not None else torch.ones_like(g)
+
+        def prec_apply(r, _diag=diag):
+            return r / _diag
+
+    b = -g
+    mv = matvec
+    fmask = None
+    if bounds is not None:
+        lo, hi = bounds
+        free = ~(((x <= lo) & (g > 0)) | ((x >= hi) & (g < 0)))
+        fmask = free.to(x.dtype)
+
+        def mv(v):  # noqa: F811 -- the masked system: the identity on frozen rows
+            return fmask * matvec(fmask * v) + (1.0 - fmask) * v
+
+        b = fmask * b
+        inner_apply = prec_apply
+
+        def prec_apply(r, _inner=inner_apply):  # noqa: F811
+            return fmask * _inner(fmask * r) + (1.0 - fmask) * r
+
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if not problem.equality_constraints:
+        dx = _pcg(mv, b, prec_apply, params.cg_iterations)
+        return dx, Errors(f=f_total, equality=zero), DirectionalDerivatives(d_f=torch.dot(g, dx), d_equality=zero), None
+
+    def eq(xx):
+        return _stacked_equality(problem, xx)
+
+    c0 = eq(x)
+    A = jacrev(eq)(x)  # (m, n)
+    if fmask is not None:
+        # The equality projector restricted to the free subspace; a frozen
+        # set that makes A_F rank-deficient NaNs the factor -> QP_INDEFINITE.
+        A = A * fmask[None, :]
+    fact, fact_ok = ldlt_factorize((A @ A.T)[None])
+    bad = torch.where(fact_ok[0], zero, torch.full_like(zero, math.nan))
+
+    def solve_nrm(rhs):  # (A A^T)^-1 rhs; NaN on rank deficiency -> status path
+        return ldlt_solve(fact, rhs[None])[0] + bad
+
+    def mask(v):
+        return v if fmask is None else fmask * v
+
+    def proj(v):  # orthogonal projector onto null(A_F) within the free set
+        u = mask(v)
+        return u - mask(A.T @ solve_nrm(A @ u))
+
+    dx_p = -(A.T @ solve_nrm(c0))
+    b_t = proj(-(g + matvec(dx_p)))
+
+    def mv_t(v):  # the projected Hessian on range(P), the identity on its complement
+        pv = proj(v)
+        return proj(matvec(pv)) + (v - pv)
+
+    dx = dx_p + _pcg(mv_t, b_t, prec_apply, params.cg_iterations)
+    y = -solve_nrm(A @ (g + matvec(dx)))  # first-order multiplier estimate
+    derivatives = DirectionalDerivatives(d_f=torch.dot(g, dx), d_equality=torch.sum(torch.sign(c0) * (A @ dx)))
+    return dx, Errors(f=f_total, equality=torch.sum(torch.abs(c0))), derivatives, torch.abs(y).amax()
+
+
 @traced_phase("ComputeQPCostDerivative")
 def compute_qp_cost_derivative(qp: QP, dx) -> DirectionalDerivatives:
     """Directional derivative of cost + L1 equality merit along dx
@@ -364,9 +562,21 @@ class _LSCarry(NamedTuple):
     steps: LineSearchHistory
 
 
+class _Clamped(NamedTuple):
+    """A retraction whose every candidate is clipped into the box
+    ``(lo, hi)``, each ``(B, n)``: the CG path's projected line search
+    (nonlinear.py:1063-1067)."""
+
+    base: Optional[Retraction]
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+
 def _retract(retraction, x, dx, alpha):
     """Every lane's candidate: ``retraction(x, dx, alpha)`` of one instance
     under vmap, or ``x + dx * alpha``."""
+    if isinstance(retraction, _Clamped):
+        return torch.clamp(_retract(retraction.base, x, dx, alpha), retraction.lo, retraction.hi)
     if retraction is None:
         return x + dx * alpha[:, None]
     return vmap(retraction)(x, dx, alpha)
@@ -516,8 +726,8 @@ def _check_ported(params: NLSParams, problem, exit_callback, axis_name, cg_args)
             "nonlinear inequality problems (ineq.py) are not ported yet (ROADMAP.md queue 1: "
             "bundle_adjustment, ineq, implicit, tuning)"
         )
-    if params.qp_solver == "cg" or any(a is not None and a is not False for a in cg_args):
-        raise NotImplementedError(f"qp_solver='cg' and its CG preconditioners {_TODO}")
+    if cg_args[2] or (params.qp_solver == "cg" and axis_name is not None):
+        raise NotImplementedError(f"the distributed CG path (axis_name, distributed_cg_preconditioner) {_TODO_SHARDED}")
     if params.parallel_line_search:
         raise NotImplementedError(f"parallel_line_search {_TODO}")
     if params.fuse_probe_linearize:
@@ -578,7 +788,13 @@ def nls_solve(
       device: where numpy inputs go ("cuda" unless named); tensors run where
         they lie.
 
-    ``exit_callback``, ``axis_name`` and the CG preconditioner arguments
+      cg_diag_preconditioner: for ``qp_solver="cg"``, an optional
+        ``f(x) -> diag(J^T J)`` of one instance, the Jacobi preconditioner.
+      cg_preconditioner: for ``qp_solver="cg"``, a preconditioner factory
+        ``(x, lam) -> (apply: r -> M^-1 r)`` of one instance; overrides
+        ``cg_diag_preconditioner`` and owns the damping of its blocks.
+
+    ``exit_callback``, ``axis_name`` and ``distributed_cg_preconditioner``
     keep the JAX signature and raise ``NotImplementedError``.
 
     Returns an ``NLSResult`` whose every leaf has the leading batch
@@ -605,6 +821,22 @@ def nls_solve(
     has_eq = len(proto.equality_constraints) > 0
     max_probes = params.max_line_search_iterations + 1
     fused_qp = params.qp_solver == "pallas_fused"
+    use_cg = params.qp_solver == "cg"
+    cg_bounds = None
+    if use_cg and proto.inequality_constraints:
+        # Once per solve, on the iterate's device: (B, n) each.
+        if data is None or not any(torch.is_tensor(c_.a) or torch.is_tensor(c_.b)
+                                   for c_ in proto.inequality_constraints):
+            cg_bounds = tuple(t.expand(B, -1) for t in _box_bounds(proto, dtype, dev))
+        else:
+            cg_bounds = _per_lane(lambda p, xr: _box_bounds(p, dtype, dev), problem, x0, data)
+        x0 = torch.clamp(x0, cg_bounds[0], cg_bounds[1])
+        retraction = _Clamped(retraction, *cg_bounds)
+
+    def cg_lane(prob, x, lam, *lohi):
+        dx, err, der, l_inf = _cg_step_direction(
+            prob, x, lam, params, cg_diag_preconditioner, None, lohi or None, cg_preconditioner)
+        return dx, err.f, err.equality, der.d_f, der.d_equality, l_inf if l_inf is not None else err.equality
 
     qp_params = QPInteriorPointParams(
         max_iterations=params.max_qp_iterations,
@@ -638,22 +870,13 @@ def nls_solve(
         x, lam, penalty, opt_state, i = carry.x, carry.lam, carry.penalty, carry.opt_state, carry.it
         zero = torch.zeros_like(lam)
         # --- step direction (nonlinear.cc:216-259) ---------------------------
-        qp, errors_pre = linearize_and_fill_qp(problem, x, lam, data=data, ineq_var=ineq_var)
         qp_hist_row = None
         qp_kkt_final = zero
         lagrange_l_inf = None
-        if use_ns:
-            with annotate("ComputeStepDirection"):
-                ns = qp_null_space_solve(qp)
-            dx = ns.x
-            # Any failure ends the outer loop through QP_INDEFINITE (the
-            # reference's early return, nonlinear.cc:103-105).
-            qp_indefinite = ns.termination_state != QPNullSpaceTerminationState.SUCCESS
-            qp_term = ns.termination_state
-            qp_iters = torch.zeros_like(i)
-        elif fused_qp:
-            with annotate("ComputeStepDirection"):
-                dx, y_qp = fused(qp.G, qp.c, qp.A_eq, qp.b_eq, qp.ineq_a, qp.ineq_b)
+        if use_cg:
+            dx, f_pre, eq_pre, d_f, d_eq, l_inf = _per_lane(cg_lane, problem, x, data, lam, *(cg_bounds or ()))
+            errors_pre = Errors(f=f_pre, equality=eq_pre)
+            derivatives = DirectionalDerivatives(d_f=d_f, d_equality=d_eq)
             qp_indefinite = ~torch.isfinite(dx).all(-1)
             dx = _where_lane(qp_indefinite, torch.zeros_like(dx), dx)
             qp_term = torch.where(
@@ -661,30 +884,55 @@ def nls_solve(
                 _i32(QPTerminationState.FAILED_FACTORIZATION, i),
                 _i32(QPTerminationState.MAX_ITERATIONS, i),
             )
-            qp_iters = _i32(params.max_qp_iterations, i)
+            qp_iters = _i32(params.cg_iterations, i)
             if has_eq:
-                lagrange_l_inf = y_qp.abs().amax(-1)
+                lagrange_l_inf = l_inf
         else:
-            with annotate("ComputeStepDirection"):
-                ipres = qp_ip_solve(qp, qp_params)
-            dx = ipres.x
-            # The reference throws FailedFactorization here; the lane ends
-            # with QP_INDEFINITE instead.
-            qp_indefinite = ipres.termination_state == QPTerminationState.FAILED_FACTORIZATION
-            qp_term = ipres.termination_state
-            qp_iters = ipres.num_iterations
-            if params.record_history:
-                last = torch.clamp_min(ipres.num_iterations - 1, 0)
-                qp_kkt_final = tree_map(lambda a: _get_row(a, last), ipres.iterations.kkt_final).max()
-                qp_hist_row = ipres.iterations
-            if has_eq:
-                lagrange_l_inf = ipres.lagrange_multipliers.l_infinity
-
-        derivatives = compute_qp_cost_derivative(qp, dx)
+            qp, errors_pre = linearize_and_fill_qp(problem, x, lam, data=data, ineq_var=ineq_var)
+            if use_ns:
+                with annotate("ComputeStepDirection"):
+                    ns = qp_null_space_solve(qp)
+                dx = ns.x
+                # Any failure ends the outer loop through QP_INDEFINITE (the
+                # reference's early return, nonlinear.cc:103-105).
+                qp_indefinite = ns.termination_state != QPNullSpaceTerminationState.SUCCESS
+                qp_term = ns.termination_state
+                qp_iters = torch.zeros_like(i)
+            elif fused_qp:
+                with annotate("ComputeStepDirection"):
+                    dx, y_qp = fused(qp.G, qp.c, qp.A_eq, qp.b_eq, qp.ineq_a, qp.ineq_b)
+                qp_indefinite = ~torch.isfinite(dx).all(-1)
+                dx = _where_lane(qp_indefinite, torch.zeros_like(dx), dx)
+                qp_term = torch.where(
+                    qp_indefinite,
+                    _i32(QPTerminationState.FAILED_FACTORIZATION, i),
+                    _i32(QPTerminationState.MAX_ITERATIONS, i),
+                )
+                qp_iters = _i32(params.max_qp_iterations, i)
+                if has_eq:
+                    lagrange_l_inf = y_qp.abs().amax(-1)
+            else:
+                with annotate("ComputeStepDirection"):
+                    ipres = qp_ip_solve(qp, qp_params)
+                dx = ipres.x
+                # The reference throws FailedFactorization here; the lane ends
+                # with QP_INDEFINITE instead.
+                qp_indefinite = ipres.termination_state == QPTerminationState.FAILED_FACTORIZATION
+                qp_term = ipres.termination_state
+                qp_iters = ipres.num_iterations
+                if params.record_history:
+                    last = torch.clamp_min(ipres.num_iterations - 1, 0)
+                    qp_kkt_final = tree_map(lambda a: _get_row(a, last), ipres.iterations.kkt_final).max()
+                    qp_hist_row = ipres.iterations
+                if has_eq:
+                    lagrange_l_inf = ipres.lagrange_multipliers.l_infinity
+            derivatives = compute_qp_cost_derivative(qp, dx)
 
         # --- penalty update (nonlinear.cc:112-118) ---------------------------
         if has_eq:
-            new_penalty = select_penalty(qp, dx, lagrange_l_inf, params.equality_penalty_rho)
+            # The CG path has no QP object: select_penalty takes the eq-18.32
+            # multiplier branch (its multipliers always exist).
+            new_penalty = select_penalty(None if use_cg else qp, dx, lagrange_l_inf, params.equality_penalty_rho)
             penalty = torch.where(
                 new_penalty > penalty, new_penalty * params.equality_penalty_scale_factor, penalty
             )
@@ -807,6 +1055,9 @@ def nls_solve(
         errors=evaluate_nonlinear_errors(problem, out.x, data=data),
         iterations=out.history,
         solver_variant=_i32(
-            QPSolverVariant.NULL_SPACE if use_ns else QPSolverVariant.INTERIOR_POINT, it0
+            QPSolverVariant.MATRIX_FREE_CG
+            if use_cg
+            else (QPSolverVariant.NULL_SPACE if use_ns else QPSolverVariant.INTERIOR_POINT),
+            it0,
         ),
     )

@@ -119,10 +119,25 @@ def build():
     return target
 
 
+# An emitted source past this many characters builds with NVVM and ptxas at
+# -O1. A planar IK family on the blocked target is one residual block over
+# the whole chain: its source is 1.2 MB at n = 33 and 2.7 MB at n = 48, which
+# nvcc at -O3 built in 421 s and not within 840 s; at -O1, 12 and 19 s (H100
+# machine, PR 16). The arithmetic is the same IEEE operations either way
+# (--fmad=false, IEEE division and square root are not optimization levels).
+# Every other emitted family so far is under 160,000 characters.
+LARGE_GENERATED = 500_000
+LARGE_GENERATED_FLAGS = ("-Xcicc", "-O1", "-Xptxas", "-O1")
+
+
+def _generated_flags(source):
+    return NVCC_FLAGS + (LARGE_GENERATED_FLAGS if len(source) > LARGE_GENERATED else ())
+
+
 def _generated_path(source):
     """Where the library of an emitted family source lives: named by a hash
     of the source, the flags and the csrc/ headers it includes."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_generated_flags(source)).encode())
     h.update(source.encode())
     for p in sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
@@ -146,7 +161,7 @@ def build_generated(sources):
                 cu = p.with_suffix(".cu")
                 cu.write_text(src)
                 partial = os.path.join(tmp, p.name)
-                cmds.append([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v", "-shared", str(cu),
+                cmds.append([nvcc, *_generated_flags(src), "-I", str(CSRC), "-Xptxas", "-v", "-shared", str(cu),
                              "-o", partial])
                 parts.append((p, partial))
             outs = _run_all(cmds)

@@ -50,10 +50,12 @@ in the plain ``linearize``'s order. Its program is O(groups) statements and
 its tables O(blocks) entries; after clearing G, c and J_eq it sums into only
 the cells its blocks touch, which are the family's ``g_pattern`` and
 ``eq_patterns``.
-``run_blocked`` runs the same computation on ``(B,)`` tensors. The blocked
-target takes no retract (kernel 2 retracts one variable at a time), no block
-that reads a variable twice and no block data row computed from the
-payload: each raises ``UnsupportedOp`` by name.
+``run_blocked`` runs the same computation on ``(B,)`` tensors. Kernel 2
+retracts one variable at a time on the lane that owns it, so the family's
+retract is traced once per dtype and split into one program per variable
+(``blocked_retract``); a retract whose output i reads another variable, a
+block that reads a variable twice and a block data row computed from the
+payload each raise ``UnsupportedOp`` by name.
 """
 
 from __future__ import annotations
@@ -536,6 +538,36 @@ def cpp_body(prog: Program, inputs, outputs, indent="    "):
     return "\n".join(lines)
 
 
+def _variable_program(prog: Program, i: int) -> Program:
+    """Output i of ``prog`` as a program of its own on one input, input i:
+    the statements it depends on, in order. Raises UnsupportedOp if it
+    reads any other input."""
+    out = prog.outputs[i]
+    if isinstance(out, Const):
+        return Program(prog.dtype, (), (out,))
+    need, stack = set(), [out]
+    while stack:
+        k = stack.pop()
+        if k in need:
+            continue
+        need.add(k)
+        s = prog.stmts[k]
+        if s.op == "in":
+            if s.args[0] != i:
+                raise UnsupportedOp(
+                    f"a retract whose output {i} reads variable {s.args[0]} on the blocked target: kernel 2 "
+                    "retracts each variable on the lane that owns it, by itself")
+            continue
+        stack.extend(a for a in s.args if not isinstance(a, Const))
+    order = sorted(need)
+    new = {k: j for j, k in enumerate(order)}
+    stmts = tuple(
+        Stmt("in", (0,), s.dtype) if s.op == "in"
+        else Stmt(s.op, tuple(a if isinstance(a, Const) else new[a] for a in s.args), s.dtype)
+        for s in (prog.stmts[k] for k in order))
+    return Program(prog.dtype, stmts, (new[out],))
+
+
 def _ternary_chain(values, fmt, default):
     """``j == 0 ? v0 : j == 1 ? v1 : ... : default`` as one constexpr
     expression."""
@@ -585,6 +617,7 @@ class FamilyProgram:
         self._blocks = blocks
         self._programs = {}
         self._blocked = {}
+        self._blocked_retract = {}
         self._source = None
         self._blocked_source = None
         self._lib = None
@@ -695,10 +728,6 @@ class FamilyProgram:
         """Raise UnsupportedOp for what the blocked target does not take."""
         if self._blocks is None:
             raise UnsupportedOp("the family carries no residual structure for the blocked target")
-        if self._retract is not None:
-            raise UnsupportedOp(
-                "a retract on the blocked target: kernel 2 applies its family's retraction to one "
-                "variable at a time, and the emitter does not split a traced retract by variable")
         for g in self._blocks.groups:
             for idx in g.indices:
                 if len(set(idx)) != len(idx):
@@ -708,6 +737,33 @@ class FamilyProgram:
         D = self.n + self.m_eq
         if not 1 <= D <= 192:
             raise UnsupportedOp(f"D = n + m_eq = {D} on the blocked target, which takes D = 1..192")
+
+    def blocked_retract(self, dtype):
+        """The family's retract in ``dtype`` as one program per variable
+        (input 0 the variable's value, output 0 its retraction), traced once;
+        None without a retract. Kernel 2 retracts each variable on the lane
+        that owns it, so output i may read input i alone: a retract that
+        mixes variables raises UnsupportedOp naming the pair."""
+        if self._retract is None:
+            return None
+        if dtype not in self._blocked_retract:
+            prog = trace(self._flat_retract, self.n, dtype)
+            if len(prog.outputs) != self.n:
+                raise UnsupportedOp(f"a retract of {len(prog.outputs)} outputs for {self.n} variables")
+            self._blocked_retract[dtype] = tuple(_variable_program(prog, i) for i in range(self.n))
+        return self._blocked_retract[dtype]
+
+    def blocked_traces(self, dtype):
+        """What the blocked target traces in ``dtype``: (``blocked_programs``,
+        ``blocked_retract``). Plain data, so that another process can trace
+        a wide family (minutes of Python) while this one works on."""
+        return self.blocked_programs(dtype), self.blocked_retract(dtype)
+
+    def adopt_blocked_traces(self, dtype, traces):
+        """Take ``blocked_traces(dtype)`` of the same family traced in another
+        process: what this process would have traced itself."""
+        self._check_blocked()
+        self._blocked[dtype], self._blocked_retract[dtype] = traces
 
     def _layout(self):
         """Per group: (first slot in scr, slots a block, first block) -- the
@@ -734,6 +790,7 @@ class FamilyProgram:
         once: a few small programs (one block of each residual group) where
         the register target traces the whole linearization."""
         self._check_blocked()
+        self.blocked_retract(dtype)
         if dtype not in self._blocked:
             bl, rows = self._blocks, self.data_rows
             lin, err = [], []
@@ -937,8 +994,7 @@ class FamilyProgram:
             f"  __device__ int hi_slot(int i) const {{ return {'kHiSlot[i]' if hi else '-1'}; }}",
             f"  __device__ double lo_val(int j) const {{ return {'kLoVal[j]' if lo else '0.0'}; }}",
             f"  __device__ double hi_val(int j) const {{ return {'kHiVal[j]' if hi else '0.0'}; }}",
-            "  template <typename T>",
-            "  __device__ T retract(T a) const { return a; }",
+            *self._retract_members(),
             *members,
             "",
             "  template <typename T>",
@@ -954,6 +1010,29 @@ class FamilyProgram:
         ]
         return _BLOCKED_SOURCE.format(n=n, m=m, rows=rows, nlo=len(lo), nhi=len(hi), groups=len(groups),
                                       tables="\n".join(tables), struct="\n".join(struct))
+
+    def _retract_members(self):
+        """``retract(i, a)``, variable i's retraction of the value a: the
+        identity without a retract, else one overload per type that runs
+        variable i's program (a switch over the distinct programs when the
+        variables do not all share one)."""
+        if self._retract is None:
+            return ["  template <typename T>", "  __device__ T retract(int, T a) const { return a; }"]
+        lines = []
+        for dtype, T in ((torch.float32, "float"), (torch.float64, "double")):
+            progs = self.blocked_retract(dtype)
+            distinct = list(dict.fromkeys(progs))
+            if len(distinct) == 1:
+                lines += [f"  __device__ __forceinline__ {T} retract(int, {T} a) const {{", f"    {T} out;",
+                          cpp_body(distinct[0], ["a"], ["out"]), "    return out;", "  }"]
+                continue
+            which = ", ".join(str(distinct.index(p)) for p in progs)
+            lines += [f"  __device__ __forceinline__ {T} retract(int i, {T} a) const {{",
+                      f"    constexpr int kWhich[] = {{{which}}};", f"    {T} out = a;", "    switch (kWhich[i]) {"]
+            for k, p in enumerate(distinct):
+                lines += [f"      case {k}: {{", cpp_body(p, ["a"], ["out"], indent="        "), "      } break;"]
+            lines += ["    }", "    return out;", "  }"]
+        return lines
 
     def blocked_library(self):
         """The family's kernel-2 library, emitted, built and bound at first

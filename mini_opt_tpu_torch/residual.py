@@ -22,6 +22,18 @@ def _index(index, device):
     return torch.as_tensor(index, dtype=torch.long, device=device)
 
 
+def _cached_index(obj, index, device):
+    """``_index`` of a residual's static index tuple, made once per device
+    and kept on the (frozen) residual: a solve evaluates it every trip, and
+    on the card each conversion is a host-to-device copy."""
+    if torch.is_tensor(index):
+        return _index(index, device)
+    cache = obj.__dict__.setdefault("_index_cache", {})
+    if device not in cache:
+        cache[device] = _index(index, device)
+    return cache[device]
+
+
 @dataclasses.dataclass(frozen=True)
 class Residual:
     """One cost/constraint block: ``r = fn(x[index])`` with ``dim`` outputs.
@@ -41,7 +53,7 @@ class Residual:
 
     def gather(self, x):
         """GatherValues analog (residual.hpp:150-163)."""
-        return x[_index(self.index, x.device)]
+        return x[_cached_index(self, self.index, x.device)]
 
     def error_vector(self, x):
         """h(x) for this block (residual.hpp:175-180)."""
@@ -79,7 +91,7 @@ class BlockResidual:
     data: Optional[torch.Tensor] = None  # (num_blocks, ...) per-block payload
 
     def _idx(self, device):
-        return _index(self.indices, device)
+        return _cached_index(self, self.indices, device)
 
     @property
     def num_blocks(self) -> int:
@@ -116,7 +128,7 @@ def accumulate_hessian(G, c, res: Residual, x):
     """UpdateHessian analog (residual.hpp:185-226): adds J^T J into G and
     J^T r into c. Returns (G, c, 0.5*||r||^2)."""
     r, J = res.error_and_jacobian(x)
-    idx = _index(res.index, x.device)
+    idx = _cached_index(res, res.index, x.device)
     P = idx.shape[0]
     JtJ = J.T @ J
     Jtr = J.T @ r

@@ -1,5 +1,5 @@
 """Quaternion / SO(3) utilities, the port of ``mini_opt_tpu/utils/so3.py``
-(so3.py:21-177) that the transform chains and IK use.
+(so3.py:21-205) that the transform chains, IK and the SE(3) graphs use.
 
 Quaternions are ``(..., 4)`` tensors in ``[w, x, y, z]`` layout; every
 function works in any float dtype and on any leading shape, and under
@@ -172,3 +172,29 @@ def euler_angles_xyz_from_quat(q):
     a = torch.atan2(-r[..., 1, 2], r[..., 2, 2])
     c = torch.atan2(-r[..., 0, 1], r[..., 0, 0])
     return torch.stack([a, b, c], dim=-1)
+
+
+def quat_from_matrix(R):
+    """Quaternion (w, x, y, z) of rotation matrices ``(..., 3, 3)``, the
+    branchless Shepperd method: all four candidate quaternions (one per
+    largest component), the one of the largest diagonal combination picked
+    by a one-hot product, the w >= 0 representative, normalized. Exact at
+    180-degree rotations, where the trace formula divides by ~0."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    lead = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 + m11 - m00 - m22, 1.0 + m22 - m00 - m11], dim=-1)
+    cands = torch.stack(
+        [
+            torch.stack([lead[..., 0], m21 - m12, m02 - m20, m10 - m01], dim=-1),
+            torch.stack([m21 - m12, lead[..., 1], m01 + m10, m02 + m20], dim=-1),
+            torch.stack([m02 - m20, m01 + m10, lead[..., 2], m12 + m21], dim=-1),
+            torch.stack([m10 - m01, m02 + m20, m12 + m21, lead[..., 3]], dim=-1),
+        ],
+        dim=-2,
+    )  # (..., 4, 4); candidate k has leading term 4 q_k^2
+    sel = torch.nn.functional.one_hot(torch.argmax(lead, dim=-1), 4).to(R.dtype)
+    q = torch.matmul(sel[..., None, :], cands)[..., 0, :]
+    q = q * torch.where(q[..., :1] < 0, -torch.ones_like(q[..., :1]), torch.ones_like(q[..., :1]))
+    return q / torch.sqrt(torch.clamp_min(torch.sum(q * q, dim=-1, keepdim=True), torch.finfo(R.dtype).tiny))

@@ -219,7 +219,10 @@ def test_early_exit_changes_no_result():
 # ---------------------------------------------------------------------------
 
 NOT_PORTED = {
-    "cg": (dict(qp_solver="cg"), {}),
+    # Ported since: the CG path runs; its distributed form is item 9's.
+    "cg": (dict(qp_solver="cg"), dict(axis_name="mp"), NotImplementedError, "item 9"),
+    "cg_distributed_preconditioner": (
+        dict(qp_solver="cg"), dict(distributed_cg_preconditioner=True), NotImplementedError, "item 9"),
     "parallel_line_search": (
         dict(parallel_line_search=True, line_search_strategy=port.LineSearchStrategy.ARMIJO_BACKTRACK), {}
     ),

@@ -66,7 +66,7 @@ def test_import_leaves_jax_out():
     sorted((REPO / "mini_opt_tpu_torch").rglob("*.py"))
     + [REPO / "chip_smoke.py"]
     + [REPO / "scripts" / f"{name}_kernel_times.py" for name in ("mpc", "blocked", "pose_ring", "ldlt", "fused")]
-    + [REPO / "scripts" / "kernel_timing.py"],
+    + [REPO / "scripts" / "kernel_timing.py", REPO / "scripts" / "cg_path_times.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import_in_source(path):

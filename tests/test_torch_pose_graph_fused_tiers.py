@@ -158,10 +158,21 @@ def test_emitted_blocked_source_declares_the_family():
                                     48).cuda_program.blocked_source() == src
 
 
-def _retracted():
+def _retracted(headings_only=False):
+    """The 11-pose family with a per-variable wrap, which kernel 2 takes
+    variable by variable: every variable, or the headings alone (the
+    general path's ``pose_graph_retraction``)."""
+    edges = chain_edges(11, GRAPHS[11])
+    return port.family_from_problem(
+        pg.scalar_pose_graph_builder(11, edges), 3 * len(edges),
+        retract=lambda th: [pg._wrap(t) if k % 3 == 2 or not headings_only else t for k, t in enumerate(th)])
+
+
+def _mixing_retract():
+    """A retract whose output 0 reads variable 1: no lane holds both."""
     edges = chain_edges(11, GRAPHS[11])
     return port.family_from_problem(pg.scalar_pose_graph_builder(11, edges), 3 * len(edges),
-                                    retract=lambda th: [pg._wrap(t) for t in th])
+                                    retract=lambda th: [th[0] + th[1]] + [pg._wrap(t) for t in th[1:]])
 
 
 def _repeated():
@@ -182,7 +193,7 @@ def _computed_data():
     return port.family_from_problem(builder, 2)
 
 
-REFUSED = {"retract": (_retracted, "retract"), "repeated": (_repeated, "reads a variable twice"),
+REFUSED = {"retract": (_mixing_retract, "output 0 reads variable 1"), "repeated": (_repeated, "reads a variable twice"),
            "computed_data": (_computed_data, "computed from the payload")}
 
 
@@ -191,6 +202,24 @@ def test_blocked_target_refuses_what_it_cannot_split(case):
     make, match = REFUSED[case]
     with pytest.raises(fused_emit.UnsupportedOp, match=match):
         make().cuda_program.blocked_source()
+
+
+def test_blocked_target_takes_a_per_variable_retract():
+    """The per-pose wrap, once refused, is emitted (retract(i, a) per type:
+    one program for every variable, or a switch between the heading's wrap
+    and the identity) and runs through the plain blocked path, every
+    accepted candidate's headings wrapped."""
+    src = _retracted().cuda_program.blocked_source()
+    assert "__device__ __forceinline__ float retract(int, float a) const {" in src
+    assert "__device__ __forceinline__ double retract(int, double a) const {" in src
+    fam = _retracted(headings_only=True)
+    src = fam.cuda_program.blocked_source()
+    assert "double retract(int i, double a) const {" in src and "switch (kWhich[i])" in src
+    data, x0 = chain_closure_instances(5, 11, GRAPHS[11], seed=3)
+    x = port.blocked_solve_batch(fam, torch.tensor(data), torch.tensor(x0), max_iterations=4, qp_iterations=1,
+                                 ls_iterations=2)
+    assert torch.isfinite(x).all() and (x != torch.tensor(x0)).any(1).all()
+    assert (x[:, 2::3].abs() <= np.pi + 1e-12).all()
 
 
 def _dense_assembly(builder, x, d):
