@@ -201,7 +201,7 @@ Phases, each of which exits non-zero on failure:
    (mo_generated_blocked_occupancy), and ptxas registers, spill stores and
    stack frame of each instance;
 26. each pose instance against its plain version on card tensors, bit for
-   bit in float64 and float32: at B = 8192 + 13 with a NaN-measurement lane
+   bit in float64 and float32: at B = 1024 + 13 with a NaN-measurement lane
    (flagged, every other lane finite), at B = 1 and at B = W + 1 (a ragged
    last CTA);
 27. the cells through the public entry point fused_solve_batch in float32
@@ -210,12 +210,13 @@ Phases, each of which exits non-zero on failure:
    5/1/2, every launch counter set to 0 just before and read just after (one
    generated launch a call, nothing else), one device kernel a call
    (kernels_a_call), the converged share (cost < 2e-3 N) at least 0.99, the
-   outputs bit for bit against the plain version; and in float64 at
+   outputs on the first 1024 lanes bit for bit against the plain version on
+   theirs; and in float64 at
    B = 512 against nls_solve on the same Problem at the matched fixed-trip
    budget, x and the final cost within 1e-8 (relative);
 28. held times of each instance at B = 8192, 1024 and 1, the entry point
-   as a caller issues it and its device work, the plain version once and the
-   bound from its operation count, and the general twin
+   as a caller issues it and its device work, the plain version once (at
+   B = 1024) and the bound from its operation count, and the general twin
    (make_pose_graph_problem + nls_solve at B = 512, float32, the bench's
    parameters) per call and its cost median beside the kernel's;
 29. the matrix-free large-problem path (``nls_solve`` with ``qp_solver="cg"``,
@@ -227,7 +228,9 @@ Phases, each of which exits non-zero on failure:
    (200 / 100), float32; gates, against the port's float64 CPU result at
    the same budgets: the final cost within CG_F_GATE and the drift from the
    ground truth within CG_X_GATE (relative), and the drift lower than the
-   start's; printed: wall seconds, the device memory
+   start's (the float64 CPU references of phases 29-31 run in phase 32's
+   worker processes beside the card's runs); printed: wall seconds, the
+   device memory
    allocated at the peak above what was allocated before,
    one Gauss-Newton step's device operations a CG trip and outside the
    trips (a step captured in a CUDA graph, at 1 and 3 trips), ms a trip,
@@ -253,7 +256,41 @@ Phases, each of which exits non-zero on failure:
    n = 33, float32: fused_solve_batch launches the generated kernel 2 once
    (the counts set to 0 just before it), bit for bit against the plain
    blocked version, one device kernel a call (kernels_a_call);
-33. the kernel line, then the device line as the last line of stdout.
+33. examples/obstacle_ik.py's lifted problem (ineq.py) as a fleet:
+   obstacle_ik_targets(8192, seed 0) near the example's target, each
+   lane's keep-out centre the elbow of its base solve (the example's arm
+   with the proximal cost, no keep-out), float64, kkt_solver="pallas_ldlt",
+   through nls_solve on the per-lane wrapper function, the counts of kernels
+   4 and 5 set to 0 just before the lifted solve and read just after; the
+   share of lanes passing the example's asserts, on the first 256 lanes at
+   least the JAX package's share there (OBSTACLE_JAX_SHARE), and the first
+   64 lanes (x and slacks) within 1e-8 of the port's float64 CPU result (a
+   worker process), their termination states equal; each solve's wall
+   seconds;
+34. implicit gradients (implicit.py): (a) dx*/dtarget of the 2-link IK
+   fleet with the elbow limit 1.2 (tests/test_implicit.py:149's problem)
+   at B = 8192, float64, kernels 4 and 5 in the forward solve: the pinned
+   joint's row 0 within 1e-4 on the lanes at the limit, the first 64 lanes
+   (x and dx*/dtarget) within 1e-8 (relative) of the port's float64 CPU
+   result, the forward and one backward pass's milliseconds and the
+   backward's device kernels (torch.profiler: a CUDA graph does not
+   capture the backward on the card); (b) mpc_feedback_gain at the
+   cart-pole's upright state, T = 20, against -K_0 of the LQR oracle (rtol
+   1e-6, atol 1e-8), then over 1024 plant states near it (one backward
+   pass), four of its lanes within 1e-8 (relative) of one-state float64 CPU
+   calls (worker processes);
+35. the serving-budget tuner (tuning.py) on scripts/tune_budgets.py's
+   families with their gates and anchors: the generated planar family at
+   B = 8192 (kernel 1; the budget (4, 2, 1) or cheaper in every component),
+   the hand spatial n = 3 (kernel 1), the generated pose ring N = 4 (kernel
+   1), the pose ring N = 16 (kernel 7), the MPC servo fleet at B = 1024
+   (kernels 8 and 9) and the 48-joint arm (kernel 2, parity above 0.9,
+   anchor (6, 3, 2)); every budget a launch at run-time trip counts, the
+   counts set to 0 before each family; one JSON line per family, with the
+   budgets STATUS.md records from TPU runs beside as context;
+36. the kernel line (this slice's launches in the rows of kernels 1, 2, 4,
+   5, 7, 8 and 9), the seconds of each phase, then the device line as the
+   last line of stdout.
 
 The 10,000-pose scale point and the sparse bundle adjustment (64 x 8,192,
 4 cameras a landmark) run in scripts/cg_path_times.py, not here.
@@ -269,7 +306,10 @@ the generated pose instances of kernels 1 and 2 (phases 26-27) and the
 generated instances of kernel 2 with a retract (phase 32). The CG path
 (phases 29-31) runs no kernel: float32 on the card against float64 on the
 CPU, CG_F_GATE on the final cost and CG_X_GATE on the drift or landmark
-error, each set from the readings in PERF.md's PR 16 section.
+error, each set from the readings in PERF.md §6. Phases 33-34
+run the general path in float64, held to the port's float64 CPU result
+within 1e-8 (kernels 4 and 5 are bit-identical to their plain versions;
+the chain's trigonometry rounds differently on the card).
 """
 
 import concurrent.futures
@@ -335,6 +375,27 @@ ARM_ARGS = tuple(ARM[k] for k in ("max_iterations", "qp_iterations", "ls_iterati
 def fail(msg):
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+class PhaseClock:
+    """Prints the seconds each phase took (host clock), so that a later
+    change knows where the script's time goes; ``summary`` lists them all."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.rows = []
+
+    def mark(self, label):
+        now = time.perf_counter()
+        self.rows.append((label, now - self.last))
+        print(f"# seconds {label}: {now - self.last:.1f} s ({now - self.start:.1f} s into the run)", flush=True)
+        self.last = now
+
+    def summary(self):
+        return {label: round(sec, 1) for label, sec in self.rows}
+
+
+CLOCK = PhaseClock()
 
 
 def max_abs_diff(a, b):
@@ -721,7 +782,9 @@ def blocked_paths(card, kind):
     max_err_blk = {"float64": 0.0, "float32": 0.0}
     max_err_kkt = {"float64": 0.0, "float32": 0.0}
     blocked_vs_plain(max_err_blk)
+    CLOCK.mark("phase 5")
     kkt_vs_plain(max_err_kkt)
+    CLOCK.mark("phase 6")
 
     # Phase 7: the main path, fused_solve_batch past D = 32.
     B = 8192
@@ -766,6 +829,7 @@ def blocked_paths(card, kind):
     plain_kkt = lambda: blk._blocked_kkt_solve_plain(H, rhs)  # noqa: E731
     check_kkt(f"phase7 blocked_kkt_solve D={D} B={B}", H, rhs, x_kkt, plain_kkt(), max_err_kkt)
 
+    CLOCK.mark("phase 7")
     # Phase 8: times at those shapes.
     t_d, x_d = torch.as_tensor(t32, device="cuda"), torch.as_tensor(x32, device="cuda")
     entry = lambda: mot.fused_solve_batch(arm, t_d, x_d, **ARM)  # noqa: E731
@@ -1171,12 +1235,15 @@ def profile_call(fn, sessions=3):
     factor of a pair, another 15 of 20 calls' kernels): so each session
     opens with a marker kernel (torch.cuda._sleep's spin kernel, left out
     of the result), and of ``sessions`` sessions the one that recorded the
-    most device work is kept. A missed record only lowers a count."""
+    most device work is kept. A missed record only lowers a count. The
+    sessions record device activity alone: the host's, which nothing here
+    reads, took most of the time of a profiled call of tens of thousands of
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     best = None
     for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1214,7 +1281,9 @@ def general_paths(card, kind):
     err5 = {"float64": 0.0, "float32": 0.0}
     err6 = {"float64": 0.0, "float32": 0.0}
     ldlt_vs_plain({"factor": err4, "solve": err5})
+    CLOCK.mark("phase 10")
     fused_qp_vs_plain(err6)
+    CLOCK.mark("phase 11")
 
     # Phase 12: the general main path at full width, both routes.
     B = GENERAL_B
@@ -1245,8 +1314,7 @@ def general_paths(card, kind):
         parity = float((err < 1e-3).mean())
         satisfied = mot.termination_state_indicates_satisfied_tol(res.termination_state).double().mean().item()
         with plain_kernels():
-            ref = mot.solve_ik_batch(t32, x32, params=params)
-            torch.cuda.synchronize()
+            plain_e2e_ms, ref = event_ms(lambda: mot.solve_ik_batch(t32, x32, params=params))
         same = bit_identical((res.x, ref.x), (res.termination_state, ref.termination_state),
                              (res.errors.f, ref.errors.f), (res.errors.equality, ref.errors.equality))
         print(f"# phase12 {route} solve_ik_batch planar n=2 B={B} float32 10/6/2 complementarity "
@@ -1261,8 +1329,6 @@ def general_paths(card, kind):
 
         entry = lambda: mot.solve_ik_batch(t32, x32, params=params)  # noqa: E731
         e2e_ms, e2e_all = time_ms(entry, repeats=3, launches=1, warmup=1)
-        with plain_kernels():
-            plain_e2e_ms, _ = event_ms(entry)
         # One session: the count of ~35,000 kernels is reported, not gated.
         prof_wall, busy_ms, n_kernels, per_kernel = profile_call(entry, sessions=1)
         ours = {k: v for k, v in per_kernel.items() if re.search(r"ldlt_(factor|solve)(_reg)?_kernel|fused_qp_kernel", k)}
@@ -1515,6 +1581,7 @@ def pose_ring_paths(card, kind):
     max_err = {"float64": 0.0, "float32": 0.0}
     ring_plan_lines()
     ring_vs_plain(max_err)
+    CLOCK.mark("phase 14")
 
     # Phase 15: the main path, solve_pose_graph_rings at full width.
     iters, ls = RING_BUDGET
@@ -1551,6 +1618,7 @@ def pose_ring_paths(card, kind):
     plain = lambda: pr._pose_ring_plain(fam, d_t, x_t, iters, ls)  # noqa: E731
     check_ring(f"phase15 main path B={RING_B}", (x_main.reshape(RING_B, -1).T, state_main.T), plain(), max_err)
 
+    CLOCK.mark("phase 15")
     # Phase 16: times at the main path's shape.
     m_d, s_d = torch.as_tensor(meas, device="cuda"), torch.as_tensor(starts, device="cuda")
     entry = lambda: pg.solve_pose_graph_rings(m_d, s_d, max_iterations=iters, ls_iterations=ls)  # noqa: E731
@@ -1745,13 +1813,25 @@ def mpc_vs_plain(err8, err9):
             servo_vs_plain(f"phase18 kernel 9 {name} B={B}", fam, x_t, z_t, 8, bud, err9, (5, 9))
 
     # One instance, and a ragged last CTA (W + 1 instances for W warps per
-    # CTA), on both plants at the main path's budgets.
+    # CTA), on both plants at the main path's budgets. The kernels run each
+    # batch; the plain versions, whose lanes are independent and whose cost
+    # is their operations' count, not B, run once on both batches' lanes.
     for kind, bud9 in (("cartpole", MPC_SERVO), ("quadrotor", QUAD_SERVO)):
         for dtype in (torch.float64, torch.float32):
-            for Bs in (1, pm.launch_plan(mpc_family(kind), 1, dtype).warps + 1):
-                fam, x_t, z_t = mpc_inputs(kind, Bs, 3, dtype)
-                solve_vs_plain(f"phase18 kernel 8 {kind} 8/3/2 +history B={Bs}", fam, x_t, z_t, MPC_COLD, True, err8)
-                servo_vs_plain(f"phase18 kernel 9 {kind} {bud9} x 8 periods B={Bs}", fam, x_t, z_t, 8, bud9, err9)
+            sizes = (1, pm.launch_plan(mpc_family(kind), 1, dtype).warps + 1)
+            inputs = [mpc_inputs(kind, Bs, 3, dtype) for Bs in sizes]
+            fam = inputs[0][0]
+            x_all, z_all = (torch.cat([inp[i] for inp in inputs], 1) for i in (1, 2))
+            want8 = pm._mpc_plain(fam, x_all, z_all, *MPC_COLD, True)
+            want9 = pm._mpc_servo_plain(fam, x_all, z_all, 8, *bud9)
+            lo = 0
+            for Bs, (_, x_t, z_t) in zip(sizes, inputs):
+                lanes = slice(lo, lo + Bs)
+                solve_vs_plain(f"phase18 kernel 8 {kind} 8/3/2 +history B={Bs}", fam, x_t, z_t, MPC_COLD, True, err8,
+                               want=tuple(w[..., lanes] for w in want8))
+                servo_vs_plain(f"phase18 kernel 9 {kind} {bud9} x 8 periods B={Bs}", fam, x_t, z_t, 8, bud9, err9,
+                               want=tuple(w[..., lanes] for w in want9))
+                lo += Bs
 
     # The global-scratch route (float64) and one warp per CTA (float32).
     for dtype, storage in ((torch.float64, "global"), (torch.float32, "shared")):
@@ -1764,22 +1844,29 @@ def mpc_vs_plain(err8, err9):
         servo_vs_plain(f"phase18 kernel 9 {tag} 1/1/1 x 2 periods", fam, x_t, z_t, 2, (1, 1, 1), err9, (5, 9))
 
 
-def solve_vs_plain(tag, fam, x_t, z_t, bud, hist, err8, nan_lanes=()):
+def solve_vs_plain(tag, fam, x_t, z_t, bud, hist, err8, nan_lanes=(), want=None):
+    """Kernel 8 against its plain version on the same inputs (``want``: the
+    plain version's outputs on these lanes, when already computed)."""
     before = pm.KERNEL_LAUNCHES
     got = pm._mpc_cuda(fam, x_t, z_t, *bud, hist)
     torch.cuda.synchronize()
     if pm.KERNEL_LAUNCHES != before + 1:
         fail(f"{tag}: the kernel-8 wrapper did not count its launch")
-    check_mpc(tag, got, pm._mpc_plain(fam, x_t, z_t, *bud, hist), 1, err8, nan_lanes=nan_lanes)
+    if want is None:
+        want = pm._mpc_plain(fam, x_t, z_t, *bud, hist)
+    check_mpc(tag, got, want, 1, err8, nan_lanes=nan_lanes)
 
 
-def servo_vs_plain(tag, fam, x_t, z_t, periods, bud, err9, nan_lanes=()):
+def servo_vs_plain(tag, fam, x_t, z_t, periods, bud, err9, nan_lanes=(), want=None):
+    """Kernel 9 against its plain version, as solve_vs_plain."""
     before = pm.SERVO_LAUNCHES
     got = pm._mpc_servo_cuda(fam, x_t, z_t, periods, *bud)
     torch.cuda.synchronize()
     if pm.SERVO_LAUNCHES != before + 1:
         fail(f"{tag}: the kernel-9 wrapper did not count its launch")
-    check_mpc(tag, got, pm._mpc_servo_plain(fam, x_t, z_t, periods, *bud), 2, err9, nan_lanes=nan_lanes)
+    if want is None:
+        want = pm._mpc_servo_plain(fam, x_t, z_t, periods, *bud)
+    check_mpc(tag, got, want, 2, err9, nan_lanes=nan_lanes)
 
 
 def expect_launches(tag, want_nonzero):
@@ -1795,6 +1882,7 @@ def mpc_paths(card, kind):
     err8 = {"float64": 0.0, "float32": 0.0}
     err9 = {"float64": 0.0, "float32": 0.0}
     mpc_vs_plain(err8, err9)
+    CLOCK.mark("phase 18")
 
     # Phase 19: the main path, mpc_servo_bench's cold solve + servo loop.
     fam = pm.cartpole_mpc_family(MPC_T, MPC_DT)
@@ -1857,6 +1945,7 @@ def mpc_paths(card, kind):
         if not hover >= 0.99:
             fail(f"phase19: quadrotor hover share {hover} is below 0.99")
 
+    CLOCK.mark("phase 19")
     # Phase 20: times at the main path's shapes (B = 1024).
     m = main[B]
     x0, z0, x1, z1 = m["x0"], m["z0"], m["x1"], m["z1"]
@@ -2074,6 +2163,7 @@ def wrapped_dx(a, b):
 def generated_paths(card, kind, families, max_err):
     """Phases 22-24; returns the generated route's kernel row."""
     generated_vs_plain(families, max_err)
+    CLOCK.mark("phase 22")
     fam = families["planar n=2"][0]
 
     # Phase 23: bench.py's default route through the public entry point.
@@ -2134,6 +2224,7 @@ def generated_paths(card, kind, families, max_err):
     if not same:
         fail(f"phase23 fused_chain_ik_solve: the generated kernel disagrees with its plain version ({diff})")
 
+    CLOCK.mark("phase 23")
     # Phase 24: held times, generated and hand-written in turns.
     hand = fik.planar_family(2, LINK)
     inst[1] = tuple(a[:1] for a in inst[8192])
@@ -2201,6 +2292,10 @@ POSE_BUDGET = dict(max_iterations=5, qp_iterations=1, ls_iterations=2, barrier="
 # tests/test_pallas_blocked.py:415-437 (D = 120, 4 rows a lane).
 POSE_CELLS = ((4, None, POSE_BUDGET_4), (16, ((4, 12),), POSE_BUDGET), (40, ((5, 34), (12, 27)), POSE_BUDGET))
 POSE_B = 8192
+# Phases 26-28 run the plain versions on this many lanes (and phase 26 the
+# kernel beside it, with a ragged edge): the N = 40 plain version took 8.5 s
+# a call at B = 8192 and 7.4 s at 1024 (NVIDIA H100 80GB HBM3, 700 W).
+POSE_PLAIN_B = 1024
 POSE_GENERAL_B = 512  # blocked_pose16_bench's general twin
 POSE_TOL = 1e-8  # tests/test_pallas_blocked.py:324, x and the cost against nls_solve in float64
 
@@ -2323,9 +2418,10 @@ def pose_report(poses, emit_s, build_s, paths):
                       f"{stack} bytes stack frame", flush=True)
 
 
-def pose_kernel(fam, d, x, budget):
+def pose_kernel(fam, d, x, budget, plain=True):
     """The family's generated instance on batch-major card tensors, and its
-    plain version on the same: ((x, state), (x, state)), batch-major."""
+    plain version on the same: ((x, state), (x, state)), batch-major; with
+    ``plain=False`` the instance's alone."""
     bud = tuple(budget[k] for k in ("max_iterations", "qp_iterations", "ls_iterations", "line_search", "barrier"))
     if pose_register(fam):
         before = fik.GENERATED_LAUNCHES
@@ -2333,33 +2429,48 @@ def pose_kernel(fam, d, x, budget):
         torch.cuda.synchronize()
         if fik.GENERATED_LAUNCHES != before + 1:
             fail("phase26: the generated kernel 1 wrapper did not count its launch")
-        return got, fik._fused_solve_plain_batch(fam, d, x, *bud, False)[:2]
+        return (got, fik._fused_solve_plain_batch(fam, d, x, *bud, False)[:2]) if plain else got
     before = blk.GENERATED_LAUNCHES
     got = blk._blocked_solve_cuda(fam, d.T, x.T, *bud)
     torch.cuda.synchronize()
     if blk.GENERATED_LAUNCHES != before + 1:
         fail("phase26: the generated kernel 2 wrapper did not count its launch")
+    got = (got[0].T, got[1].T)
+    if not plain:
+        return got
     want = blk._blocked_solve_plain(fam, d.T, x.T, *bud)
-    return (got[0].T, got[1].T), (want[0].T, want[1].T)
+    return got, (want[0].T, want[1].T)
 
 
 def pose_vs_plain(poses, max_err):
     """Phase 26: every generated pose instance against its plain version,
-    bit for bit, in both types: B = 8192 + 13 with a NaN-measurement lane
+    bit for bit, in both types: B = 1024 + 13 with a NaN-measurement lane
     (flagged, every other lane finite), B = 1 and B = W + 1 (a ragged last
-    CTA: W warps of kernel 2, or kernel 1's 128 threads)."""
+    CTA: W warps of kernel 2, or kernel 1's 128 threads). The kernel runs
+    each batch; the plain version, whose lanes are independent and whose
+    cost is its operations' count, not B, runs once on the three batches'
+    lanes together (a quarter of this phase's time before)."""
     t0 = time.perf_counter()
     for N, (fam, closures, budget) in poses.items():
         for dtype in (torch.float64, torch.float32):
             W = 128 if pose_register(fam) else blk.launch_plan(blk.slab_shape(fam), 1, dtype).warps
-            for B in (POSE_B + 13, 1, W + 1):
+            batches, got = [], []
+            for B in (POSE_PLAIN_B + 13, 1, W + 1):
                 data, x0 = pose_instances(N, closures, B, seed=7)
                 if B > 9:
                     data[5, 0] = np.nan
                 d = torch.as_tensor(data, dtype=dtype, device="cuda")
                 x = torch.as_tensor(x0, dtype=dtype, device="cuda")
-                (xk, sk), (xp, sp) = pose_kernel(fam, d, x, budget)
-                torch.cuda.synchronize()
+                batches.append((d, x))
+                got.append(pose_kernel(fam, d, x, budget, plain=False))
+            _, (xp_all, sp_all) = pose_kernel(fam, torch.cat([d for d, _ in batches]),
+                                              torch.cat([x for _, x in batches]), budget)
+            torch.cuda.synchronize()
+            lo = 0
+            for (d, _), (xk, sk) in zip(batches, got):
+                B = d.shape[0]
+                xp, sp = xp_all[lo:lo + B], sp_all[lo:lo + B]
+                lo += B
                 same = bit_identical((xk, xp), (sk, sp))
                 diffs = {"x": max_abs_diff(xk, xp), "state": max_abs_diff(sk, sp)}
                 t = str(dtype).replace("torch.", "")
@@ -2403,6 +2514,7 @@ def pose_paths(card, kind, poses):
     """Phases 26-28; returns the pose instances' kernel rows."""
     max_err = {"float64": 0.0, "float32": 0.0}
     pose_vs_plain(poses, max_err)
+    CLOCK.mark("phase 26")
     rows = []
     for N, (fam, closures, budget) in poses.items():
         register = pose_register(fam)
@@ -2428,13 +2540,25 @@ def pose_paths(card, kind, poses):
         f = state[:, 0].double().cpu().numpy()
         converged = float(np.mean(f < 2e-3 * N))
         t_d, x_d = (torch.as_tensor(a, device="cuda") for a in (d32, x32))
-        (xk, sk), (xp, sp) = pose_kernel(fam, t_d, x_d, budget)
-        same = bit_identical((x, xp), (state, sp))
-        max_err["float32"] = max(max_err["float32"], max_abs_diff(x, xp), max_abs_diff(state, sp))
+        # The main path's first POSE_PLAIN_B lanes against the plain version
+        # on theirs (the lanes are independent); phase 28 reports this
+        # call's time as the plain version's.
+        Bp = POSE_PLAIN_B
+        if register:
+            kern = lambda d_, x_: fik._fused_solve_cuda(fam, d_, x_, *bud, False)  # noqa: E731
+            plain_of = lambda F, d_, x_: fik._fused_solve_plain_batch(F, d_, x_, *bud, False)[:2]  # noqa: E731
+        else:
+            kern = lambda d_, x_: blk._blocked_solve_cuda(fam, d_.T, x_.T, *bud)  # noqa: E731
+            plain_of = lambda F, d_, x_: tuple(  # noqa: E731
+                v.T for v in blk._blocked_solve_plain(F, d_.T, x_.T, *bud))
+        plain_ms, (xp, sp) = event_ms(lambda: plain_of(fam, t_d[:Bp], x_d[:Bp]))
+        same = bit_identical((x[:Bp], xp), (state[:Bp], sp))
+        max_err["float32"] = max(max_err["float32"], max_abs_diff(x[:Bp], xp), max_abs_diff(state[:Bp], sp))
         print(f"# phase27 pose N={N} (D={fam.n}) fused_solve_batch B={POSE_B} float32 {iters}/1/{ls} mpc armijo on "
               f"{kind} ({card}): launches {launched} for 1 call; cost median {np.median(f):.4e}, p99 "
               f"{np.quantile(f, 0.99):.4e}, converged share (cost < {2e-3 * N:.3g}) {converged:.6f}, flags 0 share "
-              f"{float((state[:, 2] == 0).double().mean()):.6f}; bit-identical to the plain version {same}",
+              f"{float((state[:, 2] == 0).double().mean()):.6f}; the first {Bp} lanes bit-identical to the plain "
+              f"version {same}",
               flush=True)
         if converged < 0.99 or not same:
             fail(f"phase27 pose N={N}: converged share {converged} or bits ({same})")
@@ -2459,19 +2583,12 @@ def pose_paths(card, kind, poses):
             fail(f"phase27 pose N={N}: the fused route is not within {POSE_TOL} of nls_solve ({dev_x}, {dev_f})")
 
         # Phase 28: held times, the plain version, the bound, the general twin.
-        if register:
-            kern = lambda d_, x_: fik._fused_solve_cuda(fam, d_, x_, *bud, False)  # noqa: E731
-            plain_of = lambda F, d_, x_: fik._fused_solve_plain_batch(F, d_, x_, *bud, False)  # noqa: E731
-        else:
-            kern = lambda d_, x_: blk._blocked_solve_cuda(fam, d_.T, x_.T, *bud)  # noqa: E731
-            plain_of = lambda F, d_, x_: blk._blocked_solve_plain(F, d_.T, x_.T, *bud)  # noqa: E731
         plain = functools.partial(plain_of, fam)
         k_ms, k_all = time_ms(lambda: kern(t_d, x_d), launches=10, held=True)
         k_at = {Bs: time_ms(lambda: kern(t_d[:Bs].contiguous(), x_d[:Bs].contiguous()), launches=10, held=True)[0]
                 for Bs in (1, 1024)}
         e_ms, _ = time_ms(entry, launches=10)
         ed_ms, _ = time_ms(entry, launches=10, held=True)
-        plain_ms, _ = event_ms(lambda: plain(t_d, x_d))
         # Every operation of the plain version is elementwise over the
         # instances at fixed trip counts: the count on the first 256
         # instances, times B / 256, is the count at B (and a dispatch-mode
@@ -2507,7 +2624,7 @@ def pose_paths(card, kind, poses):
               f"for the cell's phases 27-28): kernel alone {k_ms:.4f} ms "
               f"({POSE_B / k_ms * 1e3:.4e} graphs/s), at B=1 {k_at[1]:.4f} ms, at B=1024 {k_at[1024]:.4f} ms; "
               f"fused_solve_batch issued back to back {e_ms:.4f} ms/call, its device work {ed_ms:.4f} ms; plain "
-              f"{plain_ms:.3f} ms; {ops_generated / POSE_B:.0f} elementwise ops per instance in the generated "
+              f"{plain_ms:.3f} ms at B={Bp}; {ops_generated / POSE_B:.0f} elementwise ops per instance in the generated "
               f"plain version, {ops_lean / POSE_B:.0f} with the lean linearization (its solve {dev_lean:.1e} off in "
               f"float64; the emitter's overhead {ops_generated / ops_lean - 1:+.1%}) -> bound from "
               f"{ops / POSE_B:.0f}: {bound_ms:.6f} ms ({bound_by}), kernel = {k_ms / bound_ms:.1f}x bound; general "
@@ -2528,6 +2645,7 @@ def pose_paths(card, kind, poses):
             "max_abs_diff_f64": max_err["float64"],
             "ms": k_ms,
             "plain_ms": plain_ms,
+            "plain_ms_at_B": Bp,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
@@ -2562,6 +2680,7 @@ def pose_paths(card, kind, poses):
 # to run (SE(3) Jacobi's drift: 2.0e-3 and 2.5e-3 in two runs).
 CG_F_GATE = 1e-4  # f_final
 CG_X_GATE = 1e-2  # a distance from the ground truth: the drift, BA's largest landmark error
+BA_SIZE = (16, 2048)  # bundle_adjustment_bench's cameras and landmarks
 # pose_graph_bench's two pipelines on the 1200-pose circle (scripts/bench_extras.py:200):
 # name -> (chordal CG trips, chordal preconditioner, polish CG trips, polish preconditioner).
 SE2_PIPELINES = {"jacobi": (1200, "none", 300, "jacobi"), "tree": (200, "tree", 100, "tree")}
@@ -2699,19 +2818,48 @@ def cg_report(tag, card, **row):
     print(f"# {tag} on {card}: " + json.dumps(row), flush=True)
 
 
-def se2_path(card, graph, gt):
+def cg_reference(path, pre):
+    """A worker's job: one of phases 29-31's float64 CPU references at the
+    card's budgets: (seconds, f_final, the drift from the ground truth or
+    BA's largest landmark error)."""
+    from mini_opt_tpu_torch.instances import circle_graph, helix_graph
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    if path == "se2":
+        gt, edges, meas, x0 = circle_graph(1200, seed=1, noise=0.01, loop_every=10)
+        ref = se2_pipeline((1200, edges, meas, x0), pre, "cpu", torch.float64)
+        return time.perf_counter() - t0, float(ref.errors.f), drift(ref.x, gt, 2)
+    if path == "se3":
+        gt, edges, meas, x0 = helix_graph(400, seed=4, noise=0.01, loop_every=10)
+        ref = se3_pipeline((400, edges, meas, x0), pre, "cpu", torch.float64)
+        return time.perf_counter() - t0, float(ref.errors.f), drift(ref.x, gt, 3)
+    C, L = BA_SIZE
+    scene = ba_scene(C, L)
+    ref, _, _ = ba_solve(scene, C, L, "cpu", torch.float64)
+    x_true = scene[2]
+    return (time.perf_counter() - t0, float(ref.errors.f[0]),
+            float(np.abs(ref.x[0].numpy()[6 * C:] - x_true[6 * C:]).max()))
+
+
+def cg_references(pool):
+    """Start phases 29-31's CPU references in the workers: {(path, pre):
+    async result}."""
+    jobs = [("se2", pre) for pre in SE2_PIPELINES] + [("ba", None)] + [("se3", pre) for pre in SE3_PIPELINES]
+    return {job: pool.apply_async(cg_reference, job) for job in jobs}
+
+
+def se2_path(card, graph, gt, refs):
     """Phase 29: the 1200-pose SE(2) pipelines, Jacobi and tree."""
     n, edges, meas, x0 = graph
     drift0 = drift(x0, gt, 2)
     for pre in SE2_PIPELINES:
         peak, (secs, res) = device_bytes(lambda: wall_s(lambda: se2_pipeline(graph, pre, "cuda", torch.float32)))
-        t0 = time.perf_counter()
-        ref = se2_pipeline(graph, pre, "cpu", torch.float64)
-        cpu_s = time.perf_counter() - t0
         if res.x.dtype != torch.float32 or not res.x.is_cuda or not torch.isfinite(res.x).all():
             fail(f"phase29 {pre}: {res.x.dtype} {res.x.device}, finite {bool(torch.isfinite(res.x).all())}")
-        f32, f64 = float(res.errors.f), float(ref.errors.f)
-        d_after, d64 = drift(res.x.cpu(), gt, 2), drift(ref.x, gt, 2)
+        cpu_s, f64, d64 = refs[("se2", pre)].get()
+        f32 = float(res.errors.f)
+        d_after = drift(res.x.cpu(), gt, 2)
         m = torch.as_tensor(meas, dtype=torch.float32, device="cuda")
         w = torch.ones(len(edges), dtype=torch.float32, device="cuda")
         problem = pg.make_pose_graph_problem(n, edges, m, w)
@@ -2729,19 +2877,17 @@ def se2_path(card, graph, gt):
                  f"({d64} in float64)")
 
 
-def ba_path(card):
+def ba_path(card, refs):
     """Phase 30: bundle_adjustment_bench's dense-Schur solve, C = 16, L = 2048."""
-    C, L = 16, 2048
+    C, L = BA_SIZE
     scene = ba_scene(C, L)
     x_true = scene[2]
     peak, (secs, (res, problem, prec)) = device_bytes(lambda: wall_s(lambda: ba_solve(scene, C, L, "cuda",
                                                                                       torch.float32)))
-    t0 = time.perf_counter()
-    ref, _, _ = ba_solve(scene, C, L, "cpu", torch.float64)
-    cpu_s = time.perf_counter() - t0
+    cpu_s, f64, lm64 = refs[("ba", None)].get()
     x = res.x[0].double().cpu().numpy()
-    lm, lm64 = (float(np.abs(v[6 * C:] - x_true[6 * C:]).max()) for v in (x, ref.x[0].numpy()))
-    f32, f64 = float(res.errors.f[0]), float(ref.errors.f[0])
+    lm = float(np.abs(x[6 * C:] - x_true[6 * C:]).max())
+    f32 = float(res.errors.f[0])
     prof = cg_step_profile(problem, res.x[0], prec_fn=prec, trips=(1, 2, 11))
     cg_report(f"phase30 BA dense Schur C={C} L={L}", card, wall_s=secs, cpu_float64_s=cpu_s, peak_bytes=peak,
               f_final=f32, f_final_cpu_float64=f64, rel_diff=rel_diff(f32, f64), max_landmark_err=lm,
@@ -2752,7 +2898,7 @@ def ba_path(card):
         fail(f"phase30: f_final {f32} / {f64}, max landmark error {lm} / {lm64} (float32 card / float64 CPU)")
 
 
-def se3_path(card):
+def se3_path(card, refs):
     """Phase 31: pose_graph3_bench's 400-pose helix, Jacobi (hard anchor) and
     tree, against the float64 CPU result at the same budgets, as phase 29."""
     from mini_opt_tpu_torch.instances import helix_graph
@@ -2762,9 +2908,9 @@ def se3_path(card):
     graph = (400, edges, meas, x0)
     for pre in SE3_PIPELINES:
         peak, (secs, res) = device_bytes(lambda: wall_s(lambda: se3_pipeline(graph, pre, "cuda", torch.float32)))
-        cpu_s, ref = wall_s(lambda: se3_pipeline(graph, pre, "cpu", torch.float64))
-        f_start, f_final, f64 = float(res.iterations.errors_initial.f[0]), float(res.errors.f), float(ref.errors.f)
-        d_after, d64 = drift(res.x.cpu(), gt, 3), drift(ref.x, gt, 3)
+        cpu_s, f64, d64 = refs[("se3", pre)].get()
+        f_start, f_final = float(res.iterations.errors_initial.f[0]), float(res.errors.f)
+        d_after = drift(res.x.cpu(), gt, 3)
         m = torch.as_tensor(meas, dtype=torch.float32, device="cuda")
         w = torch.ones(len(edges), dtype=torch.float32, device="cuda")
         problem = pg3.make_pose_graph3_problem(400, edges, m, w, hard_anchor=pre == "jacobi")
@@ -2784,14 +2930,19 @@ def se3_path(card):
                  f"{d64}")
 
 
-def cg_paths(card):
-    """Phases 29-31."""
+def cg_paths(card, pool):
+    """Phases 29-31, their float64 CPU references in the workers beside the
+    card's runs."""
     from mini_opt_tpu_torch.instances import circle_graph
 
+    refs = cg_references(pool)
     gt, edges, meas, x0 = circle_graph(1200, seed=1, noise=0.01, loop_every=10)
-    se2_path(card, (1200, edges, meas, x0), gt)
-    ba_path(card)
-    se3_path(card)
+    se2_path(card, (1200, edges, meas, x0), gt, refs)
+    CLOCK.mark("phase 29")
+    ba_path(card, refs)
+    CLOCK.mark("phase 30")
+    se3_path(card, refs)
+    CLOCK.mark("phase 31")
 
 
 # Phase 32: the generated planar family with the _mod_pi retraction past
@@ -2862,6 +3013,7 @@ def retract_paths(builder, max_err, wait_s=900):
             print(f"# phase32 ptxas {path.name} {kname[:60]}: {nreg} registers, {spill} bytes spill stores, {stack} "
                   "bytes stack frame", flush=True)
     B = 2048 + 7
+    plain = {}
     for n, fam in fams.items():
         progs = fam.cuda_program.blocked_retract(torch.float32)
         print(f"# phase32 planar n={n} (D={n + 1}): {len(set(progs))} distinct retract program(s) over {n} "
@@ -2882,15 +3034,18 @@ def retract_paths(builder, max_err, wait_s=900):
             torch.cuda.synchronize()
             check_blocked(f"phase32 generated planar n={n} with _mod_pi, 6/3/2 mpc armijo B={B}", got, want,
                           max_err, (5,))
-    return retract_entry(fams[RETRACT_NS[0]], RETRACT_NS[0], B)
+            plain[(n, dtype)] = want
+    n = RETRACT_NS[0]
+    return retract_entry(fams[n], n, B, plain[(n, torch.float32)])
 
 
-def retract_entry(fam, n, B):
+def retract_entry(fam, n, B, want):
     """Phase 32's main path: bench.py's route, Problem -> family_from_problem
     -> fused_solve_batch, at n joints (D = n + 1 > 32: the blocked tier) in
     float32 at the arm's budget: one generated kernel 2 launch and no other,
-    bit for bit against the plain blocked version, one device kernel a call.
-    Returns the launches of the counted run."""
+    bit for bit against the plain blocked version (``want``, phase 32's
+    float32 run on the same inputs), one device kernel a call. Returns the
+    launches of the counted run."""
     data, x0 = medium_n_planar_instances(B, n, seed=n)
     x0 = x0 + np.where(np.arange(n) % 2, 2 * np.pi, 0.0)
     data[5, 0] = np.nan
@@ -2902,7 +3057,7 @@ def retract_entry(fam, n, B):
     if launched["blocked_generated"] != 1 or any(v for k, v in launched.items() if k != "blocked_generated"):
         fail(f"phase32 n={n}: fused_solve_batch launched {launched}, not one generated kernel 2")
     t_d, x_d = (torch.as_tensor(a, device="cuda") for a in (d32, x32))
-    xp, sp = blk._blocked_solve_plain(fam, t_d.T, x_d.T, *ARM_ARGS)
+    xp, sp = want
     same = bit_identical((x, xp.T), (state, sp.T))
     print(f"# phase32 generated planar n={n} fused_solve_batch B={B} float32 6/3/2 mpc armijo: launches {launched} "
           f"for 1 call; bit-identical to the plain blocked version {same}; lane 5 (NaN target) flagged "
@@ -2912,6 +3067,325 @@ def retract_entry(fam, n, B):
     kernels_a_call(f"phase32 n={n} fused_solve_batch B={B} float32 on card tensors",
                    lambda: mot.fused_solve_batch(fam, t_d, x_d, **ARM), (r"blocked_sqp_kernel",), reps=4)
     return launched["blocked_generated"]
+
+
+# ---------------------------------------------------------------------------
+# Phases 33-35: nonlinear inequalities (ineq.py), implicit gradients
+# (implicit.py and the implicit MPC policy) and the serving-budget tuner
+# (tuning.py), on kernels 4 and 5 (the general path, kkt_solver=
+# "pallas_ldlt") and kernels 1, 2, 7, 8 and 9 (the tuner's families). The
+# port's float64 CPU references run in phase 32's worker processes beside
+# the card's runs.
+# ---------------------------------------------------------------------------
+
+OBSTACLE_B = 8192
+OBSTACLE_REF_LANES = 64  # the card against the port's float64 CPU result on these lanes
+OBSTACLE_TOL = 1e-8  # x and slacks, card against CPU, float64
+# The JAX package's share of examples/obstacle_ik.py's asserts passed, float64
+# on the CPU, on the first 256 lanes of obstacle_ik_targets(8192, seed=0), each
+# lane's keep-out centre the elbow of its base solve: 256 of 256 (PERF.md
+# §6). The card's share on those lanes must reach it.
+OBSTACLE_JAX_SHARE = 1.0
+OBSTACLE_GATE_LANES = 256
+LIMIT_B = 8192
+JOINT_LIMIT = 1.2  # tests/test_implicit.py::test_implicit_ik_joint_limit_matches_unrolled
+LIMIT_X0 = (0.7, 1.1)
+IMPLICIT_TOL = 1e-8  # x and dx*/dtarget on the first lanes, card against CPU, relative
+PIN_TOL = 1e-4  # the pinned joint's row of dx*/dtarget at the limit
+GAIN_T, GAIN_DT, GAIN_B = 20, 0.05, 1024  # the bench horizon; a fleet of plant states near upright
+GAIN_REF_LANES = (0, 1, GAIN_B // 2, GAIN_B - 1)  # fleet lanes against one-state CPU calls, IMPLICIT_TOL
+TUNER_B, TUNER_MPC_B = 8192, 1024  # scripts/tune_budgets.py's widths
+# tuned budgets that STATUS.md records from the JAX package's TPU runs
+# (scripts/tune_budgets.py): context only, never the card's.
+TPU_STATUS_BUDGETS = {"planar_ik": (4, 1, 1), "spatial_ik": (7, 1, 2), "pose_graph_n4": (2, 1, 0),
+                      "pose_ring_n16": (2, 1, 0), "mpc_servo_T20": (1, 1, 0), "arm_n48": None}
+
+
+def obstacle_lifted(rows, params):
+    """The lifted fleet: each lane's start is the example's x_ref with its
+    slack, through nls_solve on the per-lane wrapper function."""
+    from mini_opt_tpu_torch.instances import OBSTACLE_X_REF, obstacle_ik_problem
+    from mini_opt_tpu_torch.models.ik import mod_pi_retraction
+
+    x_ref = torch.as_tensor(OBSTACLE_X_REF, dtype=rows.dtype, device=rows.device).expand(rows.shape[0], 3)
+    x0 = torch.func.vmap(lambda r, x: obstacle_ik_problem(r).initial_guess(x))(rows, x_ref)
+    return mot.nls_solve(obstacle_ik_problem, params, x0, retraction=mod_pi_retraction, data=rows)
+
+
+def obstacle_reference(rows):
+    """A worker's job: the lifted solve of ``rows`` in float64 on the CPU."""
+    from mini_opt_tpu_torch.instances import obstacle_ik_params
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    res = obstacle_lifted(torch.as_tensor(rows), obstacle_ik_params("pallas_ldlt"))
+    return res.x.numpy(), res.termination_state.numpy(), time.perf_counter() - t0
+
+
+def limit_instances(B, seed=0):
+    """Targets at distance 0.45-0.78 from the base, so that the closest
+    reachable configuration pins the elbow at 1.2 rad on part of the lanes
+    (closer than 0.660), and a common start (0.7, 1.1)."""
+    rng = np.random.default_rng(seed)
+    r, a = rng.uniform(0.45, 0.78, B), rng.uniform(-0.4, 1.2, B)
+    return np.stack([r * np.cos(a), r * np.sin(a)], 1), np.tile(LIMIT_X0, (B, 1))
+
+
+def limit_solver(device):
+    from mini_opt_tpu_torch.models.ik import default_ik_params, make_ik_problem, mod_pi_retraction
+
+    chain = mot.make_planar_chain(2, LINK, dtype=torch.float64, device=device)
+    params = dataclasses.replace(default_ik_params(torch.float64, max_iterations=25, max_qp_iterations=10),
+                                 absolute_exit_tol=1e-14, termination_kkt_tolerance=1e-10,
+                                 kkt_solver="pallas_ldlt")
+    return mot.make_implicit_solver(lambda t: make_ik_problem(chain, t, with_joint_limits=True,
+                                                              joint_limit=JOINT_LIMIT),
+                                    params, retraction=mod_pi_retraction, active_tol=1e-6)
+
+
+def limit_jacobian(solve, targets, x0):
+    """x* (B, 2) and dx*/dtarget (B, 2, 2), one backward pass per row."""
+    t = targets.detach().requires_grad_(True)
+    x = solve(t, x0)
+    rows = [torch.autograd.grad(x[:, i].sum(), t, retain_graph=i == 0)[0] for i in range(2)]
+    return x.detach(), torch.stack(rows, 1)
+
+
+def limit_reference(targets, x0):
+    """A worker's job: x* and dx*/dtarget of the joint-limit fleet in float64
+    on the CPU."""
+    torch.set_num_threads(1)
+    x, J = limit_jacobian(limit_solver("cpu"), torch.as_tensor(targets), torch.as_tensor(x0))
+    return x.numpy(), J.numpy()
+
+
+def gain_states():
+    """Phase 34b's fleet: plant states within 0.05 of upright."""
+    return np.random.default_rng(3).uniform(-0.05, 0.05, (GAIN_B, 4))
+
+
+def gain_reference(lane):
+    """A worker's job: mpc_feedback_gain of one fleet lane's state, alone,
+    in float64 on the CPU."""
+    torch.set_num_threads(1)
+    state = torch.as_tensor(gain_states()[lane])
+    return mpcm.mpc_feedback_gain(mpcm.CartPole(), state, GAIN_T, GAIN_DT).numpy()
+
+
+def scaled_max_dev(a, b):
+    """max |a - b| / (1 + max |b|) over arrays (rel_diff is |a - b| / |b| of
+    two scalars)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / (1.0 + np.abs(b).max()))
+
+
+def obstacle_path(card, kind, pool):
+    """Phase 33: examples/obstacle_ik.py's lifted problem as a fleet at
+    B = 8192 in float64 on kernels 4 and 5."""
+    from mini_opt_tpu_torch.instances import (OBSTACLE_X_REF, obstacle_ik_base_problem, obstacle_ik_checks,
+                                              obstacle_ik_params, obstacle_ik_rows, obstacle_ik_targets)
+    from mini_opt_tpu_torch.models.ik import mod_pi_retraction
+
+    B = OBSTACLE_B
+    params = obstacle_ik_params("pallas_ldlt")
+    targets = torch.as_tensor(obstacle_ik_targets(B, seed=0), device="cuda")
+    x_ref = torch.as_tensor(OBSTACLE_X_REF, dtype=torch.float64, device="cuda").expand(B, 3)
+    base_s, base = wall_s(lambda: mot.nls_solve(obstacle_ik_base_problem, params, x_ref,
+                                                retraction=mod_pi_retraction, data=targets))
+    rows = obstacle_ik_rows(targets, base.x)
+    ref = pool.apply_async(obstacle_reference, (rows[:OBSTACLE_REF_LANES].cpu().numpy(),))
+    reset_counts()
+    lifted_s, res = wall_s(lambda: obstacle_lifted(rows, params))
+    launched = counts()
+    if launched["ldlt_factor"] < 1 or launched["ldlt_solve"] < 1:
+        fail(f"phase33: the lifted fleet launched kernels 4 and 5 {launched}")
+    x = res.x.cpu().numpy()
+    rows_np = rows.cpu().numpy()
+    checks, g = obstacle_ik_checks(x, rows_np)
+    ok = np.logical_and.reduce(checks)
+    share, share_gate = float(ok.mean()), float(ok[:OBSTACLE_GATE_LANES].mean())
+    active = float((np.abs(g) < 1e-6).mean())
+    term = res.termination_state.cpu().numpy()
+    x_cpu, term_cpu, cpu_s = ref.get()
+    dev = float(np.abs(x[:OBSTACLE_REF_LANES] - x_cpu).max())
+    same_term = bool((term[:OBSTACLE_REF_LANES] == term_cpu).all())
+    print(f"# phase33 obstacle IK (examples/obstacle_ik.py) fleet B={B} float64 kkt_solver=pallas_ldlt on {kind} "
+          f"({card}): base solve (no keep-out) {base_s:.2f} s, lifted solve {lifted_s:.2f} s (nls_solve on the "
+          f"per-lane wrapper; launches {launched}); asserts passed: effector x {checks[0].mean():.6f}, y "
+          f"{checks[1].mean():.6f}, g >= -1e-6 {checks[2].mean():.6f}, elbow outside {checks[3].mean():.6f}; keep-out "
+          f"active (|g| < 1e-6) {active:.6f}; share {share:.6f}, on the first "
+          f"{OBSTACLE_GATE_LANES} lanes {share_gate:.6f} (the JAX package's {OBSTACLE_JAX_SHARE:.6f}); termination "
+          f"states {dict(zip(*np.unique(term, return_counts=True)))}; iterations max "
+          f"{int(res.num_iterations.max())}; the first {OBSTACLE_REF_LANES} lanes against the port's float64 CPU "
+          f"result ({cpu_s:.1f} s in a worker): max |dx| {dev:.3e} (bound {OBSTACLE_TOL:g}), termination states "
+          f"equal {same_term}", flush=True)
+    if share_gate < OBSTACLE_JAX_SHARE or not dev <= OBSTACLE_TOL or not same_term or not np.isfinite(x).all():
+        fail(f"phase33: share {share_gate} on the first {OBSTACLE_GATE_LANES} lanes (JAX {OBSTACLE_JAX_SHARE}), "
+             f"card against CPU {dev}, termination states equal {same_term}")
+    return launched
+
+
+def implicit_path(card, kind, pool):
+    """Phase 34: implicit gradients on the card: (a) the 2-link IK fleet with
+    an active joint limit, dx*/dtarget per lane; (b) the MPC policy's
+    feedback gain at the cart-pole's upright equilibrium against the LQR
+    gain, then over a fleet of plant states."""
+    targets_np, x0_np = limit_instances(LIMIT_B, seed=0)
+    lanes = OBSTACLE_REF_LANES
+    ref = pool.apply_async(limit_reference, (targets_np[:lanes], x0_np[:lanes]))
+    gain_ref = pool.map_async(gain_reference, GAIN_REF_LANES)
+    solve = limit_solver("cuda")
+    targets, x0 = (torch.as_tensor(a, device="cuda") for a in (targets_np, x0_np))
+    reset_counts()
+    x, J = limit_jacobian(solve, targets, x0)
+    torch.cuda.synchronize()
+    launched = counts()
+    if launched["ldlt_factor"] < 1 or launched["ldlt_solve"] < 1:
+        fail(f"phase34: the implicit forward solve launched kernels 4 and 5 {launched}")
+    t = targets.detach().requires_grad_(True)
+    fwd_ms, xt = event_ms(lambda: solve(t, x0))
+    w = torch.zeros_like(xt)
+    w[:, 1] = 1.0
+    backward = lambda: torch.autograd.grad(xt, t, grad_outputs=w, retain_graph=True)  # noqa: E731
+    bwd_ms, _ = event_ms(backward)
+    _, busy_ms, n_kernels, _ = profile_call(backward, sessions=1)
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms"
+    x_np, J_np = x.cpu().numpy(), J.cpu().numpy()
+    pinned = np.abs(x_np[:, 1] - JOINT_LIMIT) < 1e-6
+    pin_row = float(np.abs(J_np[pinned, 1, :]).max()) if pinned.any() else 0.0
+    x_cpu, J_cpu = ref.get()
+    dev_x, dev_J = scaled_max_dev(x_np[:lanes], x_cpu), scaled_max_dev(J_np[:lanes], J_cpu)
+    print(f"# phase34a implicit dx*/dtarget, 2-link IK, joint limit {JOINT_LIMIT}, B={LIMIT_B} float64 "
+          f"kkt_solver=pallas_ldlt on {kind} ({card}): lanes at the limit {pinned.mean():.6f}, their pinned row max "
+          f"|dx1/dt| {pin_row:.3e} (bound {PIN_TOL:g}); forward {fwd_ms:.1f} ms (launches {launched} for a forward "
+          f"and two backward passes), backward {bwd_ms:.1f} ms a pass, its device kernels recorded by "
+          f"torch.profiler (a lower bound) {n_kernels} (busy {busy}); the first {lanes} lanes against the port's "
+          f"float64 CPU result: x {dev_x:.3e}, J {dev_J:.3e} (bound {IMPLICIT_TOL:g}, relative); finite "
+          f"{bool(np.isfinite(J_np).all())}", flush=True)
+    if not pinned.any() or pinned.all() or pin_row > PIN_TOL or not dev_x <= IMPLICIT_TOL \
+            or not dev_J <= IMPLICIT_TOL or not np.isfinite(J_np).all():
+        fail(f"phase34a: pinned share {pinned.mean()}, pinned row {pin_row}, card against CPU x {dev_x} J {dev_J}")
+
+    cp = mpcm.CartPole()
+    gain_s, gain = wall_s(lambda: mpcm.mpc_feedback_gain(cp, torch.zeros(4, dtype=torch.float64, device="cuda"),
+                                                         GAIN_T, GAIN_DT))
+    K0 = -mpcm.finite_horizon_lqr_gain(cp, GAIN_T, GAIN_DT)[0].numpy()
+    g = gain.cpu().numpy()
+    close = bool(np.all(np.abs(g - K0) <= 1e-8 + 1e-6 * np.abs(K0)))
+    fleet_s, fleet = wall_s(lambda: mpcm.mpc_feedback_gain(cp, torch.as_tensor(gain_states(), device="cuda"),
+                                                           GAIN_T, GAIN_DT))
+    fg = fleet.cpu().numpy()
+    dev_gain = scaled_max_dev(fg[list(GAIN_REF_LANES)], np.stack(gain_ref.get()))
+    print(f"# phase34b mpc_feedback_gain cart-pole T={GAIN_T} dt={GAIN_DT} float64 on {kind} ({card}): at the "
+          f"upright equilibrium {g.tolist()} against -K_0 {K0.tolist()}: max |diff| {np.abs(g - K0).max():.3e} "
+          f"(rtol 1e-6, atol 1e-8: {close}), {gain_s:.2f} s; the fleet of B={GAIN_B} states within 0.05 of it "
+          f"{fleet_s:.2f} s (one backward pass), gain spread {np.abs(fg - K0).max():.3e}, finite "
+          f"{bool(np.isfinite(fg).all())}; lanes {list(GAIN_REF_LANES)} against one-state float64 CPU calls "
+          f"{dev_gain:.3e} (bound {IMPLICIT_TOL:g}, relative)", flush=True)
+    if not close or fleet.shape != (GAIN_B, 4) or not np.isfinite(fg).all() or not dev_gain <= IMPLICIT_TOL:
+        fail(f"phase34b: gain {g} against -K_0 {K0}, fleet {tuple(fleet.shape)}, lanes against CPU {dev_gain}")
+    return launched, dict(forward_ms=fwd_ms, backward_ms=bwd_ms, backward_device_kernels=n_kernels,
+                          gain_s=gain_s, gain_fleet_s=fleet_s)
+
+
+def tuner_families(families, poses):
+    """Phase 35's families, as scripts/tune_budgets.py tunes them: name ->
+    (solve(outer, qp, ls), gate, max_budget, counter keys)."""
+    from mini_opt_tpu_torch.tuning import parity_gate
+
+    out = {}
+    # planar: bench.py's default generated route, every lane within 1e-3.
+    fam = families["planar n=2"][0]
+    targets, x0 = planar_instances(TUNER_B, 2, seed=3)
+    t_d, x_d = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (targets, x0))
+    out["planar_ik"] = (
+        lambda o, q, l: mot.fused_solve_batch(fam, t_d, x_d, max_iterations=o, qp_iterations=q, ls_iterations=l),
+        parity_gate(1e-3, frac=1.0, metric=lambda sol, ref: effector_error("planar", sol.cpu(), targets)),
+        (10, 6, 2), ("fused_ik_generated",))
+    # spatial n = 3 on the hand-written family, 99.8% within 1e-3.
+    st, sx = spatial_instances(TUNER_B, 3, seed=0)
+    st_d, sx_d = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (st, sx))
+    out["spatial_ik"] = (
+        lambda o, q, l: mot.fused_spatial_ik_solve_batch(st_d, sx_d, max_iterations=o, qp_iterations=q,
+                                                         ls_iterations=l),
+        parity_gate(1e-3, frac=0.998, metric=lambda sol, ref: effector_error("spatial", sol.cpu(), st)),
+        (12, 6, 2), ("fused_ik",))
+    # the generated pose ring N = 4, every lane's terminal cost below 1e-2.
+    pfam = poses[4][0]
+    pd, px = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in ring_instances(TUNER_B, 4, seed=0))
+    out["pose_graph_n4"] = (
+        lambda o, q, l: mot.fused_solve_batch(pfam, pd, px, max_iterations=o, qp_iterations=q, ls_iterations=l,
+                                              return_state=True)[1][:, 0],
+        parity_gate(1e-2, frac=1.0, metric=lambda sol, ref: sol), (10, 4, 2), ("fused_ik_generated",))
+    # the pose ring N = 16 on kernel 7 (no inner-QP axis), cost below 2e-3 N.
+    rfam = pr.pose_ring_family(16)
+    rd, rx = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in ring_instances(TUNER_B, 16, seed=0))
+    out["pose_ring_n16"] = (
+        lambda o, q, l: pr.pose_ring_solve_batch(rfam, rd, rx, max_iterations=o, ls_iterations=l,
+                                                 return_state=True)[1][:, 0],
+        parity_gate(2e-3 * 16, frac=1.0, metric=lambda sol, ref: sol), (10, 1, 2), ("pose_ring",))
+    # the MPC servo fleet: 64 periods from a cold 8/3/2 solve, |theta| <= 0.05.
+    mfam = pm.cartpole_mpc_family(20, 0.05)
+    rng = np.random.default_rng(0)
+    m0 = np.zeros((TUNER_MPC_B, 4), np.float32)
+    m0[:, 0] = rng.uniform(-0.5, 0.5, TUNER_MPC_B)
+    m0[:, 2] = rng.uniform(-0.35, 0.35, TUNER_MPC_B)
+    m_d = torch.as_tensor(m0, device="cuda")
+    z1 = mot.fused_mpc_solve_batch(mfam, m_d, mpcm.initial_guess(mpcm.CartPole(), m_d, 20, 0.05), 8, 3, 2)
+    out["mpc_servo_T20"] = (
+        lambda o, q, l: mot.fused_mpc_servo_batch(mfam, m_d, z1, 64, max_iterations=o, qp_iterations=q,
+                                                  ls_iterations=l)[0][:, 2],
+        parity_gate(0.05, frac=1.0, metric=lambda sol, ref: sol.abs()), (4, 3, 2), ("mpc_servo",))
+    # the 48-joint arm on kernel 2, examples/blocked_medium_n.py's gate: parity above 0.9.
+    arm = fik.planar_family(ARM_N, LINK)
+    at, ax = medium_n_planar_instances(TUNER_B, ARM_N, seed=0)
+    at_d, ax_d = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (at, ax))
+
+    def arm_gate(sol, ref):
+        share = float((effector_error("planar", sol.cpu(), at) < 1e-3).mean())
+        return share > 0.9, share - 0.9
+
+    out["arm_n48"] = (
+        lambda o, q, l: mot.fused_solve_batch(arm, at_d, ax_d, max_iterations=o, qp_iterations=q, ls_iterations=l,
+                                              barrier="mpc", line_search="armijo"),
+        arm_gate, (6, 3, 2), ("blocked",))
+    return out
+
+
+def tuner_path(card, kind, families, poses):
+    """Phase 35: tune_serving_budget on each family, every budget a launch of
+    its kernel at run-time trip counts; one JSON line per family."""
+    from mini_opt_tpu_torch.tuning import budget_cost, tune_serving_budget
+
+    reset_counts()
+    fams = tuner_families(families, poses)
+    torch.cuda.synchronize()
+    cold = counts()["mpc"]  # the MPC fleet's cold solve, once
+    if cold != 1:
+        fail(f"phase35: the MPC fleet's cold solve launched kernel 8 {cold} times")
+    launched = {}
+    for name, (solve, gate, anchor, keys) in fams.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        res = tune_serving_budget(solve, gate, max_budget=anchor, min_budget=(1, 1, 0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        launched[name] = {k: c[k] for k in keys}
+        if name == "mpc_servo_T20":
+            launched[name]["mpc"] = cold
+        if any(v < 1 for v in launched[name].values()) or any(v for k, v in c.items() if k not in keys):
+            fail(f"phase35 {name}: the tuner's solves launched {c}, not the family's kernel alone")
+        print(f"# phase35 " + json.dumps({
+            "family": name, "budget": list(res.budget), "anchor": list(res.max_budget),
+            "margin_at_budget": res.margin_at(res.budget), "n_evaluations": res.n_evaluations,
+            "cost_vs_anchor": budget_cost(res.budget) / budget_cost(res.max_budget),
+            "trace": [[list(p.budget), p.ok, p.margin] for p in res.trace], "wall_s": wall,
+            "launches": launched[name], "card": card,
+            "tpu_budget_in_status_md": TPU_STATUS_BUDGETS[name]}), flush=True)
+        if name == "planar_ik" and not all(a <= b for a, b in zip(res.budget, (4, 2, 1))):
+            fail(f"phase35 planar: tuned budget {res.budget} is not (4, 2, 1) or cheaper in every component")
+    return launched
 
 
 def main():
@@ -2929,20 +3403,21 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
-    # Phase 32's traces, in worker processes from here on; every worker is
-    # stopped on the way out, failed or not.
+    # Phase 32's traces, then phases 29-31's and 33-34's float64 CPU
+    # references, in worker processes beside the card's runs; every worker
+    # is stopped on the way out, failed or not.
     pool = multiprocessing.get_context("spawn").Pool(2 * len(RETRACT_NS))
     try:
         builder = RetractBuild(retract_traces(pool))
         builder.start()
-        run_phases(card, kind, builder)
+        run_phases(card, kind, builder, pool)
     finally:
         pool.terminate()
         pool.join()
 
 
-def run_phases(card, kind, retract_builder):
-    """Phases 2-33."""
+def run_phases(card, kind, retract_builder, pool):
+    """Phases 2-36."""
     # Phase 2: build. Phase 21's generated families and phase 25's pose
     # families are emitted and built at the same time: every nvcc process of
     # both runs at once.
@@ -2951,8 +3426,8 @@ def run_phases(card, kind, retract_builder):
     poses = pose_families()
     emitters = {name: fam.cuda_program.source for name, (fam, _, _) in families.items()}
     emitters.update(pose_emitters(poses))
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        generated = pool.submit(emit_and_build, emitters)
+    with concurrent.futures.ThreadPoolExecutor(1) as emit_pool:
+        generated = emit_pool.submit(emit_and_build, emitters)
         lib_path = _build.build()
         gen_emit_s, gen_build_s, gen_paths = generated.result()
     _build.load_library()
@@ -3008,9 +3483,12 @@ def run_phases(card, kind, retract_builder):
     print(f"# phase9 LDL^T register route up to D = {ldlt.REGISTER_MAX_D}; launch plan at B = {GENERAL_B}, "
           f"D = 3: {ldlt.ldlt_launch_plan(3, GENERAL_B)}", flush=True)
 
+    CLOCK.mark("phases 1-2 and 9 (the build)")
+
     # Phase 3: kernel vs plain version on the card.
     max_err = {"float64": 0.0, "float32": 0.0}
     ik_vs_plain(max_err)
+    CLOCK.mark("phase 3")
 
     # Phase 4: the main path through the public entry point.
     batches = (8192, 262144)
@@ -3099,21 +3577,53 @@ def run_phases(card, kind, retract_builder):
           f"instance -> bound {bound_ms:.6f} ms ({bound_by}, {PEAK_FP32_OPS / 1e12:.0f} TFLOP/s FP32 peak); "
           f"kernel {rows[B]['kernel_ms']:.4f} ms = {bound_ms / rows[B]['kernel_ms']:.3f} of bound", flush=True)
 
+    CLOCK.mark("phase 4")
+
     blocked_rows = blocked_paths(card, kind)
+    CLOCK.mark("phase 8")
     general_rows = general_paths(card, kind)
+    CLOCK.mark("phase 12")
     ring_rows = pose_ring_paths(card, kind)
+    CLOCK.mark("phase 16")
     mpc_rows = mpc_paths(card, kind)
+    CLOCK.mark("phase 20")
     generated_build_report(families, sum(gen_emit_s[name] for name in families), gen_build_s, gen_paths)
     gen_err = {"float64": 0.0, "float32": 0.0}
     generated_rows = [generated_paths(card, kind, families, gen_err)]
+    CLOCK.mark("phase 24 (and 21)")
     pose_report(poses, gen_emit_s, gen_build_s, gen_paths)
     pose_rows = pose_paths(card, kind, poses)
-    cg_paths(card)
+    CLOCK.mark("phases 27-28 (and 25)")
+    cg_paths(card, pool)
     retract_err = {"float64": 0.0, "float32": 0.0}
     blocked_rows[0]["generated_retract_launches"] = retract_paths(retract_builder, retract_err)
     blocked_rows[0]["generated_retract_max_abs_err"] = max(retract_err.values())
+    CLOCK.mark("phase 32")
+    obstacle_launches = obstacle_path(card, kind, pool)
+    CLOCK.mark("phase 33")
+    implicit_launches, implicit_times = implicit_path(card, kind, pool)
+    CLOCK.mark("phase 34")
+    tuner_launches = tuner_path(card, kind, families, poses)
+    CLOCK.mark("phase 35")
 
-    print(f"# chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build's start", flush=True)
+    # This slice's launches, in the rows of the kernels its paths ran.
+    tuned = lambda *pairs: {f: tuner_launches[f][k] for f, k in pairs}  # noqa: E731
+    slice15 = {
+        "blocked_sqp": tuned(("arm_n48", "blocked")),
+        "ldlt_factor": {"obstacle_ik_lifted": obstacle_launches["ldlt_factor"],
+                        "implicit_ik_limit": implicit_launches["ldlt_factor"]},
+        "ldlt_solve": {"obstacle_ik_lifted": obstacle_launches["ldlt_solve"],
+                       "implicit_ik_limit": implicit_launches["ldlt_solve"]},
+        "pose_ring": tuned(("pose_ring_n16", "pose_ring")),
+        "mpc_solve": tuned(("mpc_servo_T20", "mpc")),
+        "mpc_servo": tuned(("mpc_servo_T20", "mpc_servo")),
+    }
+    for row in blocked_rows + general_rows + ring_rows + mpc_rows:
+        if row["name"] in slice15:
+            row["slice15_launches"] = slice15[row["name"]]
+    general_rows[0]["implicit_backward"] = implicit_times
+    print(f"# chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build's start; seconds per phase "
+          f"{json.dumps(CLOCK.summary())}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "fused_ik_sqp",
         "route": "cuda",
@@ -3132,6 +3642,8 @@ def run_phases(card, kind, retract_builder):
         "ms_b1": rows[1]["kernel_ms"],
         "ms_b262144": rows[262144]["kernel_ms"],
         "ops_per_instance": ops_per_instance,
+        "slice15_launches": tuned(("spatial_ik", "fused_ik"), ("planar_ik", "fused_ik_generated"),
+                                  ("pose_graph_n4", "fused_ik_generated")),
         "card": card,
     }] + generated_rows + blocked_rows + general_rows + ring_rows + mpc_rows + pose_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

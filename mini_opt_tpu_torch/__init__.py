@@ -38,11 +38,19 @@ grows slice by slice. It carries:
   period per launch (``fused_mpc_solve_batch``, ``csrc/mpc.cu``) or the
   whole receding-horizon loop in one launch (``fused_mpc_servo_batch``);
 
+* nonlinear inequality constraints by slack lifting
+  (``with_nonlinear_inequalities``, which ``nls_solve`` takes directly or
+  from a per-lane function), gradients of solves through the KKT conditions
+  (``make_implicit_solver``, the implicit MPC policy and its feedback gain
+  in ``models.mpc``) and the serving-budget tuner (``tuning``), all on the
+  general path's kernels or the fused ones;
 each kernel with a plain PyTorch version of the same computation for CPU
 tensors.
 """
 
 from .assertions import MiniOptError, validate_problem
+from .implicit import make_implicit_solver
+from .ineq import NonlinearInequalityProblem, with_nonlinear_inequalities
 from .convert import (
     batch_from_numpy,
     batch_to_numpy,
@@ -157,6 +165,7 @@ __all__ = [
     "MPCFamily",
     "MiniOptError",
     "NLSIterationHistory",
+    "NonlinearInequalityProblem",
     "NLSParams",
     "NLSResult",
     "NLSTerminationState",
@@ -201,6 +210,7 @@ __all__ = [
     "fused_termination_status",
     "make_fused_qp_solver",
     "make_ik_problem",
+    "make_implicit_solver",
     "make_planar_chain",
     "make_pose_graph_problem",
     "make_pose_graph3_problem",
@@ -239,4 +249,5 @@ __all__ = [
     "spatial_family",
     "termination_state_indicates_satisfied_tol",
     "validate_problem",
+    "with_nonlinear_inequalities",
 ]

@@ -26,6 +26,12 @@ bound; :251-295, with ``block_chain_instances``) and
 ``robust_line_fit_problem`` (four Huber-robustified line-fit samples, no
 equality row and no bound; :438-455, with ``robust_line_fit_instances``).
 
+``obstacle_ik_problem`` (with ``obstacle_ik_targets``, ``_base_problem``,
+``_rows``, ``_params`` and ``_checks``) is the JAX repo's
+``examples/obstacle_ik.py`` as a per-lane ``data_row ->
+NonlinearInequalityProblem`` function, the data row the target and the
+keep-out centre.
+
 ``circle_graph`` and ``helix_graph`` are copies of the JAX repo's large
 pose-graph test graphs (``tests/test_pose_graph.py::_circle_graph`` :127,
 ``tests/test_pose_graph3.py::_helix_graph`` :26), which its benches
@@ -74,10 +80,15 @@ def medium_n_planar_instances(B, n=48, seed=0, link_len=0.4):
         0.01, np.pi - 0.01,
     )
     th_ref[:, 0] = rng.uniform(-0.3, 0.3, B)
-    phi0 = np.cumsum(th_ref, axis=1)
-    eff0 = np.stack([link_len * np.cos(phi0).sum(1), link_len * np.sin(phi0).sum(1)], 1)
-    targets = eff0 + rng.uniform(-0.05, 0.05, (B, 2))
+    targets = planar_fk(th_ref, link_len) + rng.uniform(-0.05, 0.05, (B, 2))
     return targets, th_ref
+
+
+def planar_fk(th, link_len=0.4):
+    """Effector ``(B, 2)`` of the planar chain of joint angles ``th (B, k)``,
+    float64 numpy."""
+    phi = np.cumsum(np.asarray(th, np.float64), axis=1)
+    return link_len * np.stack([np.cos(phi).sum(1), np.sin(phi).sum(1)], 1)
 
 
 def spatial_fk(th, link_len=0.4):
@@ -162,11 +173,7 @@ def effector_error(kind, x, targets, link_len=0.4):
     instances under 1e-3."""
     x = np.asarray(x, np.float64)
     targets = np.asarray(targets, np.float64)
-    if kind == "planar":
-        phi = np.cumsum(x, axis=1)
-        p = link_len * np.stack([np.cos(phi).sum(1), np.sin(phi).sum(1)], 1)
-    else:
-        p = spatial_fk(x, link_len)
+    p = planar_fk(x, link_len) if kind == "planar" else spatial_fk(x, link_len)
     return np.abs(p - targets).max(axis=1)
 
 
@@ -271,6 +278,120 @@ def robust_line_fit_instances(B, seed=5):
     """Samples of lines y = a + b t with unit noise and starts about them."""
     rng = np.random.default_rng(seed)
     return rng.normal(0.0, 1.0, (B, len(LINE_FIT_TS))), rng.normal(0.0, 1.0, (B, 2))
+
+
+# examples/obstacle_ik.py of the JAX repo at its full width: a 3-link arm of
+# OBSTACLE_LINK links, its effector x held by an equality and y by a cost, a proximal
+# cost of weight 0.05 about X_REF, and the elbow kept out of a disk of radius
+# 0.15 (a nonlinear inequality, slack-lifted).
+OBSTACLE_LINK = 0.4
+OBSTACLE_TARGET = (0.9, 0.35)
+OBSTACLE_X_REF = (0.2, 0.2, 0.2)
+OBSTACLE_RADIUS = 0.15
+OBSTACLE_PROX = 0.05
+_OBSTACLE_CHAINS = {}
+
+
+def obstacle_ik_targets(B, seed=0):
+    """Targets uniform in +-0.05 about the example's (0.9, 0.35), float64
+    ``(B, 2)``."""
+    rng = np.random.default_rng(seed)
+    return np.asarray(OBSTACLE_TARGET) + rng.uniform(-0.05, 0.05, (B, 2))
+
+
+def obstacle_ik_params(kkt_solver="auto"):
+    """The example's solver configuration."""
+    from .nonlinear import NLSParams
+    from .structs import InitialGuessMethod
+
+    return NLSParams(
+        max_iterations=60,
+        max_qp_iterations=10,
+        max_line_search_iterations=5,
+        relative_exit_tol=0.0,
+        qp_initial_guess_method=InitialGuessMethod.NAIVE,
+        kkt_solver=kkt_solver,
+    )
+
+
+def _obstacle_chains(like):
+    """(arm, elbow) chains in ``like``'s dtype and device, made once."""
+    from .models.ik import make_planar_chain
+
+    key = (like.dtype, like.device)
+    if key not in _OBSTACLE_CHAINS:
+        _OBSTACLE_CHAINS[key] = (
+            make_planar_chain(3, OBSTACLE_LINK, dtype=like.dtype, device=like.device),
+            make_planar_chain(2, OBSTACLE_LINK, dtype=like.dtype, device=like.device),
+        )
+    return _OBSTACLE_CHAINS[key]
+
+
+def obstacle_ik_base_problem(target):
+    """The example's problem of one instance (``target (2,)``) without the
+    keep-out: effector x held, y pulled, the proximal cost. Its solve places
+    the keep-out disk on the elbow, as ``tests/test_implicit.py:260`` does
+    (the example's own first solve, without the proximal cost, is singular
+    along the arm's self-motion and ends QP_INDEFINITE at a point that
+    rounding decides)."""
+    import torch
+
+    from .models.ik import make_ik_problem
+    from .nonlinear import Problem
+    from .residual import make_residual
+
+    base = make_ik_problem(_obstacle_chains(target)[0], target, with_joint_limits=False)
+    x_ref = torch.as_tensor(OBSTACLE_X_REF, dtype=target.dtype, device=target.device)
+    w = torch.full((), OBSTACLE_PROX, dtype=target.dtype, device=target.device)
+    prox = make_residual((0, 1, 2), lambda p: w * (p - x_ref), 3)
+    return Problem(dimension=3, costs=base.costs + (prox,), equality_constraints=base.equality_constraints)
+
+
+def obstacle_ik_problem(row):
+    """The example's lifted problem of one instance, ``row = (target x, y,
+    keep-out centre x, y)``: a ``NonlinearInequalityProblem``."""
+    import torch
+
+    from .ineq import with_nonlinear_inequalities
+    from .residual import make_residual
+
+    elbow = _obstacle_chains(row)[1]
+    r2 = torch.full((), OBSTACLE_RADIUS * OBSTACLE_RADIUS, dtype=row.dtype, device=row.device)
+    centre = row[2:4]
+
+    def keep_out(p2):
+        d = elbow.effector(p2).translation[:2] - centre
+        return torch.stack([d @ d - r2])
+
+    return with_nonlinear_inequalities(obstacle_ik_base_problem(row[:2]), (make_residual((0, 1), keep_out, 1),))
+
+
+def obstacle_ik_rows(targets, x_base):
+    """Data rows ``(B, 4)``: each target beside the elbow of its base solve
+    ``x_base (B, 3)``, the keep-out centre (tensors)."""
+    import torch
+
+    elbow = _obstacle_chains(x_base)[1]
+    centres = torch.func.vmap(lambda p: elbow.effector(p).translation[:2])(x_base[:, :2])
+    return torch.cat([targets, centres], 1)
+
+
+def obstacle_ik_checks(x_aug, rows):
+    """The example's asserts per lane, float64 numpy: (effector x within
+    1e-6, effector y within 1e-2, g >= -1e-6, elbow outside the disk), each
+    ``(B,)`` bool, and g ``(B,)``."""
+    x = np.asarray(x_aug, np.float64)[:, :3]
+    rows = np.asarray(rows, np.float64)
+    eff = planar_fk(x, OBSTACLE_LINK)
+    d = planar_fk(x[:, :2], OBSTACLE_LINK) - rows[:, 2:4]
+    g = (d * d).sum(1) - OBSTACLE_RADIUS ** 2
+    checks = (
+        np.abs(eff[:, 0] - rows[:, 0]) < 1e-6,
+        np.abs(eff[:, 1] - rows[:, 1]) < 1e-2,
+        g >= -1e-6,
+        np.linalg.norm(d, axis=1) >= OBSTACLE_RADIUS - 1e-6,
+    )
+    return checks, g
 
 
 def circle_graph(n, seed=0, noise=0.01, loop_every=10):

@@ -38,11 +38,6 @@ from ..structs import LineSearchStrategy, NLSResult
 NX = 4  # state dimension
 NU = 1  # control dimension
 
-_IMPLICIT_TODO = (
-    "implicit differentiation through the MPC solve needs implicit.py, which is not ported yet "
-    "(ROADMAP.md queue 1, item 12)"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class CartPole:
@@ -547,16 +542,43 @@ def finite_horizon_lqr_gain(
     return K
 
 
-def make_implicit_mpc_solver(cp: CartPole, horizon: int, dt: float, params=None, active_tol: float = 1.0e-6,
-                             **problem_kwargs):
-    """``solve(x_plant, z0) -> z*`` differentiable in the plant state through
-    the KKT conditions at the solution. Not ported yet: raises."""
-    raise NotImplementedError(_IMPLICIT_TODO)
+def make_implicit_mpc_solver(cp: CartPole, horizon: int, dt: float, params: Optional[NLSParams] = None,
+                             active_tol: float = 1.0e-6, **problem_kwargs):
+    """``solve(x_plant (B, NX), z0 (B, 5T)) -> z*`` differentiable in the
+    PLANT STATE through the KKT conditions at the solution
+    (``implicit.make_implicit_solver``: exact at a converged point, one
+    linear solve per lane in the backward pass whatever the forward
+    iteration count, active-set handling for saturated actuation). The
+    policy ``u_0(x_plant)`` is then a differentiable function; its
+    derivative is the local feedback gain (``mpc_feedback_gain``)."""
+    from ..implicit import make_implicit_solver
+
+    if params is None:
+        params = default_mpc_params(torch.float64)
+
+    def problem_fn(x_plant):
+        return make_cartpole_mpc_problem(cp, x_plant, horizon, dt, **problem_kwargs)
+
+    return make_implicit_solver(problem_fn, params, active_tol=active_tol)
 
 
-def mpc_feedback_gain(cp: CartPole, x_op, horizon: int, dt: float, params=None, **problem_kwargs):
-    """du_0/dx_plant of the MPC policy at ``x_op``. Not ported yet: raises."""
-    raise NotImplementedError(_IMPLICIT_TODO)
+def mpc_feedback_gain(cp: CartPole, x_op, horizon: int, dt: float, params: Optional[NLSParams] = None,
+                      device=None, **problem_kwargs):
+    """du_0/dx_plant of the MPC policy at ``x_op``: ``(NX,)`` for one plant
+    state, ``(B, NX)`` for a batch (one backward pass: u_0 is one scalar a
+    lane), the local feedback gain the receding-horizon controller
+    realizes. At the upright equilibrium it equals -K_0 of
+    :func:`finite_horizon_lqr_gain`; away from it (or with active actuation
+    limits) it is the exact derivative of the branch the solver landed on.
+    numpy inputs go to ``device`` ("cuda" unless the caller passes "cpu")."""
+    x_op = _as_tensor(x_op, device=device)
+    xb = (x_op[None] if x_op.dim() == 1 else x_op).detach().requires_grad_(True)
+    solve = make_implicit_mpc_solver(cp, horizon, dt, params=params, **problem_kwargs)
+    z0 = initial_guess(cp, xb.detach(), horizon, dt)
+    with torch.enable_grad():
+        u0 = solve(xb, z0)[:, u_index(0)]
+        (gain,) = torch.autograd.grad(u0.sum(), xb)
+    return gain[0] if x_op.dim() == 1 else gain
 
 
 # ---------------------------------------------------------------------------

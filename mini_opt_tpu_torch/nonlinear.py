@@ -720,12 +720,7 @@ def _uses_null_space(problem: Problem) -> bool:
     return len(problem.inequality_constraints) == 0 and len(problem.equality_constraints) > 0
 
 
-def _check_ported(params: NLSParams, problem, exit_callback, axis_name, cg_args):
-    if hasattr(problem, "base_dimension") and hasattr(problem, "inequalities"):
-        raise NotImplementedError(
-            "nonlinear inequality problems (ineq.py) are not ported yet (ROADMAP.md queue 1: "
-            "bundle_adjustment, ineq, implicit, tuning)"
-        )
+def _check_ported(params: NLSParams, exit_callback, axis_name, cg_args):
     if cg_args[2] or (params.qp_solver == "cg" and axis_name is not None):
         raise NotImplementedError(f"the distributed CG path (axis_name, distributed_cg_preconditioner) {_TODO_SHARDED}")
     if params.parallel_line_search:
@@ -737,6 +732,27 @@ def _check_ported(params: NLSParams, problem, exit_callback, axis_name, cg_args)
     if params.log_qp_eigenvalues:
         raise NotImplementedError(f"log_qp_eigenvalues (QPEigenvalues) {_TODO}")
     _no_axis(axis_name)
+
+
+def _unwrap_lifted(problem, params: NLSParams, retraction, data):
+    """A ``NonlinearInequalityProblem`` (``ineq.py``), or a per-lane function
+    returning one, becomes its augmented ``Problem`` (nonlinear.py:1019-1031):
+    the slack-safe NAIVE QP warm start is forced (``.params``) and a base
+    retraction is lifted so that slacks update additively
+    (``.wrap_retraction``). For a per-lane function both are read from the
+    prototype, lane 0's wrapper, and every lane solves its ``.problem``.
+    Returns ``(problem, params, retraction, prototype)``, the prototype lane
+    0's ``Problem``."""
+    proto = _prototype(problem, data)
+    if not (hasattr(proto, "base_dimension") and hasattr(proto, "inequalities")):
+        return problem, params, retraction, proto
+    if retraction is not None:
+        retraction = proto.wrap_retraction(retraction)
+    params = proto.params(params)
+    if data is None:
+        return proto.problem, params, retraction, proto.problem
+    per_lane = problem
+    return (lambda row: per_lane(row).problem), params, retraction, proto.problem
 
 
 def _as_batch(x0, data, device):
@@ -778,7 +794,9 @@ def nls_solve(
 
     Args:
       problem: the ``Problem`` every lane shares, or, with ``data``, a
-        function ``data_row -> Problem`` evaluated per lane under vmap.
+        function ``data_row -> Problem`` evaluated per lane under vmap;
+        either may be a ``NonlinearInequalityProblem`` (``ineq.py``), solved
+        as its augmented problem with the NAIVE QP warm start forced.
       params: solver configuration.
       x0: initial guesses ``(B, problem.dimension)``.
       retraction: optional manifold update ``(x, dx, alpha) -> x_new`` of
@@ -803,13 +821,13 @@ def nls_solve(
     from .assertions import validate_problem
 
     _check_ported(
-        params, problem, exit_callback, axis_name,
+        params, exit_callback, axis_name,
         (cg_diag_preconditioner, cg_preconditioner, distributed_cg_preconditioner),
     )
     x0, data = _as_batch(x0, data, device)
+    problem, params, retraction, proto = _unwrap_lifted(problem, params, retraction, data)
     if params.early_exit is None:
         params = dataclasses.replace(params, early_exit=resolve_early_exit(None))
-    proto = _prototype(problem, data)
     validate_problem(proto)
     if x0.shape[1] != proto.dimension:
         raise ValueError(f"x0 has {x0.shape[1]} columns, the problem {proto.dimension} variables")

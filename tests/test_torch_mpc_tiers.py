@@ -448,8 +448,6 @@ def _bad_calls():
         "family_sizes": (ValueError, lambda: pm.MPCFamily(horizon=3, dt=0.05, nx=3)),
         "family_horizon": (ValueError, lambda: pm.MPCFamily(horizon=0, dt=0.05)),
         "convert_kind": (ValueError, lambda: port.convert.mpc_family_from_numpy("rocket", 3, 0.05)),
-        "implicit_solver": (NotImplementedError, lambda: mpc.make_implicit_mpc_solver(CP, T, DT)),
-        "feedback_gain": (NotImplementedError, lambda: mpc.mpc_feedback_gain(CP, x0[0], T, DT)),
     }
 
 

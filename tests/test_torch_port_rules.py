@@ -53,7 +53,8 @@ def test_import_leaves_jax_out():
         "import sys, mini_opt_tpu_torch, mini_opt_tpu_torch.instances, "
         "mini_opt_tpu_torch.utils.numerical, mini_opt_tpu_torch.utils.tol, "
         "mini_opt_tpu_torch.ops.pose_ring, mini_opt_tpu_torch.models.pose_graph, "
-        "mini_opt_tpu_torch.ops.mpc, mini_opt_tpu_torch.ops.riccati, mini_opt_tpu_torch.models.mpc; "
+        "mini_opt_tpu_torch.ops.mpc, mini_opt_tpu_torch.ops.riccati, mini_opt_tpu_torch.models.mpc, "
+        "mini_opt_tpu_torch.ineq, mini_opt_tpu_torch.implicit, mini_opt_tpu_torch.tuning; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)"
     )
