@@ -60,10 +60,12 @@ Phases, each of which exits non-zero on failure:
    and for the KKT solve torch.linalg.ldl_factor_ex + ldl_solve as its
    library yardstick;
 9. the general path's kernels (csrc/ldlt.cu, csrc/fused_qp.cu,
-   fused_qp_pairs.cu), built in phase 2's parallel nvcc pass: ptxas
-   registers, spills and stack frame per instance (kernel 6's with its
-   route, PairRows or AnyRows; a spill in an instance of kernels 4 and 5's
-   register route fails the run), and the launch plan at D = 3;
+   fused_qp_pairs.cu, fused_qp_k2.cu, fused_qp_warp.cu), built in phase 2's
+   parallel nvcc pass: ptxas registers, spills and stack frame per instance
+   (kernel 6's with its route, PairRows, AnyRows or the warp route; a spill
+   in an instance of kernels 4 and 5's register route, or in a float
+   PairRows instance of kernel 6 with N = 1 or K = 2, fails the run), and
+   the launch plan at D = 3;
 10. the LDL^T factor and solve kernels (kernels 4 and 5) against their plain
    versions, bit for bit, on batch-major H and rhs as factorize and solve
    give them: D = 1, 2, 3, 5, 9, 13 (the register route's largest), 14
@@ -113,7 +115,8 @@ Phases, each of which exits non-zero on failure:
    chain with the closure (12, 4) (k = 1) and the closures ((15, 0),
    (4, 11)) (k = 4) at N = 16, 5/2 (its pose_ring_chain_closure_bench
    distribution), and the ring N = 32 at 6/2; at B = 1037 one topology for
-   each other border count k = 2, 3, 5, 6 at N = 16, 5/2; the ring N = 16
+   each other border count k = 2, 3, 5, 6 at N = 16, 5/2 (float64 for k = 2
+   and 5, float32 for k = 3 and 6); the ring N = 16
    at B = 1 and B = W + 1 (a ragged last CTA); and in each type the
    smallest ring N whose slab does not fit one CTA (the global-scratch
    route) at B = 67, 2/1;
@@ -250,8 +253,8 @@ Phases, each of which exits non-zero on failure:
    _mod_pi retraction) at n = 33 and n = 48 on kernel 2, its traces made by
    worker processes from phase 1 on (minutes of Python), its source emitted
    and built in a thread beside phases 2-31 (nvcc at -O1 for sources this
-   large: ops/_build.py), against its plain version bit for bit in both types at
-   6/3/2 Mehrotra + Armijo, B = 2048 + 7 with a NaN-target lane and starts a
+   large: ops/_build.py), against its plain version bit for bit (both types
+   at n = 33, float32 at n = 48) at 6/3/2 Mehrotra + Armijo, B = 2048 + 7 with a NaN-target lane and starts a
    turn away (the retract's floor at work); then bench.py's route itself at
    n = 33, float32: fused_solve_batch launches the generated kernel 2 once
    (the counts set to 0 just before it), bit for bit against the plain
@@ -288,9 +291,43 @@ Phases, each of which exits non-zero on failure:
    anchor (6, 3, 2)); every budget a launch at run-time trip counts, the
    counts set to 0 before each family; one JSON line per family, with the
    budgets STATUS.md records from TPU runs beside as context;
-36. the kernel line (this slice's launches in the rows of kernels 1, 2, 4,
-   5, 7, 8 and 9), the seconds of each phase, then the device line as the
-   last line of stdout.
+36. kernel 6 at the sizes past its first instances (N = 2..8, K <= 1, M
+   <= 2N): the register route's N = 1 and K = 2 instances and the warp
+   route (csrc/fused_qp_warp.cu, one warp an instance, D = N + K <= 192)
+   against the plain version, bit for bit in both types: N = 1 (K = 0, and
+   K = 1 with two rows on x0), N = 3 K = 2 and N = 5 K = 3 with the pair
+   rows, N = 4 K = 1 with 3N rows on repeated variables (random
+   well-conditioned QPs), and N = 9, 16 and 48 from the port's linearization
+   of planar IK instances (pair rows, K = 1), at B = 1037 with a NaN lane in
+   both barriers, B = 1 and B = W + 1 (a ragged last CTA); at D = 120 and
+   192 (the plain version costs D^3 tensor operations) against qp_ip_solve
+   under the complementarity barrier at 6 iterations, within 1e-4 (float32)
+   and 1e-9 (float64); one device kernel a call on the warp route
+   (kernels_a_call); the warp route's launch plans, slab bytes (the
+   launcher's against launch_plan's) and CTAs per SM; its ptxas lines come
+   with phase 9's;
+37. the 48-joint arm (examples/blocked_medium_n.py's rows and budget 6/3/2,
+   Mehrotra + Armijo) on the general path, solve_ik_batch(qp_solver=
+   "pallas_fused") at B = 8192 in float32: one kernel-6 launch (the warp
+   route) per outer iteration and nothing else, parity beside the blocked
+   tier's on the same rows (phase 7), bit for bit against the same call
+   with the plain kernels, ms and device kernels a call, kernel 6 alone
+   (held), its bound and its plain version;
+38. bench.py --general's cell (planar n = 2, 10/6/2, complementarity,
+   Armijo, B = 8192, float32) on both QP routes with the sequential, the
+   parallel and the parallel + fused-probe line search: launches, parity
+   (at least 0.99 each), ms and device kernels a call; in float64 at
+   B = 1024 each parallel variant within 1e-12 of the sequential one, every
+   termination state equal;
+39. one float64 solve at B = 64 with record_history, log_qp_eigenvalues and
+   an exit_callback that stops a lane once its cost falls under 1e-9: the
+   eigenvalues within 1e-10 of numpy.linalg.eigvalsh of each iteration's G,
+   the stopped lanes USER_CALLBACK, lane 0 through JSON and the batch
+   through npz exactly, one device_profile trace holding the solver's
+   phases;
+40. the kernel line (this slice's launches in the rows of kernels 4, 5 and
+   6, the earlier slices' in theirs), the seconds of each phase, then the
+   device line as the last line of stdout.
 
 The 10,000-pose scale point and the sparse bundle adjustment (64 x 8,192,
 4 cameras a landmark) run in scripts/cg_path_times.py, not here.
@@ -303,7 +340,8 @@ path (phases 10-12), kernel 7 and the pose-ring main path (phases 14-15)
 and kernels 8-9 (phases 18-19) are held bit for bit in both types, and so
 is kernel 1, hand-written (phases 3-4) and generated (phases 22-23), and
 the generated pose instances of kernels 1 and 2 (phases 26-27) and the
-generated instances of kernel 2 with a retract (phase 32). The CG path
+generated instances of kernel 2 with a retract (phase 32), and kernel 6's
+new routes and the arm on the general path (phases 36-37). The CG path
 (phases 29-31) runs no kernel: float32 on the card against float64 on the
 CPU, CG_F_GATE on the final cost and CG_X_GATE on the drift or landmark
 error, each set from the readings in PERF.md §6. Phases 33-34
@@ -1528,7 +1566,10 @@ def ring_vs_plain(max_err):
 
     nan = (5, 9)
     cases = [(name, n, cl, bud, lambda dt: 8192 + 13, nan, None) for name, n, cl, bud in RING_CASES]
-    cases += [(name, n, cl, bud, lambda dt: 1037, nan, None) for name, n, cl, bud in RING_EXTRA_CASES]
+    # The other border counts in one type each, alternating (slice 16 cut
+    # the script's depth: each plain call costs its operations, not its B).
+    cases += [(name, n, cl, bud, lambda dt: 1037, nan, (torch.float64, torch.float32)[k % 2])
+              for k, (name, n, cl, bud) in enumerate(RING_EXTRA_CASES)]
     cases += [
         ("ring N=16 6/2, one graph", RING_N, None, RING_BUDGET, lambda dt: 1, (), None),
         ("ring N=16 6/2, B = W + 1", RING_N, None, RING_BUDGET, ragged, (), None),
@@ -3018,7 +3059,9 @@ def retract_paths(builder, max_err, wait_s=900):
         progs = fam.cuda_program.blocked_retract(torch.float32)
         print(f"# phase32 planar n={n} (D={n + 1}): {len(set(progs))} distinct retract program(s) over {n} "
               f"variables, {sum(s.op != 'in' for s in progs[0].stmts)} statements each", flush=True)
-        for dtype in (torch.float64, torch.float32):
+        # float64 at the first n only (slice 16 cut the script's depth: a
+        # plain blocked call costs its operations, ~25 s at n = 48).
+        for dtype in (torch.float64, torch.float32) if n == RETRACT_NS[0] else (torch.float32,):
             data, x0 = medium_n_planar_instances(B, n, seed=n)
             x0 = x0 + np.where(np.arange(n) % 2, 2 * np.pi, 0.0)  # a turn away: the retract's floor
             data[5, 0] = np.nan
@@ -3388,6 +3431,385 @@ def tuner_path(card, kind, families, poses):
     return launched
 
 
+# ---------------------------------------------------------------------------
+# Phases 36-39: the rest of the general path (slice 16) and kernel 6 at
+# every size the JAX kernel takes.
+# ---------------------------------------------------------------------------
+
+ARM_GENERAL_B = 8192
+
+
+def random_qps(B, N, K, var, dtype, seed):
+    """B well-conditioned QPs on the card: G = R R^T / N + I (garbage above
+    the diagonal: only the lower triangle is read), c, A and b standard
+    normal, box rows a x[var] + b >= 0 with |a| in [0.5, 2] of either sign
+    and b in [0.2, 2] (x = 0 strictly inside); past B = 5 lane 3's c NaN."""
+    rng = np.random.default_rng(seed)
+    M = len(var)
+    R = rng.normal(size=(B, N, N))
+    G = R @ R.transpose(0, 2, 1) / N + np.eye(N)
+    up = np.triu_indices(N, 1)
+    G[:, up[0], up[1]] = rng.normal(size=(B, len(up[0])))
+    c, A, b = rng.normal(size=(B, N)), rng.normal(size=(B, K, N)), rng.normal(size=(B, K))
+    ia = np.where(rng.random((B, M)) < 0.5, 1.0, -1.0) * rng.uniform(0.5, 2.0, (B, M))
+    ib = rng.uniform(0.2, 2.0, (B, M))
+    if B > 5:
+        c[3, 0] = np.nan
+    return tuple(torch.as_tensor(a, dtype=dtype, device="cuda") for a in (G, c, A, b, ia, ib))
+
+
+def loose_box_qps(B, N, dtype, seed):
+    """B QPs where kernel 6 and qp_ip_solve follow the same arithmetic: G
+    = R R^T / N + I, c standard normal, one equality row A / sqrt(N), b
+    small, a box |x_i| <= 3 on variables 1..N-1 (the pair rows) that the
+    equality-constrained guess lands inside, so no clamp starts a lane at
+    the boundary (where the two schedules part: on such lanes float64 gaps
+    of 1e-8 and more appear, float32 gaps past 1). On the CPU in float64 the
+    two agree to 4e-16 at N = 12 and 24, and qp_ip_solve's float32 stays
+    within 8e-7 of its float64 at N = 191."""
+    rng = np.random.default_rng(seed)
+    R = rng.normal(size=(B, N, N))
+    G = R @ R.transpose(0, 2, 1) / N + np.eye(N)
+    c, A, b = rng.normal(size=(B, N)), rng.normal(size=(B, 1, N)) / math.sqrt(N), rng.normal(size=(B, 1)) * 0.1
+    ia = np.tile([1.0, -1.0] * (N - 1), (B, 1))
+    ib = np.full((B, 2 * (N - 1)), 3.0)
+    return tuple(torch.as_tensor(a, dtype=dtype, device="cuda") for a in (G, c, A, b, ia, ib))
+
+
+def qp6_cases():
+    """Phase 36's shapes: (label, N, K, box rows' variables, source) with
+    source "random" (random_qps) or "ik" (ik_qps, the port's linearization
+    of planar IK instances: pair rows, K = 1, ia a stride-0 broadcast)."""
+    return [
+        ("N=1 K=0 M=0", 1, 0, (), "random"),
+        ("N=1 K=1 M=2 (lo and hi on x0)", 1, 1, (0, 0), "random"),
+        ("N=3 K=2 pairs", 3, 2, fq.pair_rows(3), "random"),
+        ("N=5 K=3 pairs", 5, 3, fq.pair_rows(5), "random"),
+        ("N=4 K=1 M=3N repeated rows", 4, 1, tuple((3 * m) % 4 for m in range(12)), "random"),
+        ("N=9 K=1 pairs (IK)", 9, 1, fq.pair_rows(9), "ik"),
+        ("N=16 K=1 pairs (IK)", 16, 1, fq.pair_rows(16), "ik"),
+        ("N=48 K=1 pairs (IK)", 48, 1, fq.pair_rows(48), "ik"),
+    ]
+
+
+def qp6_inputs(N, K, var, source, B, dtype, seed):
+    if source == "ik":
+        tensors, v = ik_qps(N, B, dtype, seed)
+        if v != tuple(var):
+            fail(f"phase36: the IK linearization's rows {v} are not pair_rows({N})")
+        return tensors
+    return random_qps(B, N, K, var, dtype, seed)
+
+
+def qp6_new_routes(max_err):
+    """Phase 36: kernel 6's new sizes against its plain version, bit for
+    bit: each qp6_cases shape at B = 1037 (a NaN lane) in both types and
+    barriers, at B = 1 and W + 1 (a ragged last CTA) in float64 with the
+    complementarity barrier and float32 with Mehrotra; at D = 120 and 192
+    against qp_ip_solve (complementarity, 6 iterations; the plain version
+    costs D^3 tensor operations, so it is held only to D = 49); one device
+    kernel a call on the warp route."""
+    for label, N, K, var, source in qp6_cases():
+        for dtype in (torch.float64, torch.float32):
+            plan = fq.launch_plan(N, K, len(var), 1037, dtype)
+            batches = [(1037, b) for b in ("complementarity", "mpc")]
+            w = plan.instances_per_cta if plan.route == "warp" else 32
+            small = "complementarity" if dtype == torch.float64 else "mpc"
+            if N < ARM_N:  # at N = 48 the plain version costs 3 s a call; N = 9 and 16 cover the warp route's edges
+                batches += [(1, small), (w + 1, small)]
+            for B, barrier in batches:
+                ts = qp6_inputs(N, K, var, source, B, dtype, seed=7 * N + K)
+                route = fq.qp_route(N, K, var, dtype)
+                args = (*ts, var, 6, 0.1, barrier, True)
+                before = fq.FUSED_QP_LAUNCHES
+                got = fq._fused_qp_cuda(*args)
+                torch.cuda.synchronize()
+                if fq.FUSED_QP_LAUNCHES != before + 1:
+                    fail(f"phase36 {label}: the fused QP wrapper did not count its launch")
+                want = fq._fused_qp_plain_batch(*args)
+                if B > 5 and not bool(got[0].isnan().any()):
+                    fail(f"phase36 {label} B={B}: the NaN lane came out finite")
+                finite = torch.isfinite(got[0]).all(-1).double().mean().item()
+                check_bits(f"phase36 fused QP {label} ({route} route, {plan.instances_per_cta} a CTA) {barrier} "
+                           f"B={B} (finite lanes {finite:.4f})", got, want, max_err)
+
+    # Past the plain version's reach: against qp_ip_solve.
+    B = 64
+    for D in (120, 192):
+        N = D - 1
+        var = fq.pair_rows(N)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-9)):
+            try:
+                plan = fq.launch_plan(N, 1, len(var), B, dtype)
+            except NotImplementedError as e:
+                print(f"# phase36 D={D} {dtype}: {e}", flush=True)
+                continue
+            G, c, A, b, ia, ib = loose_box_qps(B, N, dtype, seed=D)
+            x, y = fq._fused_qp_batch(G, c, A, b, ia, ib, ineq_var=var, iterations=6, sigma=0.1,
+                                      barrier="complementarity", has_eq_guess=True)
+            qp = mot.QP(G, c, A, b, torch.tensor(var, device="cuda"), ia, ib)
+            params = mot.QPInteriorPointParams(
+                max_iterations=6, sigma=0.1, termination_kkt_tol=1e-300, termination_complementarity_tol=1e-300,
+                barrier_strategy=mot.BarrierStrategy.COMPLEMENTARITY,
+                initial_guess_method=mot.InitialGuessMethod.SOLVE_EQUALITY_CONSTRAINED,
+                kkt_solver="ldlt", record_history=False, early_exit=False)
+            ref = mot.qp_ip_solve(qp, params)
+            gap = max(float(((x - ref.x).abs() / (1 + ref.x.abs())).max()),
+                      float(((y - ref.y).abs() / (1 + ref.y.abs())).max()))
+            print(f"# phase36 fused QP D={D} (N={N}, K=1, M={len(var)}) {str(dtype)[6:]} B={B} ({plan.route} route, "
+                  f"{plan.instances_per_cta} a CTA, {plan.instance_bytes} B an instance): against qp_ip_solve "
+                  f"(complementarity, 6 iterations) max |dx| / (1 + |x|) {gap:.3e} (gate {tol:g})", flush=True)
+            if not gap <= tol:
+                fail(f"phase36 D={D} {dtype}: kernel 6 is {gap:.3e} from qp_ip_solve")
+
+    tensors, var = ik_qps(ARM_N, GENERAL_B, torch.float32, seed=48)
+
+    def call():
+        return fq._fused_qp_batch(*tensors, ineq_var=var, iterations=3, sigma=0.1, barrier="mpc",
+                                  has_eq_guess=True)
+
+    kernels_a_call(f"phase36 _fused_qp_batch N={ARM_N} K=1 B={GENERAL_B} float32 (warp route)", call,
+                   (r"fused_qp_warp_kernel",))
+    for dtype in (torch.float32, torch.float64):
+        for N, K, M in ((48, 1, 94), (119, 1, 236), (191, 1, 380)):
+            try:
+                plan = fq.launch_plan(N, K, M, GENERAL_B, dtype)
+            except NotImplementedError as e:
+                print(f"# phase36 plan N={N} K={K} M={M} {dtype}: {e}", flush=True)
+                continue
+            lib = _build.load_library()
+            occ = lib.mo_fused_qp_warp_occupancy(ldlt_dtype_id(dtype), N, K, M, plan.instances_per_cta)
+            slab = lib.mo_fused_qp_warp_slab_bytes(ldlt_dtype_id(dtype), N, K, M)
+            print(f"# phase36 warp plan N={N} K={K} M={M} {str(dtype)[6:]}: {plan}; the launcher's slab {slab} B; "
+                  f"CTAs per SM {occ}", flush=True)
+            if slab != plan.instance_bytes:
+                fail(f"phase36: the launcher's slab ({slab} B) is not launch_plan's ({plan.instance_bytes} B)")
+
+
+def ldlt_dtype_id(dtype):
+    return 0 if dtype == torch.float32 else 1
+
+
+def arm_general_params(dtype=torch.float32, qp_solver="pallas_fused"):
+    """examples/blocked_medium_n.py's budget (6/3/2, Mehrotra, Armijo) on the
+    general path, fixed trips, no history."""
+    return dataclasses.replace(
+        mot.default_ik_params(dtype, max_iterations=6, max_qp_iterations=3),
+        max_line_search_iterations=2, qp_barrier_strategy=mot.BarrierStrategy.PREDICTOR_CORRECTOR,
+        record_history=False, early_exit=False, qp_solver=qp_solver,
+    )
+
+
+def arm_general_path(card, kind, blocked_parity):
+    """Phase 37: the 48-joint arm through solve_ik_batch(qp_solver=
+    "pallas_fused") at B = 8192, float32: kernel 6's warp route, one launch
+    a QP call; parity beside the blocked tier's on the same rows; the same
+    call with the plain kernels bit for bit; times, device kernels a call,
+    kernel 6 alone and its bound. Returns kernel 6's row fields."""
+    B = ARM_GENERAL_B
+    targets, x0 = medium_n_planar_instances(B, ARM_N, seed=0)
+    t32, x32 = targets.astype(np.float32), x0.astype(np.float32)
+    params = arm_general_params()
+    seen = {}
+    with recording(fq, "_fused_qp_cuda", seen):
+        reset_counts()
+        res = mot.solve_ik_batch(t32, x32, params=params)  # no warm-up: a call costs its host, not its B
+        torch.cuda.synchronize()
+        got = counts()
+    if got["fused_qp"] != params.max_iterations or any(v for k, v in got.items() if k != "fused_qp"):
+        fail(f"phase37: launches {got}, not one kernel-6 launch per outer iteration ({params.max_iterations})")
+    if res.x.shape != (B, ARM_N) or not res.x.is_cuda or not torch.isfinite(res.x).all():
+        fail(f"phase37: unexpected solutions {tuple(res.x.shape)} {res.x.device}")
+    err = effector_error("planar", res.x.cpu().numpy(), targets)
+    parity = float((err < 1e-3).mean())
+    with plain_kernels():
+        plain_e2e_ms, ref = event_ms(lambda: mot.solve_ik_batch(t32, x32, params=params))
+    same = bit_identical((res.x, ref.x), (res.termination_state, ref.termination_state))
+    print(f"# phase37 solve_ik_batch planar n={ARM_N} B={B} float32 6/3/2 mpc armijo qp_solver=pallas_fused: "
+          f"launches {got} for 1 call; parity {parity:.6f} (effector error p50 {np.median(err):.3e}, max "
+          f"{err.max():.3e}; the blocked tier's on the same rows, phase 7: {blocked_parity:.6f}); against the "
+          f"plain kernels on the card ({plain_e2e_ms:.1f} ms): bit-identical {same}", flush=True)
+    if not same:
+        fail("phase37: the arm's kernel route disagrees with the plain route")
+    entry = lambda: mot.solve_ik_batch(t32, x32, params=params)  # noqa: E731
+    # One timed call (a call takes seconds: the host issues some 350,000
+    # device kernels); the counted call above warmed it.
+    e2e_ms, _ = event_ms(entry)
+    e2e_all = [e2e_ms]
+    _, busy_ms, n_kernels, _ = profile_call(entry, sessions=1)
+    qp_args = seen["_fused_qp_cuda"]
+    k_ms, k_all = time_ms(lambda: fq._fused_qp_cuda(*qp_args), held=True)
+    plan = fq.launch_plan(ARM_N, 1, len(qp_args[6]), B, torch.float32)
+    # The plain version's operations on 64 of the QPs, per instance.
+    small = tuple(t[:64] for t in qp_args[:6]) + tuple(qp_args[6:])
+    ops = count_ops(lambda: fq._fused_qp_plain_batch(*small)) / 64 * B
+    N, K, M = ARM_N, 1, len(qp_args[6])
+    nbytes = (stored(qp_args[0][:, :, 0]) * (N + 1) // 2 + sum(stored(t) for t in qp_args[1:6]) + B * (N + K)) * 4
+    bound_ms, bound_by = roofline(ops, nbytes)
+    plain_ms, _ = event_ms(lambda: fq._fused_qp_plain_batch(*qp_args))
+    dev = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms busy in {n_kernels} device kernels"
+    print(f"# phase37 on {kind} ({card}): entry point {e2e_ms:.3f} ms/call (repeats {e2e_all}), profiled call "
+          f"{dev}; kernel 6 alone at B={B} N={N} K=1 M={M} float32 3 iterations mpc ({plan.route} route, "
+          f"{plan.instances_per_cta} a CTA, {plan.instance_bytes} B an instance) {k_ms:.5f} ms (held; repeats "
+          f"{k_all}), {got['fused_qp']} launches a call; plain {plain_ms:.1f} ms; {ops / B:.0f} ops an instance, "
+          f"{nbytes / B:.0f} bytes -> bound {bound_ms:.6f} ms ({bound_by}), kernel = {k_ms / bound_ms:.1f}x bound",
+          flush=True)
+    return dict(arm_launches=got["fused_qp"], arm_ms=k_ms, arm_plain_ms=plain_ms, arm_bound_ms=bound_ms,
+                arm_bound_by=bound_by, arm_entry_ms=e2e_ms, arm_device_kernels=n_kernels, arm_parity=parity,
+                arm_shape=f"B={B} N={N} K=1 M={M} float32 3 iterations mpc (warp route)")
+
+
+LINE_SEARCHES = {
+    "sequential": {},
+    "parallel": dict(parallel_line_search=True),
+    "parallel + fused probe": dict(parallel_line_search=True, fuse_probe_linearize=True),
+}
+
+
+def line_search_paths(card, kind):
+    """Phase 38: bench.py --general's cell (planar n = 2, 10/6/2,
+    complementarity, Armijo, B = 8192, float32) on both QP routes, with the
+    sequential, the parallel and the parallel + fused-probe line search:
+    launches, parity (>= 0.99 each), ms and device kernels a call; then in
+    float64 at B = 1024 each parallel variant against the sequential one (x
+    within 1e-12, termination states equal). Returns the launches."""
+    B = GENERAL_B
+    targets, x0 = planar_instances(B, 2, seed=0)
+    t32, x32 = targets.astype(np.float32), x0.astype(np.float32)
+    launches = {}
+    for route in GENERAL_ROUTES:
+        for name, extra in LINE_SEARCHES.items():
+            params = dataclasses.replace(general_params(route), **extra)
+            mot.solve_ik_batch(t32[:64], x32[:64], params=params)  # warm-up, uncounted
+            torch.cuda.synchronize()
+            reset_counts()
+            res = mot.solve_ik_batch(t32, x32, params=params)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in counts().items() if v}
+            launches[f"{route}, {name}"] = got
+            err = effector_error("planar", res.x.cpu().numpy(), targets)
+            parity = float((err < 1e-3).mean())
+            entry = lambda: mot.solve_ik_batch(t32, x32, params=params)  # noqa: E731
+            e2e_ms, e2e_all = time_ms(entry, repeats=1, launches=1, warmup=0)  # the counted call warmed it
+            _, busy_ms, n_kernels, _ = profile_call(entry, sessions=1)
+            dev = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms busy in {n_kernels} device kernels"
+            print(f"# phase38 {route}, {name} line search, solve_ik_batch planar n=2 B={B} float32 10/6/2 on {kind} "
+                  f"({card}): launches {got} for 1 call; parity {parity:.6f}; {e2e_ms:.3f} ms/call (repeats "
+                  f"{e2e_all}); profiled call {dev}", flush=True)
+            if not parity >= 0.99:
+                fail(f"phase38 {route}, {name}: parity {parity} is below 0.99")
+    Bd = 1024
+    t64, x64 = planar_instances(Bd, 2, seed=1)
+    for route in GENERAL_ROUTES:
+        ref = None
+        for name, extra in LINE_SEARCHES.items():
+            params = dataclasses.replace(general_params(route, torch.float64), **extra)
+            res = mot.solve_ik_batch(t64, x64, params=params)
+            torch.cuda.synchronize()
+            if ref is None:
+                ref = res
+                continue
+            gap = max_abs_diff(res.x, ref.x)
+            same_states = torch.equal(res.termination_state, ref.termination_state)
+            print(f"# phase38 float64 B={Bd} {route}: {name} against sequential max|dx| {gap:.3e}, termination "
+                  f"states equal {same_states}", flush=True)
+            if not (gap <= 1e-12 and same_states):
+                fail(f"phase38 float64 {route}, {name}: {gap:.3e} from the sequential line search or states differ")
+    return launches
+
+
+def history_path(card, kind):
+    """Phase 39: one float64 solve at B = 64 (the planar n = 2 cell on
+    kernels 4 and 5) with record_history, log_qp_eigenvalues and an
+    exit_callback that stops a lane once its cost falls under 1e-9:
+    the eigenvalues within 1e-10 of numpy.linalg.eigvalsh of each
+    iteration's G, the stopped lanes USER_CALLBACK, lane 0 through JSON and
+    the batch through npz exactly, one device_profile trace with the
+    solver's phases. Returns the launches."""
+    import tempfile
+
+    from mini_opt_tpu_torch.utils import serialization, tracing
+
+    Bh = 64
+    targets, x0 = planar_instances(Bh, 2, seed=2)
+    t_t, x_t = (torch.as_tensor(a, device="cuda") for a in (targets, x0))
+    chain = mot.make_planar_chain(2, dtype=torch.float64, device="cuda")
+    params = dataclasses.replace(general_params("pallas_ldlt", torch.float64), record_history=True,
+                                 log_qp_eigenvalues=True)
+    threshold = 1e-9
+
+    def solve():
+        return mot.nls_solve(lambda t: mot.make_ik_problem(chain, t), params, x_t, data=t_t,
+                             retraction=mot.mod_pi_retraction,
+                             exit_callback=lambda row: row.errors_initial.f > threshold)
+
+    Gs = []
+    real = mot.nonlinear.linearize_and_fill_qp
+
+    def spy(*args, **kwargs):
+        qp, err = real(*args, **kwargs)
+        Gs.append(qp.G.detach().cpu().numpy())
+        return qp, err
+
+    mot.nonlinear.linearize_and_fill_qp = spy
+    try:
+        reset_counts()
+        res = solve()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+    finally:
+        mot.nonlinear.linearize_and_fill_qp = real
+    ev = res.iterations.qp_eigenvalues
+    n_it = res.num_iterations.cpu().numpy()
+    worst = 0.0
+    for i, G in enumerate(Gs):
+        w = np.linalg.eigvalsh(G)
+        ran = n_it > i
+        for name, want in (("min", w.min(1)), ("max", w.max(1)), ("abs_min", np.abs(w).min(1))):
+            have = getattr(ev, name)[:, i].cpu().numpy()
+            worst = max(worst, float(np.abs(have[ran] - want[ran]).max(initial=0.0)))
+    user = (res.termination_state == mot.NLSTerminationState.USER_CALLBACK).cpu().numpy()
+    last_f = res.iterations.errors_initial.f.cpu().numpy()[np.arange(Bh), np.maximum(n_it - 1, 0)]
+    print(f"# phase39 float64 B={Bh} history + eigenvalues + exit_callback (cost under {threshold:g}) on {kind}: "
+          f"launches {got}; eigenvalues against numpy.linalg.eigvalsh of {len(Gs)} iterations' G max|diff| "
+          f"{worst:.3e} (gate 1e-10); {int(user.sum())} lanes USER_CALLBACK, their last costs max "
+          f"{last_f[user].max(initial=0.0):.3e}; states {np.bincount(res.termination_state.cpu().numpy() + 1).tolist()} "
+          f"(NONE=-1 first)", flush=True)
+    if not worst <= 1e-10:
+        fail(f"phase39: the logged eigenvalues are {worst:.3e} from numpy's")
+    if not user.any() or not (last_f[user] <= threshold).all():
+        fail("phase39: the exit callback stopped no lane, or a lane above its threshold")
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        lane0 = mot.structs.tree_map(lambda t: t[0], res)
+        serialization.save_result_json(f"{tmp}/lane0.json", lane0)
+        back = serialization.load_result_json(f"{tmp}/lane0.json", device="cuda")
+        json_same = serialization.nls_result_to_json(back) == serialization.nls_result_to_json(lane0)
+        serialization.save_result_npz(f"{tmp}/batch.npz", res)
+        leaves, back_leaves = [], []
+        mot.structs.tree_map(lambda t: leaves.append(t) or t, res)
+        mot.structs.tree_map(lambda t: back_leaves.append(t) or t,
+                             serialization.load_result_npz(f"{tmp}/batch.npz", device="cuda"))
+        npz_same = len(leaves) == len(back_leaves) and bit_identical(*zip(leaves, back_leaves))
+        tracing.trace_collector.clear()
+        with tracing.device_profile(f"{tmp}/profile"):
+            solve()
+            torch.cuda.synchronize()
+        import glob
+
+        traces = glob.glob(f"{tmp}/profile/trace_*.json")
+        text = open(traces[0]).read() if traces else ""
+        phases = {name: text.count(f'"{name}"') for name in
+                  ("Solve", "LinearizeAndFillQP", "ComputeStepDirection", "QPInteriorPointSolve", "SelectStepSize",
+                   "EvaluateNonlinearErrors")}
+        collected = len(json.loads(tracing.trace_collector.get_trace_json())["traceEvents"])
+    print(f"# phase39 lane 0 through JSON exactly {json_same}; the batch through npz bit-identical {npz_same}; "
+          f"device_profile wrote {len(traces)} trace(s), the solver's phase spans in it {phases}, "
+          f"{collected} events in trace_collector", flush=True)
+    if not (json_same and npz_same and len(traces) == 1 and all(phases.values())):
+        fail("phase39: a round trip differs, or the profile trace lacks a solver phase")
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -3417,7 +3839,7 @@ def main():
 
 
 def run_phases(card, kind, retract_builder, pool):
-    """Phases 2-36."""
+    """Phases 2-40."""
     # Phase 2: build. Phase 21's generated families and phase 25's pose
     # families are emitted and built at the same time: every nvcc process of
     # both runs at once.
@@ -3470,6 +3892,13 @@ def run_phases(card, kind, retract_builder, pool):
                       f"stack frame", flush=True)
                 if kernel.endswith("_reg") and spill:
                     fail(f"phase9: {label} spills {spill} bytes; lower ldlt.REGISTER_MAX_D")
+                if kernel == "fused_qp" and t == "f" and rows and rows.group() == "PairRows" and spill and (
+                        n == "1" or k == "2"):
+                    fail(f"phase9: {label} spills {spill} bytes; lower fused_qp.REGISTER_MAX_N")
+            m = re.search(r"fused_qp_warp_kernelI([fd])", name)
+            if m:
+                print(f"# phase36 ptxas fused_qp_warp<{'float' if m.group(1) == 'f' else 'double'}>: {nreg} "
+                      f"registers, {spill} bytes spill stores, {stack} bytes stack frame", flush=True)
         # Phase 17: the MPC kernels, from the same build.
         mpc_build_report(text)
         # Phase 13: the pose-ring kernel, from the same build.
@@ -3605,6 +4034,15 @@ def run_phases(card, kind, retract_builder, pool):
     CLOCK.mark("phase 34")
     tuner_launches = tuner_path(card, kind, families, poses)
     CLOCK.mark("phase 35")
+    qp6_err = {"float64": 0.0, "float32": 0.0}
+    qp6_new_routes(qp6_err)
+    CLOCK.mark("phase 36")
+    arm_row = arm_general_path(card, kind, blocked_rows[0]["parity"])
+    CLOCK.mark("phase 37")
+    ls_launches = line_search_paths(card, kind)
+    CLOCK.mark("phase 38")
+    history_launches = history_path(card, kind)
+    CLOCK.mark("phase 39")
 
     # This slice's launches, in the rows of the kernels its paths ran.
     tuned = lambda *pairs: {f: tuner_launches[f][k] for f, k in pairs}  # noqa: E731
@@ -3621,6 +4059,19 @@ def run_phases(card, kind, retract_builder, pool):
     for row in blocked_rows + general_rows + ring_rows + mpc_rows:
         if row["name"] in slice15:
             row["slice15_launches"] = slice15[row["name"]]
+    # Slice 16's launches (phases 37-39) in the rows of kernels 4, 5 and 6.
+    for row in general_rows:
+        key = {"ldlt_factor": "ldlt_factor", "ldlt_solve": "ldlt_solve", "fused_qp": "fused_qp"}[row["name"]]
+        row["slice16_launches"] = {f"general cell {variant}": got.get(key, 0) for variant, got in ls_launches.items()
+                                   if got.get(key, 0)}
+        if row["name"] == "fused_qp":
+            row["slice16_launches"]["arm n=48 general path (warp route)"] = arm_row["arm_launches"]
+            row["max_abs_err"] = max(row["max_abs_err"], max(qp6_err.values()))
+            row["max_abs_diff_f64"] = max(row["max_abs_diff_f64"], qp6_err["float64"])
+            row["warp_route_source"] = "mini_opt_tpu_torch/csrc/fused_qp_warp.cu"
+            row.update(arm_row)
+        else:
+            row["slice16_launches"]["history float64 B=64"] = history_launches.get(key, 0)
     general_rows[0]["implicit_backward"] = implicit_times
     print(f"# chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build's start; seconds per phase "
           f"{json.dumps(CLOCK.summary())}", flush=True)

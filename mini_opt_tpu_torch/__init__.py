@@ -19,7 +19,15 @@ grows slice by slice. It carries:
   line search) with its residual, QP and IK layers, whose inner QP runs on
   the lane-batched LDL^T kernels (``csrc/ldlt.cu``, ``kkt_solver=
   "pallas_ldlt"``) or as one fused interior-point kernel
-  (``csrc/fused_qp.cu``, ``qp_solver="pallas_fused"``);
+  (``csrc/fused_qp.cu``, ``qp_solver="pallas_fused"``: one instance a
+  thread for small QPs, one warp an instance up to N + K = 192); its options
+  ``parallel_line_search``, ``fuse_probe_linearize``, ``exit_callback`` and
+  ``log_qp_eigenvalues``; and what a caller does with a result: the
+  renderers (``nls_result_to_string``, ``summarize_counts``), JSON and npz
+  files (``utils.serialization``), warm starts and checkpoints
+  (``utils.checkpoint``), the chrome-trace collector and ``device_profile``
+  (``utils.tracing``) and the native CPU baseline (``native``, built with
+  g++);
 * SE(2) pose graphs: the general path's ``make_pose_graph_problem`` and
   ``solve_pose_graph``, and the serving tier for batches of
   chain-plus-closure graphs, ``models.pose_graph.solve_pose_graph_rings``,
@@ -93,7 +101,7 @@ from .models.pose_graph3 import (
     solve_pose_graph3_large,
 )
 from .models.mpc import CartPole, default_mpc_params, serving_mpc_params, solve_mpc
-from .nonlinear import NLSParams, Problem, nls_solve
+from .nonlinear import NLSParams, Problem, compute_second_order_correction, nls_solve
 from .ops.blocked import REGISTER_KKT_MAX, blocked_kkt_solve, blocked_solve_batch
 from .ops.fused_auto import check_family_against_problem, family_from_problem, fused_nls_solve_batch
 from .ops.fused_ik import (
@@ -117,7 +125,15 @@ from .ops.mpc import (
     quadrotor_mpc_family,
 )
 from .parallel.batch import solve_batch
-from .qp import QP, LinearInequalityConstraint, QPInteriorPointParams, Var, qp_ip_solve, qp_null_space_solve
+from .qp import (
+    QP,
+    LinearInequalityConstraint,
+    QPInteriorPointParams,
+    Var,
+    build_full_kkt_system,
+    qp_ip_solve,
+    qp_null_space_solve,
+)
 from .residual import (
     BlockResidual,
     Residual,
@@ -142,11 +158,15 @@ from .structs import (
     QPIPResult,
     QPIterationHistory,
     QPLagrangeMultipliers,
+    QPEigenvalues,
     QPNullSpaceResult,
     QPNullSpaceTerminationState,
     QPSolverVariant,
     QPTerminationState,
     StepSizeSelectionResult,
+    nls_result_to_string,
+    qp_iteration_to_string,
+    summarize_counts,
     termination_state_indicates_satisfied_tol,
 )
 
@@ -172,6 +192,7 @@ __all__ = [
     "OptimizerState",
     "Problem",
     "QP",
+    "QPEigenvalues",
     "QPIPResult",
     "QPInteriorPointParams",
     "QPIterationHistory",
@@ -189,10 +210,12 @@ __all__ = [
     "batch_from_numpy",
     "batch_to_numpy",
     "blocked_kkt_solve",
+    "build_full_kkt_system",
     "blocked_solve_batch",
     "cartpole_mpc_family",
     "chain_from_numpy",
     "check_family_against_problem",
+    "compute_second_order_correction",
     "default_ik_params",
     "default_mpc_params",
     "family_from_problem",
@@ -231,10 +254,12 @@ __all__ = [
     "make_spatial_ik_problem",
     "mod_pi_retraction",
     "mpc_family_from_numpy",
+    "nls_result_to_string",
     "nls_solve",
     "params_from_dict",
     "planar_family",
     "qp_ip_solve",
+    "qp_iteration_to_string",
     "qp_null_space_solve",
     "quadrotor_mpc_family",
     "robustify",
@@ -247,6 +272,7 @@ __all__ = [
     "solve_mpc",
     "solve_pose_graph",
     "spatial_family",
+    "summarize_counts",
     "termination_state_indicates_satisfied_tol",
     "validate_problem",
     "with_nonlinear_inequalities",

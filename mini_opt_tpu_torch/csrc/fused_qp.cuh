@@ -1,7 +1,8 @@
 // The whole fixed-trip QP interior point of B independent small dense QPs,
-// one instance per thread: the kernel template of kernel 6, instantiated by
-// fused_qp.cu (any box rows, the C launcher) and fused_qp_pairs.cu (the
-// general path's rows).
+// one instance per thread: kernel 6's register route, instantiated by
+// fused_qp.cu (any box rows, the C launcher), fused_qp_pairs.cu (the
+// general path's rows) and fused_qp_k2.cu (two equality rows). Larger QPs
+// take the warp route, fused_qp_warp.cu.
 //
 // Replaces the TPU kernel mini_opt_tpu/ops/pallas_qp.py::_make_qp_kernel
 // (launched at pallas_qp.py:262 by _fused_qp_batch). Per instance:
@@ -19,7 +20,8 @@
 // about one warp per scheduler and the time is the chain's latency.
 //
 // What the design does about it: one instance per thread with N and K
-// compile-time sizes (N = 2..8, K in {0, 1}), every loop over variables
+// compile-time sizes (N = 1..8 with K <= 1, N = 1..6 with K = 2: the caps
+// below), every loop over variables
 // unrolled, so the KKT matrix, its LDL^T factor (fused_sqp.cuh's unrolled
 // ldlt_factor / ldlt_apply) and every iterate live in registers. The box
 // rows are a type: PairRows, the rows every caller in the port passes (a lo
@@ -43,11 +45,27 @@
 
 #include "fused_sqp.cuh"
 
+#if !defined(MO_QP_REGISTER_MAX_N_K0) || !defined(MO_QP_REGISTER_MAX_N_K1) || !defined(MO_QP_REGISTER_MAX_N_K2)
+#error "build with -DMO_QP_REGISTER_MAX_N_K0, _K1 and _K2 (ops/_build.py passes ops/fused_qp.py's caps)"
+#endif
+
 namespace mo {
 namespace qp {
 
 constexpr int kBlock = 32;  // at B = 8192: 1-2.5% faster than 128 at N = 2, 5% at N = 8
-constexpr int kMaxRows = 16;  // 2N for the largest instance, N = 8
+// The register route's largest N for K = 0, 1 and 2 equality rows, the
+// sizes whose float instances ptxas keeps free of spills on the general
+// path's rows. The caps' one home is ops/fused_qp.py (REGISTER_MAX_N),
+// which ops/_build.py passes to nvcc; past them the warp route
+// (fused_qp_warp.cu) takes the QP.
+__host__ __device__ constexpr int register_max_n(int K) {
+  return K == 0 ? MO_QP_REGISTER_MAX_N_K0
+                : (K == 1 ? MO_QP_REGISTER_MAX_N_K1 : (K == 2 ? MO_QP_REGISTER_MAX_N_K2 : 0));
+}
+constexpr int kRegisterTopN = register_max_n(0) > register_max_n(1)
+                                  ? (register_max_n(0) > register_max_n(2) ? register_max_n(0) : register_max_n(2))
+                                  : (register_max_n(1) > register_max_n(2) ? register_max_n(1) : register_max_n(2));
+constexpr int kMaxRows = 2 * kRegisterTopN;  // 2N for the largest instance
 
 // The schedule, uniform over the grid.
 struct Schedule {
@@ -156,6 +174,7 @@ __global__ void __launch_bounds__(kBlock)
   constexpr int D = N + K;
   constexpr int KA = K > 0 ? K : 1;  // C++ has no zero-length arrays
   constexpr int R = Rows::R;
+  constexpr int RA = slots(R);  // PairRows<1> has no row
   const int lane = blockIdx.x * kBlock + threadIdx.x;
   if (lane >= B) return;
   const long long l = lane;
@@ -167,7 +186,7 @@ __global__ void __launch_bounds__(kBlock)
   const T* __restrict__ bp = static_cast<const T*>(t.b) + l * t.sb[0];
   const T* __restrict__ iap = static_cast<const T*>(t.ia) + l * t.sia[0];
   const T* __restrict__ ibp = static_cast<const T*>(t.ib) + l * t.sib[0];
-  T G[N][N], c[N], A[KA][N], bq[KA], ia[R], ib[R];
+  T G[N][N], c[N], A[KA][N], bq[KA], ia[RA], ib[RA];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
 #pragma unroll
@@ -192,7 +211,7 @@ __global__ void __launch_bounds__(kBlock)
   T H[D][D], L[D][D], dg[D], sol[D];
   // Condensed lower triangle: G's, sig[m] added on the diagonal of var[m]
   // in row order, the equality rows below, a zero (K, K) block.
-  auto assemble = [&](const T (&sig)[R]) {
+  auto assemble = [&](const T (&sig)[RA]) {
 #pragma unroll
     for (int i = 0; i < D; ++i) {
 #pragma unroll
@@ -217,7 +236,7 @@ __global__ void __launch_bounds__(kBlock)
   // Initial guess (qp.cc:439-482).
   T x[N], y[KA];
   if (sch.has_eq_guess) {
-    T sig0[R];
+    T sig0[RA];
 #pragma unroll
     for (int m = 0; m < R; ++m) sig0[m] = zero;
     assemble(sig0);
@@ -239,7 +258,7 @@ __global__ void __launch_bounds__(kBlock)
   }
   // Clamp into the feasible half-lines in row order, then
   // s = max(1e-9, a x + b), z = 1 / s.
-  T s[R], z[R];
+  T s[RA], z[RA];
 #pragma unroll
   for (int m = 0; m < R; ++m) {
     if (rows.live(m)) {
@@ -256,7 +275,7 @@ __global__ void __launch_bounds__(kBlock)
   sc.mark(kQpGuess);
 
   // ftb(vs, dvs, tau) over the live rows.
-  auto ftb = [&](const T (&vs)[R], const T (&dvs)[R], T tau_v) {
+  auto ftb = [&](const T (&vs)[RA], const T (&dvs)[RA], T tau_v) {
     T alpha = one;
 #pragma unroll
     for (int m = 0; m < R; ++m) {
@@ -297,7 +316,7 @@ __global__ void __launch_bounds__(kBlock)
       for (int j = 0; j < N; ++j) acc = acc + A[k][j] * x[j];
       r_pe[k] = acc;
     }
-    T r_pi[R], r_c[R], zs[R], sig[R];
+    T r_pi[RA], r_c[RA], zs[RA], sig[RA];
 #pragma unroll
     for (int m = 0; m < R; ++m) {
       r_pi[m] = ia[m] * rows.get(x, m) + ib[m] - s[m];
@@ -313,9 +332,9 @@ __global__ void __launch_bounds__(kBlock)
     // Elimination, condensed solve, back-substitution (qp.cc:318-364); the
     // quotient (r_c + corr - mu) / s enters both the right-hand side and
     // dz, and is computed once.
-    auto solve_step = [&](T mu_v, const T (&corr)[R], T (&dx)[N], T (&dy)[KA], T (&ds)[R],
-                          T (&dz)[R]) {
-      T q[R];
+    auto solve_step = [&](T mu_v, const T (&corr)[RA], T (&dx)[N], T (&dy)[KA], T (&ds)[RA],
+                          T (&dz)[RA]) {
+      T q[RA];
 #pragma unroll
       for (int m = 0; m < R; ++m) q[m] = (r_c[m] + corr[m] - mu_v) / s[m];
 #pragma unroll
@@ -340,13 +359,13 @@ __global__ void __launch_bounds__(kBlock)
       }
     };
 
-    T dx[N], dy[KA], ds[R], dz[R], zeros_c[R];
+    T dx[N], dy[KA], ds[RA], dz[RA], zeros_c[RA];
 #pragma unroll
     for (int m = 0; m < R; ++m) zeros_c[m] = zero;
     if (M == 0) {
       solve_step(zero, zeros_c, dx, dy, ds, dz);
     } else if (sch.mpc) {
-      T dxa[N], dya[KA], dsa[R], dza[R], corr[R];
+      T dxa[N], dya[KA], dsa[RA], dza[RA], corr[RA];
       solve_step(zero, zeros_c, dxa, dya, dsa, dza);
       sc.mark(kQpSolveAffine);
       const T ap_a = ftb(s, dsa, one);
@@ -411,9 +430,54 @@ int launch(const Tensors& t, int B, const Rows& rows, const Schedule& sch, cudaS
   return static_cast<int>(cudaGetLastError());
 }
 
-// The PairRows instances (fused_qp_pairs.cu): N = 2..8, K in {0, 1}.
+// Whether the register route has an instance of N variables and K
+// equality rows.
+__host__ __device__ constexpr bool register_instance(int N, int K) {
+  return N >= 1 && N <= register_max_n(K);
+}
+
+// The register-route instance <T, n, K> on the rows make(Rows<n>{}), for a
+// run-time n; kNoInstance where the caps have none.
+template <typename T, int K, template <int> class Rows, int N = 1, class Make>
+int dispatch_register(int n, const Tensors& t, int B, const Make& make, const Schedule& sch,
+                      cudaStream_t s) {
+  if constexpr (N > kRegisterTopN) {
+    return kNoInstance;
+  } else {
+    if (n == N) {
+      if constexpr (register_instance(N, K)) {
+        return launch<T, N, K>(t, B, make(Rows<N>{}), sch, s);
+      } else {
+        return kNoInstance;
+      }
+    }
+    return dispatch_register<T, K, Rows, N + 1>(n, t, B, make, sch, s);
+  }
+}
+
+// The PairRows instances with K in {0, 1} (fused_qp_pairs.cu) and every
+// instance with K = 2 (fused_qp_k2.cu, AnyRows where `pairs` is false,
+// the M box rows' variables in var).
 int launch_pairs(int dtype, int N, int K, const Tensors& t, int B, const Schedule& sch,
                  cudaStream_t stream);
+int launch_k2(int dtype, int N, bool pairs, int M, const int* var, const Tensors& t, int B,
+              const Schedule& sch, cudaStream_t stream);
+
+// AnyRows of N variables holding the M rows' variables var.
+struct FillAny {
+  int M;
+  const int* var;
+  template <class Rows>
+  Rows operator()(Rows rows) const {
+    rows.M = M;
+    for (int m = 0; m < M; ++m) rows.var[m] = var[m];
+    return rows;
+  }
+};
+struct Same {
+  template <class Rows>
+  Rows operator()(Rows rows) const { return rows; }
+};
 
 }  // namespace qp
 }  // namespace mo

@@ -1,34 +1,21 @@
 // Kernel 6 (fused_qp.cuh) on the general path's box rows, PairRows: a lo
 // and a hi row on each of variables 1..N-1, the count and variables at
-// compile time. mo_fused_qp_launch (fused_qp.cu) launches it where the
+// compile time, K in {0, 1}. mo_fused_qp_launch (fused_qp.cu) launches it where the
 // rows it is given are these (is_pair_rows).
 #include "fused_qp.cuh"
 
 namespace {
 
 using mo::qp::PairRows;
+using mo::qp::Same;
 using mo::qp::Schedule;
 using mo::qp::Tensors;
-
-template <typename T, int K>
-int dispatch_n(int N, const Tensors& t, int B, const Schedule& sch, cudaStream_t s) {
-  switch (N) {
-    case 2: return mo::qp::launch<T, 2, K>(t, B, PairRows<2>{}, sch, s);
-    case 3: return mo::qp::launch<T, 3, K>(t, B, PairRows<3>{}, sch, s);
-    case 4: return mo::qp::launch<T, 4, K>(t, B, PairRows<4>{}, sch, s);
-    case 5: return mo::qp::launch<T, 5, K>(t, B, PairRows<5>{}, sch, s);
-    case 6: return mo::qp::launch<T, 6, K>(t, B, PairRows<6>{}, sch, s);
-    case 7: return mo::qp::launch<T, 7, K>(t, B, PairRows<7>{}, sch, s);
-    case 8: return mo::qp::launch<T, 8, K>(t, B, PairRows<8>{}, sch, s);
-    default: return mo::kNoInstance;
-  }
-}
 
 template <typename T>
 int dispatch_k(int N, int K, const Tensors& t, int B, const Schedule& sch, cudaStream_t s) {
   switch (K) {
-    case 0: return dispatch_n<T, 0>(N, t, B, sch, s);
-    case 1: return dispatch_n<T, 1>(N, t, B, sch, s);
+    case 0: return mo::qp::dispatch_register<T, 0, PairRows>(N, t, B, Same{}, sch, s);
+    case 1: return mo::qp::dispatch_register<T, 1, PairRows>(N, t, B, Same{}, sch, s);
     default: return mo::kNoInstance;
   }
 }

@@ -25,10 +25,19 @@ per lane under ``torch.func.vmap`` as the JAX package runs it under its
 candidates clipped into the box by ``_Clamped``), equality constraints by
 the projected-CG composite step.
 
-Not ported yet (ROADMAP.md queue 1, "nonlinear.py, the rest"), each raising
-``NotImplementedError``: ``parallel_line_search``, ``fuse_probe_linearize``,
-``exit_callback``, ``axis_name`` and ``log_qp_eigenvalues``; and the
-distributed CG preconditioner (item 9, "parallel/batch.py, the rest").
+``parallel_line_search`` evaluates every Armijo probe of a line search in
+one vmapped call over P x B instances and takes, per lane, the first probe
+that passes (``torch.where`` masks, so a non-finite losing probe cannot
+poison the winner); ``fuse_probe_linearize`` has each probe compute its
+full linearization, and the winner's rides in the loop's carry in place of
+the next iteration's standalone linearization. ``exit_callback`` is a
+function of ONE lane's history row, run under ``torch.func.vmap`` over the
+batch's rows; ``log_qp_eigenvalues`` writes the min, max and min |.| of each
+iteration's G (``torch.linalg.eigvalsh``) into the history.
+
+Not ported yet (ROADMAP.md queue 1, item 9, "parallel/batch.py, the rest"),
+each raising ``NotImplementedError``: ``axis_name`` (cost terms sharded over
+a mesh) and the distributed CG preconditioner.
 """
 
 from __future__ import annotations
@@ -76,6 +85,7 @@ from .structs import (
     OptimizerState,
     QPNullSpaceTerminationState,
     QPSolverVariant,
+    QPEigenvalues,
     QPTerminationState,
     StepSizeSelectionResult,
     tree_map,
@@ -85,7 +95,6 @@ from .utils.tracing import annotate, traced_phase
 Retraction = Callable
 CostTerm = Union[Residual, BlockResidual]
 
-_TODO = "is not ported yet (ROADMAP.md queue 1: nonlinear.py, the rest)"
 _TODO_SHARDED = "is not ported yet (ROADMAP.md queue 1, item 9: parallel/batch.py, the rest)"
 
 
@@ -199,7 +208,7 @@ def _per_lane(fn, problem, x, data, *rest):
 
 def _no_axis(axis_name):
     if axis_name is not None:
-        raise NotImplementedError(f"axis_name (cost terms sharded over a mesh) {_TODO}")
+        raise NotImplementedError(f"axis_name (cost terms sharded over a mesh) {_TODO_SHARDED}")
 
 
 def _linearize_one(problem: Problem, x):
@@ -480,6 +489,24 @@ def _cg_step_direction(problem: Problem, x, lam, params: NLSParams, diag_fn, axi
     return dx, Errors(f=f_total, equality=torch.sum(torch.abs(c0))), derivatives, torch.abs(y).amax()
 
 
+def compute_second_order_correction(problem: Problem, qp: QP, x_updated):
+    """Second-order correction step of ONE instance (the reference's
+    test-only prototype, nonlinear_test.cc:252-348): the nonlinear equality
+    constraints re-evaluated at the stepped point ``x_updated (n,)`` and the
+    minimum-norm correction ``dx_soc = -A_eq^+ g(x + dx)`` against the
+    current linearization ``qp`` (one instance's ``A_eq (K, n)``), the
+    anti-Maratos device of SQP line searches. ``nls_solve`` does not call
+    it, as in the reference; vmappable over a batch. The pseudo-inverse cuts
+    singular values below JAX's default, 10 max(K, n) eps of the largest."""
+    g = torch.cat([
+        eq.error_vectors(x_updated).reshape(-1) if isinstance(eq, BlockResidual) else eq.error_vector(x_updated)
+        for eq in problem.equality_constraints
+    ])
+    A = qp.A_eq
+    rtol = 10.0 * max(A.shape[-2:]) * torch.finfo(A.dtype).eps
+    return -torch.linalg.pinv(A, rtol=rtol) @ g
+
+
 @traced_phase("ComputeQPCostDerivative")
 def compute_qp_cost_derivative(qp: QP, dx) -> DirectionalDerivatives:
     """Directional derivative of cost + L1 equality merit along dx
@@ -582,6 +609,91 @@ def _retract(retraction, x, dx, alpha):
     return vmap(retraction)(x, dx, alpha)
 
 
+def _repeat_lanes(t, P):
+    """``(B, ...) -> (P B, ...)``, probe-major: row p B + b is lane b."""
+    return t.repeat((P,) + (1,) * (t.dim() - 1))
+
+
+def _select_step_size_parallel(problem, params: NLSParams, x, dx, errors_pre: Errors,
+                               derivatives: DirectionalDerivatives, penalty, retraction, data=None,
+                               ineq_var=None, return_linearization=False):
+    """Armijo backtracking with every probe evaluated at once
+    (nonlinear.py:676-793): the schedule alpha_p = tau^p is
+    data-independent, so the P = max_line_search_iterations + 1 candidates
+    of every lane are built as one ``(P, B, n)`` tensor, their errors (or,
+    with ``return_linearization``, their full linearizations) come from ONE
+    vmapped evaluation over the P B instances, and each lane takes the first
+    probe that passes, as the sequential loop would. Statuses, history and
+    the accepted candidate are the sequential path's. The winner is picked
+    with ``torch.where`` masks summed over the probes, never a
+    multiplicative one-hot: 0 * NaN would let a non-finite losing probe
+    poison the winner."""
+    B, n = x.shape
+    P = params.max_line_search_iterations + 1
+    phi_0 = errors_pre.total(penalty)
+    dd_total = derivatives.total(penalty)
+    dd_linf = derivatives.l_infinity()
+    alphas = torch.tensor(params.armijo_search_tau, dtype=x.dtype, device=x.device) ** torch.arange(
+        P, dtype=x.dtype, device=x.device)
+    cand = _retract(retraction, _repeat_lanes(x, P), _repeat_lanes(dx, P), alphas.repeat_interleave(B))
+    data_p = tree_map(lambda t: _repeat_lanes(t, P), data) if data is not None else None
+    if return_linearization:
+        qps, errs = _linearize_raw(problem, cand, data_p, ineq_var)
+    else:
+        errs = evaluate_nonlinear_errors(problem, cand, data=data_p)
+
+    def probes(t):  # (P B, ...) -> (P, B, ...)
+        return t.reshape((P, B) + t.shape[1:])
+
+    f, eq = probes(errs.f), probes(errs.equality)
+    phi = f + penalty * eq
+    a = alphas[:, None]
+    armijo = phi <= phi_0 + dd_total * a * params.armijo_c1
+    lattice = torch.where(
+        ~(torch.isfinite(f) & torch.isfinite(eq)),
+        int(StepSizeSelectionResult.FAILURE_NON_FINITE_COST),
+        torch.where(
+            (dd_linf < params.absolute_first_derivative_tol)[None].expand(P, B),
+            int(StepSizeSelectionResult.FIRST_ORDER_SATISFIED),
+            torch.where(
+                (dd_total > 0)[None].expand(P, B),
+                int(StepSizeSelectionResult.POSITIVE_DERIVATIVE),
+                torch.where(armijo, int(StepSizeSelectionResult.SUCCESS), -1),
+            ),
+        ),
+    ).to(torch.int32)
+    stops = lattice >= 0
+    any_stop = stops.any(0)
+    # The probe the sequential loop would have stopped at (the last when
+    # none stops): argmax returns the first of equal maxima.
+    k = torch.where(any_stop, stops.to(torch.int32).argmax(0), P - 1).to(torch.int32)
+    sel = torch.arange(P, device=x.device)[:, None] == k[None, :]  # (P, B)
+
+    def select(v):  # (P, B, ...) -> (B, ...)
+        mask = sel.view((P, B) + (1,) * (v.dim() - 2))
+        return torch.sum(torch.where(mask, v, torch.zeros_like(v)), 0)
+
+    status = torch.where(any_stop, select(lattice).to(torch.int32), _i32(StepSizeSelectionResult.MAX_ITERATIONS, k))
+    candidate = select(probes(cand))
+    final_errors = Errors(f=select(f), equality=select(eq))
+    evaluated = (torch.arange(P, device=x.device)[:, None] <= k[None, :])  # (P, B)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    steps = LineSearchHistory(
+        alpha=torch.where(evaluated, a.expand(P, B), zero).T,
+        f=torch.where(evaluated, f, zero).T,
+        equality=torch.where(evaluated, eq, zero).T,
+        num_steps=k + 1,
+    )
+    if not return_linearization:
+        return status, candidate, final_errors, steps
+    qp_sel = QP(
+        G=select(probes(qps.G)), c=select(probes(qps.c)), A_eq=select(probes(qps.A_eq)),
+        b_eq=select(probes(qps.b_eq)), ineq_var=qps.ineq_var, ineq_a=select(probes(qps.ineq_a)),
+        ineq_b=select(probes(qps.ineq_b)),
+    )
+    return status, candidate, final_errors, steps, (qp_sel, final_errors)
+
+
 @traced_phase("SelectStepSize")
 def select_step_size(
     problem,
@@ -594,16 +706,24 @@ def select_step_size(
     retraction: Optional[Retraction],
     axis_name=None,
     data=None,
+    ineq_var=None,
 ):
     """SelectStepSize analog (nonlinear.cc:351-416): try alpha = 1, then
     Armijo backtracking or quadratic/cubic polynomial minimization, accepting
     on the Armijo condition over the L1 merit function, for every lane.
 
-    Returns (status, accepted_candidate, candidate_errors, steps_log).
+    Returns (status, accepted_candidate, candidate_errors, steps_log), and,
+    with ``params.fuse_probe_linearize``, the accepted probe's raw
+    linearization ``(QP, Errors)`` as a fifth element. With
+    ``params.parallel_line_search`` every probe is evaluated at once
+    (``_select_step_size_parallel``).
     """
     _no_axis(axis_name)
-    if params.parallel_line_search:
-        raise NotImplementedError(f"parallel_line_search {_TODO}")
+    if params.parallel_line_search and params.line_search_strategy == LineSearchStrategy.ARMIJO_BACKTRACK:
+        return _select_step_size_parallel(
+            problem, params, x, dx, errors_pre, derivatives, penalty, retraction, data, ineq_var,
+            return_linearization=params.fuse_probe_linearize,
+        )
     max_probes = params.max_line_search_iterations + 1
     phi_0 = errors_pre.total(penalty)
     dd_total = derivatives.total(penalty)
@@ -712,6 +832,9 @@ class _NLSCarry(NamedTuple):
     it: torch.Tensor  # int32 iterations completed
     status: torch.Tensor  # int32 NLSTerminationState; NONE = continue
     history: NLSIterationHistory
+    # fuse_probe_linearize: the raw linearization at x, (G, c, A_eq, b_eq,
+    # ineq_a, ineq_b, f, equality), every leaf batched; else None.
+    lin: Optional[tuple] = None
 
 
 def _uses_null_space(problem: Problem) -> bool:
@@ -723,15 +846,47 @@ def _uses_null_space(problem: Problem) -> bool:
 def _check_ported(params: NLSParams, exit_callback, axis_name, cg_args):
     if cg_args[2] or (params.qp_solver == "cg" and axis_name is not None):
         raise NotImplementedError(f"the distributed CG path (axis_name, distributed_cg_preconditioner) {_TODO_SHARDED}")
-    if params.parallel_line_search:
-        raise NotImplementedError(f"parallel_line_search {_TODO}")
-    if params.fuse_probe_linearize:
-        raise NotImplementedError(f"fuse_probe_linearize {_TODO}")
-    if exit_callback is not None:
-        raise NotImplementedError(f"exit_callback {_TODO}")
-    if params.log_qp_eigenvalues:
-        raise NotImplementedError(f"log_qp_eigenvalues (QPEigenvalues) {_TODO}")
     _no_axis(axis_name)
+    if exit_callback is not None:
+        assert params.record_history, "exit_callback requires record_history"
+    if params.qp_solver == "cg":
+        assert not params.log_qp_eigenvalues, (
+            "qp_solver='cg' is matrix-free: there is no assembled QP Hessian to log eigenvalues of"
+        )
+
+
+def _pack_lin(qp: QP, errors: Errors):
+    """A raw linearization as the carry's tuple of batched leaves."""
+    return (qp.G, qp.c, qp.A_eq, qp.b_eq, qp.ineq_a, qp.ineq_b, errors.f, errors.equality)
+
+
+def _unpack_lin(lin, ineq_var):
+    G, c, A_eq, b_eq, ia, ib, f, eq = lin
+    return QP(G=G, c=c, A_eq=A_eq, b_eq=b_eq, ineq_var=ineq_var, ineq_a=ia, ineq_b=ib), Errors(f=f, equality=eq)
+
+
+def _eigen_summary(G):
+    """(min, max, min |.|) of the eigenvalues of each lane's symmetric G
+    (B, N, N); NaN for a lane whose G is not finite (eigvalsh would refuse
+    the batch)."""
+    bad = ~torch.isfinite(G).all(-1).all(-1)
+    eye = torch.eye(G.shape[-1], dtype=G.dtype, device=G.device)
+    w = torch.linalg.eigvalsh(torch.where(bad[:, None, None], eye, G))
+    w = torch.where(bad[:, None], torch.full_like(w, math.nan), w)
+    return w.amin(-1), w.amax(-1), w.abs().amin(-1)
+
+
+def _callback_proceed(exit_callback, row):
+    """``exit_callback`` of each lane's history row under
+    ``torch.func.vmap``: (B,) bool."""
+    leaves = []
+    tree_map(lambda t: leaves.append(t) or t, row)
+
+    def one(*lane_leaves):
+        it = iter(lane_leaves)
+        return torch.as_tensor(exit_callback(tree_map(lambda t: next(it), row)))
+
+    return vmap(one)(*leaves).to(torch.bool)
 
 
 def _unwrap_lifted(problem, params: NLSParams, retraction, data):
@@ -811,9 +966,19 @@ def nls_solve(
       cg_preconditioner: for ``qp_solver="cg"``, a preconditioner factory
         ``(x, lam) -> (apply: r -> M^-1 r)`` of one instance; overrides
         ``cg_diag_preconditioner`` and owns the damping of its blocks.
+      exit_callback: optional ``f(history_row) -> bool`` of ONE lane, the
+        analog of SetUserExitCallback (nonlinear.hpp:153-157): it gets that
+        lane's row of the iteration history just written (an
+        ``NLSIterationHistory`` whose leaves lack the iteration axis; an
+        empty buffer, such as ``qp_eigenvalues`` when not logged, passes
+        through whole) and returns a bool tensor; False ends a lane still
+        running with ``USER_CALLBACK``. It runs under ``torch.func.vmap``
+        over the batch's rows, as the residuals do, so it must be written
+        in tensor operations: Python control flow on a value (``if
+        row.lam > 1``) cannot run under vmap. Requires ``record_history``.
 
-    ``exit_callback``, ``axis_name`` and ``distributed_cg_preconditioner``
-    keep the JAX signature and raise ``NotImplementedError``.
+    ``axis_name`` and ``distributed_cg_preconditioner`` keep the JAX
+    signature and raise ``NotImplementedError`` (ROADMAP item 9).
 
     Returns an ``NLSResult`` whose every leaf has the leading batch
     dimension.
@@ -884,6 +1049,9 @@ def nls_solve(
             has_eq,
         )
 
+    fuse = params.fuse_probe_linearize
+    ineq_var_t = torch.tensor(ineq_var, dtype=torch.long, device=dev) if fuse else None
+
     def body(carry: _NLSCarry) -> _NLSCarry:
         x, lam, penalty, opt_state, i = carry.x, carry.lam, carry.penalty, carry.opt_state, carry.it
         zero = torch.zeros_like(lam)
@@ -906,7 +1074,13 @@ def nls_solve(
             if has_eq:
                 lagrange_l_inf = l_inf
         else:
-            qp, errors_pre = linearize_and_fill_qp(problem, x, lam, data=data, ineq_var=ineq_var)
+            if fuse:
+                # The accepted probe's linearization, carried from the last
+                # line search (or x0's), damped here.
+                qp_raw, errors_pre = _unpack_lin(carry.lin, ineq_var_t)
+                qp = _damp(qp_raw, lam)
+            else:
+                qp, errors_pre = linearize_and_fill_qp(problem, x, lam, data=data, ineq_var=ineq_var)
             if use_ns:
                 with annotate("ComputeStepDirection"):
                     ns = qp_null_space_solve(qp)
@@ -956,9 +1130,10 @@ def nls_solve(
             )
 
         # --- line search -----------------------------------------------------
-        step_result, candidate, cand_errors, steps = select_step_size(
-            problem, params, x, dx, errors_pre, derivatives, penalty, retraction, data=data
+        ls_out = select_step_size(
+            problem, params, x, dx, errors_pre, derivatives, penalty, retraction, data=data, ineq_var=ineq_var
         )
+        step_result, candidate, cand_errors, steps = ls_out[:4]
 
         # --- lambda update + exit conditions (nonlinear.cc:296-343) ----------
         success = step_result == StepSizeSelectionResult.SUCCESS
@@ -1015,6 +1190,12 @@ def nls_solve(
         x_next = _where_lane(qp_indefinite, x, x_next)
         lam_next = torch.where(qp_indefinite, lam, lam_next)
         state_next = torch.where(qp_indefinite, opt_state, state_next)
+        lin_next = carry.lin
+        if fuse:
+            # Adopt the winning probe's linearization only where its
+            # candidate was adopted; else keep x's.
+            adopt = success & ~qp_indefinite
+            lin_next = tree_map(lambda nv, ov: _where_lane(adopt, nv, ov), _pack_lin(*ls_out[4]), carry.lin)
 
         # --- record history (nonlinear.cc:132-143) ---------------------------
         h = carry.history
@@ -1033,13 +1214,27 @@ def nls_solve(
                 qp_num_iterations=put(h.qp_num_iterations, qp_iters),
                 qp_kkt_final_max=put(h.qp_kkt_final_max, qp_kkt_final),
                 line_search=tree_map(put, h.line_search, steps),
+                qp_eigenvalues=h.qp_eigenvalues,
                 qp_iterations=(
                     tree_map(put, h.qp_iterations, qp_hist_row)
                     if qp_hist_row is not None
                     else h.qp_iterations
                 ),
             )
-        return _NLSCarry(x_next, lam_next, penalty, state_next, i + 1, status, h)
+            if params.log_qp_eigenvalues:
+                h.qp_eigenvalues = QPEigenvalues(
+                    *(put(buf, v) for buf, v in zip(
+                        (h.qp_eigenvalues.min, h.qp_eigenvalues.max, h.qp_eigenvalues.abs_min), _eigen_summary(qp.G)
+                    ))
+                )
+            if exit_callback is not None:
+                # Empty (disabled) buffers pass through whole.
+                row = tree_map(lambda a: _get_row(a, i) if a.shape[1] > 0 else a, h)
+                proceed = _callback_proceed(exit_callback, row)
+                status = torch.where(
+                    (status == NLSTerminationState.NONE) & ~proceed, _i32(NLSTerminationState.USER_CALLBACK, i), status
+                )
+        return _NLSCarry(x_next, lam_next, penalty, state_next, i + 1, status, h, lin_next)
 
     def cond(carry: _NLSCarry):
         return (carry.status == NLSTerminationState.NONE) & (carry.it < params.max_iterations)
@@ -1060,7 +1255,9 @@ def nls_solve(
             dtype,
             dev,
             max_qp_iterations=params.max_qp_iterations if (rec and not use_ns) else 0,
+            with_eigenvalues=params.log_qp_eigenvalues and rec,
         ),
+        lin=_pack_lin(*_linearize_raw(problem, x0, data, ineq_var)) if fuse else None,
     )
     out = bounded_loop(cond, body, init, params.max_iterations, params.early_exit, params.outer_unroll)
     status = torch.where(

@@ -63,10 +63,15 @@ def _cu_sources():
 
 def _flags():
     """NVCC_FLAGS and the sizes the kernels take from the Python side: the
-    register route's largest D of csrc/ldlt.cu (ops/ldlt.py)."""
-    from . import ldlt
+    register route's largest D of csrc/ldlt.cu (ops/ldlt.py) and kernel 6's
+    register caps (ops/fused_qp.py)."""
+    from . import fused_qp, ldlt
 
-    return (*NVCC_FLAGS, f"-DMO_LDLT_REGISTER_MAX_D={ldlt.REGISTER_MAX_D}")
+    return (
+        *NVCC_FLAGS,
+        f"-DMO_LDLT_REGISTER_MAX_D={ldlt.REGISTER_MAX_D}",
+        *(f"-DMO_QP_REGISTER_MAX_N_K{k}={n}" for k, n in enumerate(fused_qp.REGISTER_MAX_N)),
+    )
 
 
 def library_path():
@@ -282,6 +287,22 @@ def load_library():
                 p,  # cudaStream_t
             ]
             lib.mo_fused_qp_launch.restype = i
+            lib.mo_fused_qp_warp_launch.argtypes = [
+                i, i, i, i,  # dtype, N, K, M
+                p,  # the box rows' device table: var[M], ptr[N + 1], idx[M]
+                p, p, p, p, p, p,  # G, c, A_eq, b_eq, ia, ib
+                ctypes.POINTER(ctypes.c_longlong),  # their 14 strides
+                p, p,  # x, y
+                i, i, i,  # B, instances per CTA, iterations
+                ctypes.c_double,  # sigma
+                i, i,  # Mehrotra barrier, equality-constrained initial guess
+                p,  # cudaStream_t
+            ]
+            lib.mo_fused_qp_warp_launch.restype = i
+            lib.mo_fused_qp_warp_occupancy.argtypes = [i, i, i, i, i]  # dtype, N, K, M, instances per CTA
+            lib.mo_fused_qp_warp_occupancy.restype = i
+            lib.mo_fused_qp_warp_slab_bytes.argtypes = [i, i, i, i]  # dtype, N, K, M
+            lib.mo_fused_qp_warp_slab_bytes.restype = ctypes.c_longlong
             lib.mo_pose_ring_scratch_slots.argtypes = [i, i]  # n poses, closures
             lib.mo_pose_ring_scratch_slots.restype = i
             lib.mo_pose_ring_launch.argtypes = [

@@ -1,21 +1,29 @@
 """The whole fixed-trip QP interior point as one kernel, the PyTorch port of
 ``mini_opt_tpu/ops/pallas_qp.py``.
 
-Kernel 6 (``csrc/fused_qp.cuh``, instantiated by ``fused_qp.cu`` and
-``fused_qp_pairs.cu``) replaces the TPU kernel ``pallas_qp.py::_make_qp_kernel``
-(launched at :262 by ``_fused_qp_batch``): for B independent QPs of N
-variables, K equality rows and M <= 2N diagonal box rows it runs the
-equality-constrained initial guess, the condensed-KKT assembly, the fully
-unrolled LDL^T (the helpers of ``csrc/fused_sqp.cuh``),
-fraction-to-boundary and the complementarity or Mehrotra schedule for a
-fixed number of iterations, one instance per thread. N and K are compile-time
-sizes of the kernel (N = 2..8, K in {0, 1}); other sizes raise on CUDA
-tensors. ``qp_route`` picks its route from the box rows' variables: "pairs"
-for the rows every caller in the port passes (a lo and a hi row on each of
-variables 1..N-1, the IK joint limits), which the kernel has at compile
-time, or "any" for any other rows, which it takes as run-time values. The
-kernel reads the caller's batch-major tensors at their own strides and
-writes x (B, N) and y (B, K): a call is one device kernel and no copy.
+Kernel 6 replaces the TPU kernel ``pallas_qp.py::_make_qp_kernel`` (launched
+at :262 by ``_fused_qp_batch``): for B independent QPs of N variables, K
+equality rows and M diagonal box rows it runs the equality-constrained
+initial guess, the condensed-KKT assembly and LDL^T, fraction-to-boundary
+and the complementarity or Mehrotra schedule for a fixed number of
+iterations. It has two routes (``launch_plan``):
+
+* the register route (``csrc/fused_qp.cuh``, instantiated by ``fused_qp.cu``,
+  ``fused_qp_pairs.cu`` and ``fused_qp_k2.cu``), one instance per thread,
+  every loop unrolled over compile-time N and K within the caps
+  ``REGISTER_MAX_N`` (what ptxas keeps free of spills in float, per K =
+  0, 1, 2) and M <= 2N. ``qp_route`` names its two
+  box-row types: "pairs" for the rows every caller in the port passes (a lo
+  and a hi row on each of variables 1..N-1, the IK joint limits), which the
+  kernel has at compile time, or "any" for any other rows, run-time values;
+* the warp route (``csrc/fused_qp_warp.cu``), "warp", for everything past the
+  caps up to D = N + K <= ``WARP_MAX_D``: one warp per instance, its
+  condensed matrix and vectors a slab of the CTA's shared memory, any number
+  of box rows on any variables. Past D = ``WARP_MAX_D`` or one CTA's shared
+  memory the card raises (``_check_cuda_shape``).
+
+Either route reads the caller's batch-major tensors at their own strides
+and writes x (B, N) and y (B, K): a call is one device kernel and no copy.
 
 Beside it sits ``_fused_qp_plain``, the same computation as plain PyTorch on
 lists of ``(B,)`` tensors, a line-by-line counterpart of ``_make_qp_kernel``,
@@ -31,6 +39,8 @@ iteration runs, and no tolerance ends the loop.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -42,9 +52,22 @@ from .fused_ik import _ldlt_apply, _ldlt_factor_unrolled
 # where it launches, and nowhere else.
 FUSED_QP_LAUNCHES = 0
 
-# The kernel's instances (csrc/fused_qp.cu, fused_qp_pairs.cu).
-CUDA_MIN_N, CUDA_MAX_N = 2, 8
-CUDA_K = (0, 1)
+# The register route's caps: REGISTER_MAX_N[K] is the largest N it
+# instantiates with K = 0, 1, 2 equality rows (from N = 1). K = 2 stops at
+# N = 6: ptxas spills the float PairRows instance at N = 7 (144 B) and 8
+# (356 B) and keeps N <= 6 in registers (NVIDIA H100 machine, CUDA 12.9;
+# chip_smoke.py phase 9 prints every instance). K <= 1 keeps the N <= 8 it
+# had. Their one home: ops/_build.py passes them to nvcc
+# (-DMO_QP_REGISTER_MAX_N_K0, _K1, _K2), which instantiates just these.
+REGISTER_MAX_N = (8, 8, 6)
+
+# The warp route (csrc/fused_qp_warp.cu): D = N + K <= WARP_MAX_D, at most
+# WARPS_PER_CTA instances a CTA, fewer where their slabs do not fit
+# MAX_CTA_SMEM.
+WARP_MAX_D = 192
+WARPS_PER_CTA = 4
+MAX_CTA_SMEM = 232_448  # bytes of dynamic shared memory one H100 CTA may hold
+_REGISTER_BLOCK = 32  # threads a CTA on the register route (fused_qp.cuh kBlock)
 
 
 def _fused_qp_plain(Gt, ct, At, bt, iat, ibt, ineq_var, iterations, sigma, barrier, has_eq_guess):
@@ -185,14 +208,69 @@ def _fused_qp_plain(Gt, ct, At, bt, iat, ibt, ineq_var, iterations, sigma, barri
     return x_out, y_out
 
 
-def _check_cuda_shape(N, K, M):
-    if not CUDA_MIN_N <= N <= CUDA_MAX_N or K not in CUDA_K:
+def register_route(N, K, M):
+    """Whether the register route has an instance for N variables, K
+    equality rows and M box rows (fused_qp.cuh ``register_instance``)."""
+    return 0 <= K < len(REGISTER_MAX_N) and 1 <= N <= REGISTER_MAX_N[K] and M <= 2 * N
+
+
+def warp_slab_slots(N, K, M):
+    """Slots of one instance's slab on the warp route
+    (fused_qp_warp.cu ``warp_slab_slots``): the condensed lower triangle
+    (tri(D)), the solution (D), x and r_d (N), y and r_pe (K), and twelve
+    arrays of M."""
+    D = N + K
+    return D * (D + 1) // 2 + D + 2 * N + 2 * K + 12 * M
+
+
+def warp_slab_bytes(N, K, M, dtype):
+    """Bytes of one slab, in whole 16-byte units (``warp_slab_bytes``)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return -(-warp_slab_slots(N, K, M) * size // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Kernel 6's launch for B QPs: the route ("register" or "warp"),
+    instances a CTA, threads a CTA, bytes of shared memory an instance and a
+    CTA (0 on the register route), and the grid."""
+
+    route: str
+    instances_per_cta: int
+    threads: int
+    instance_bytes: int
+    cta_bytes: int
+    grid: int
+
+
+def launch_plan(N, K, M, B, dtype):
+    """Kernel 6's launch for B QPs of N variables, K equality rows and M
+    box rows in ``dtype``: the register route where its caps hold an
+    instance, else the warp route, WARPS_PER_CTA instances a CTA (fewer
+    where their slabs do not fit MAX_CTA_SMEM). Raises NotImplementedError
+    past D = WARP_MAX_D or one CTA's shared memory (the CPU path takes any
+    size)."""
+    if N < 1 or K < 0 or M < 0:
+        raise ValueError(f"a QP needs N >= 1, K >= 0 and M >= 0; got N = {N}, K = {K}, M = {M}")
+    if register_route(N, K, M):
+        return LaunchPlan("register", _REGISTER_BLOCK, _REGISTER_BLOCK, 0, 0, -(-B // _REGISTER_BLOCK))
+    if N + K > WARP_MAX_D:
         raise NotImplementedError(
-            f"csrc/fused_qp.cu instantiates N = {CUDA_MIN_N}..{CUDA_MAX_N} and K in "
-            f"{CUDA_K}; got N = {N}, K = {K}"
+            f"kernel 6 takes N + K <= {WARP_MAX_D} on the card (csrc/fused_qp_warp.cu); got N = {N}, K = {K}"
         )
-    if M > 2 * N:
-        raise NotImplementedError(f"csrc/fused_qp.cu takes at most 2N = {2 * N} box rows; got {M}")
+    slab = warp_slab_bytes(N, K, M, dtype)
+    if slab > MAX_CTA_SMEM:
+        raise NotImplementedError(
+            f"kernel 6's slab for N = {N}, K = {K}, M = {M} in {dtype} ({slab} B) does not fit one CTA's "
+            f"shared memory ({MAX_CTA_SMEM} B)"
+        )
+    warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // slab)
+    return LaunchPlan("warp", warps, 32 * warps, slab, warps * slab, -(-B // warps))
+
+
+def _check_cuda_shape(N, K, M, dtype=torch.float64):
+    """Raise where the card has no route for the QP's size."""
+    launch_plan(N, K, M, 1, dtype)
 
 
 def pair_rows(N):
@@ -202,30 +280,53 @@ def pair_rows(N):
     return tuple(1 + m // 2 for m in range(2 * (N - 1)))
 
 
-def qp_route(N, K, ineq_var):
+def qp_route(N, K, ineq_var, dtype=torch.float64):
     """Kernel 6's route for N variables, K equality rows and the box rows'
-    variables ``ineq_var``: "pairs" where the rows are ``pair_rows(N)`` (the
-    kernel has them at compile time), else "any" (run-time rows). Raises
-    where the kernel has no instance. The launcher makes the same choice
-    from the rows it is given (``fused_qp.cuh::is_pair_rows``); this mirror
-    names the route for labels and tests."""
+    variables ``ineq_var``: on the register route "pairs" where the rows are
+    ``pair_rows(N)`` (the kernel has them at compile time), else "any"
+    (run-time rows); past the register caps "warp". Raises where the card
+    has no route. The launchers make the same choice from the rows they are
+    given (``fused_qp.cuh::is_pair_rows``); this mirror names the route for
+    labels and tests."""
     ineq_var = tuple(ineq_var)
-    _check_cuda_shape(N, K, len(ineq_var))
+    plan = launch_plan(N, K, len(ineq_var), 1, dtype)
     if any(not 0 <= v < N for v in ineq_var):
         raise ValueError(f"ineq_var {ineq_var} out of range for N = {N}")
+    if plan.route == "warp":
+        return "warp"
     return "pairs" if ineq_var == pair_rows(N) else "any"
+
+
+def rows_table(ineq_var, N):
+    """The warp route's table of the box rows, int32: var[M], then ptr[N + 1]
+    and idx[M], the rows of each variable in row order (variable v's rows
+    are idx[ptr[v]:ptr[v + 1]])."""
+    ineq_var = tuple(int(v) for v in ineq_var)
+    M = len(ineq_var)
+    by_var = [[m for m in range(M) if ineq_var[m] == v] for v in range(N)]
+    ptr = [0]
+    for r in by_var:
+        ptr.append(ptr[-1] + len(r))
+    return list(ineq_var) + ptr + [m for r in by_var for m in r]
+
+
+@functools.lru_cache(maxsize=64)
+def _device_rows(ineq_var, N, device):
+    """``rows_table`` on ``device``, copied there once per ineq_var."""
+    return torch.tensor(rows_table(ineq_var, N), dtype=torch.int32, device=device)
 
 
 def _fused_qp_cuda(G, c, A_eq, b_eq, ia, ib, ineq_var, iterations, sigma, barrier, has_eq_guess):
     """Launch kernel 6 on batch-major CUDA tensors at their own strides: G
     (B, N, N) (lower triangle read), c (B, N), A_eq (B, K, N), b_eq (B, K),
-    ia / ib (B, M) -> x (B, N), y (B, K), as ``_fused_qp_plain_batch``.
-    Copies nothing; raises on anything the kernel does not take and on a
-    refused launch."""
+    ia / ib (B, M) -> x (B, N), y (B, K), as ``_fused_qp_plain_batch``, on
+    the route ``launch_plan`` picks. Copies nothing (but the warp route's
+    rows table, once per ineq_var and device); raises on anything the kernel
+    does not take and on a refused launch."""
     global FUSED_QP_LAUNCHES
     B, N = c.shape
     K, M = b_eq.shape[1], len(ineq_var)
-    qp_route(N, K, ineq_var)
+    qp_route(N, K, ineq_var, c.dtype)
     _check_cuda_tensors(
         (
             ("G", G, (B, N, N)), ("c", c, (B, N)), ("A_eq", A_eq, (B, K, N)),
@@ -237,19 +338,23 @@ def _fused_qp_cuda(G, c, A_eq, b_eq, ia, ib, ineq_var, iterations, sigma, barrie
     y = torch.empty((B, K), dtype=c.dtype, device=c.device)
     if B == 0:
         return x, y
-    var = (ctypes.c_int * max(M, 1))(*ineq_var)
+    plan = launch_plan(N, K, M, B, c.dtype)
     strides = (ctypes.c_longlong * 14)(*(v for t in (G, c, A_eq, b_eq, ia, ib) for v in t.stride()))
+    tensors = (G.data_ptr(), c.data_ptr(), A_eq.data_ptr(), b_eq.data_ptr(), ia.data_ptr(), ib.data_ptr(),
+               strides, x.data_ptr(), y.data_ptr(), B)
+    schedule = (iterations, ctypes.c_double(sigma), int(barrier == "mpc"), int(bool(has_eq_guess)))
     lib = _build.load_library()
     with torch.cuda.device(c.device):
-        rc = lib.mo_fused_qp_launch(
-            _CUDA_DTYPE_IDS[c.dtype], N, K, M, var,
-            G.data_ptr(), c.data_ptr(), A_eq.data_ptr(), b_eq.data_ptr(),
-            ia.data_ptr(), ib.data_ptr(), strides, x.data_ptr(), y.data_ptr(), B,
-            iterations, ctypes.c_double(sigma), int(barrier == "mpc"), int(bool(has_eq_guess)),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "register":
+            var = (ctypes.c_int * max(M, 1))(*ineq_var)
+            rc = lib.mo_fused_qp_launch(_CUDA_DTYPE_IDS[c.dtype], N, K, M, var, *tensors, *schedule, stream)
+        else:
+            rows = _device_rows(tuple(ineq_var), N, c.device)
+            rc = lib.mo_fused_qp_warp_launch(_CUDA_DTYPE_IDS[c.dtype], N, K, M, rows.data_ptr(), *tensors,
+                                             plan.instances_per_cta, *schedule, stream)
     if rc != 0:
-        raise RuntimeError(f"fused QP kernel launch failed: {_build.error_string(rc)}")
+        raise RuntimeError(f"fused QP kernel launch failed ({plan.route} route): {_build.error_string(rc)}")
     FUSED_QP_LAUNCHES += 1
     return x, y
 

@@ -61,6 +61,7 @@ from .fused_ik import _ldlt_apply, _ldlt_bad, _ldlt_factor_unrolled
 KERNEL_LAUNCHES = 0  # kernel 8, one MPC period
 SERVO_LAUNCHES = 0  # kernel 9, the receding-horizon loop
 
+NX = 4  # cart-pole state dimension (the default family)
 _TAU_FTB = 0.995
 _DBG_CHANNELS = 7  # f, eq, penalty, lam, dd, accepted, alpha
 

@@ -603,6 +603,36 @@ def qp_ip_solve(
     )
 
 
+def build_full_kkt_system(qp: QP, x, s, y, z):
+    """Dense (N + 2M + K) Newton system of eq 19.12 of ONE instance, the
+    brute-force test oracle (analog of BuildFullSystem, qp.cc:595-655):
+    ``qp``'s leaves without the batch axis (G (N, N), c (N,), A_eq (K, N),
+    b_eq (K,), ineq_var, ineq_a and ineq_b (M,)), the iterate x (N,), s and
+    z (M,), y (K,). Returns (H, r) with the step ordered [p_x; p_s; -p_y;
+    -p_z] and mu = 0, as the JAX package's. Vmappable over a batch."""
+    N, M, K = qp.N, qp.M, qp.K
+    kw = dict(dtype=qp.G.dtype, device=qp.G.device)
+
+    def zeros(r, c):
+        return torch.zeros((r, c), **kw)
+
+    A_i = (torch.arange(N, device=qp.G.device)[None, :] == qp.ineq_var[:, None]).to(qp.G.dtype) * qp.ineq_a[:, None]
+    eye_m = torch.eye(M, **kw)
+    H = torch.cat([
+        torch.cat([qp.G, zeros(N, M), qp.A_eq.T, A_i.T], 1),
+        torch.cat([zeros(M, N), torch.diag(z / s), zeros(M, K), -eye_m], 1),
+        torch.cat([qp.A_eq, zeros(K, M + K + M)], 1),
+        torch.cat([A_i, -eye_m, zeros(M, K + M)], 1),
+    ], 0)
+    r_d = qp.G @ x + qp.c
+    if K > 0:
+        r_d = r_d - qp.A_eq.T @ y
+    if M > 0:
+        r_d = r_d - A_i.T @ z
+    r = torch.cat([r_d, z, qp.A_eq @ x + qp.b_eq, A_i @ x + qp.ineq_b - s])
+    return H, r
+
+
 # ---------------------------------------------------------------------------
 # Null-space solver.
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ int32 status produced by either package compares directly with the other's.
 The containers are dataclasses of batched tensors: every leaf carries the
 leading batch dimension B that JAX's ``vmap`` gives the same leaf, so
 ``result.iterations.line_search.alpha`` is ``(B, iterations, probes)`` in
-both packages. ``QPEigenvalues`` is not ported yet (``log_qp_eigenvalues``
-raises), so ``NLSIterationHistory`` has no ``qp_eigenvalues`` field.
+both packages. The string renderers (``qp_iteration_to_string``,
+``nls_result_to_string``) take one lane, what ``tree_map(lambda t: t[i],
+result)`` gives, as the JAX package's take one unbatched result;
+``summarize_counts`` takes the batch.
 """
 
 from __future__ import annotations
@@ -286,10 +288,22 @@ class LineSearchHistory:
 
 
 @dataclasses.dataclass
+class QPEigenvalues:
+    """Eigenvalue summary of the QP Hessian G (structs.hpp:267-274), per
+    iteration: ``(B, max_iterations)``, or ``(B, 0)`` unless
+    ``log_qp_eigenvalues``."""
+
+    min: torch.Tensor
+    max: torch.Tensor
+    abs_min: torch.Tensor
+
+
+@dataclasses.dataclass
 class NLSIterationHistory:
     """Stacked analog of vector<NLSIteration> (structs.hpp:277-326). Leaves
     are ``(B, max_iterations)``; line-search leaves ``(B, max_iterations,
-    max_steps)``; the nested QP telemetry ``(B, max_iterations,
+    max_steps)``; ``qp_eigenvalues`` ``(B, max_iterations)`` or ``(B, 0)``
+    unless logged; the nested QP telemetry ``(B, max_iterations,
     max_qp_iterations)``, with a zero-size last axis when not recorded
     (null-space path, fused QP, history off)."""
 
@@ -303,6 +317,7 @@ class NLSIterationHistory:
     qp_num_iterations: torch.Tensor  # int32
     qp_kkt_final_max: torch.Tensor
     line_search: LineSearchHistory
+    qp_eigenvalues: QPEigenvalues
     qp_iterations: QPIterationHistory
 
     @staticmethod
@@ -313,6 +328,7 @@ class NLSIterationHistory:
         dtype=torch.float64,
         device=None,
         max_qp_iterations=0,
+        with_eigenvalues=False,
     ) -> "NLSIterationHistory":
         kw = dict(dtype=dtype, device=device)
 
@@ -336,6 +352,9 @@ class NLSIterationHistory:
             qp_num_iterations=i(),
             qp_kkt_final_max=v(),
             line_search=LineSearchHistory(ls(), ls(), ls(), i()),
+            qp_eigenvalues=QPEigenvalues(*(
+                torch.zeros((batch, max_iterations if with_eigenvalues else 0), **kw) for _ in range(3)
+            )),
             qp_iterations=QPIterationHistory.empty(
                 (batch, max_iterations, max_qp_iterations), **kw
             ),
@@ -374,3 +393,140 @@ class NLSResult:
             | (sr == StepSizeSelectionResult.FAILURE_INVALID_ALPHA)
         )
         return (valid & failed).sum(-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Human-readable rendering (host side; analog of structs.cc ToString).
+# ---------------------------------------------------------------------------
+
+_GREEN = "\x1b[32m"
+_RED = "\x1b[31m"
+_RESET = "\x1b[0m"
+
+
+def _color(text: str, good: bool, use_color: bool) -> str:
+    if not use_color:
+        return text
+    return f"{_GREEN if good else _RED}{text}{_RESET}"
+
+
+def qp_iteration_to_string(history: QPIterationHistory, i: int) -> str:
+    """Render interior-point iteration ``i`` of ONE lane's QP history
+    (leaves ``(max_qp_iterations,)``; structs.cc:122-148 analog)."""
+    ki, kf = history.kkt_initial, history.kkt_final
+
+    def _row(k: KKTError) -> str:
+        return (
+            f"dual={float(k.r_dual[i]):.3e} comp={float(k.r_comp[i]):.3e} "
+            f"p_eq={float(k.r_primal_eq[i]):.3e} p_ineq={float(k.r_primal_ineq[i]):.3e}"
+        )
+
+    lines = [
+        f"QP iteration {i}: mu={float(history.mu[i]):.3e} "
+        f"alpha_p={float(history.alpha.primal[i]):.4f} "
+        f"alpha_d={float(history.alpha.dual[i]):.4f}",
+        f"  kkt initial: {_row(ki)}",
+        f"  kkt final:   {_row(kf)}",
+    ]
+    mu_aff = float(history.mu_affine[i])
+    if mu_aff != 0.0 and mu_aff == mu_aff:  # computed (predictor-corrector)
+        lines.append(f"  mu_affine={mu_aff:.3e}")
+    return "\n".join(lines)
+
+
+def summarize_counts(batched_result: "NLSResult") -> dict:
+    """Aggregate iteration statistics over a batched solve (mean, median,
+    p95 and max over the lanes of the iterations, QP iterations,
+    line-search steps and failed line searches); analog of the reference
+    tests' StatCounters/SummarizeCounts (nonlinear_test.cc:350-373)."""
+    import numpy as np
+
+    def host(t):
+        return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+    r = batched_result
+    iters = host(r.num_iterations)
+    qp_iters = host(r.iterations.qp_num_iterations).sum(axis=-1)
+    ls_steps = host(r.iterations.line_search.num_steps).sum(axis=-1)
+    sr = host(r.iterations.step_result)
+    valid = np.arange(sr.shape[-1])[None, :] < iters[..., None]
+    failed_codes = (
+        StepSizeSelectionResult.MAX_ITERATIONS,
+        StepSizeSelectionResult.FAILURE_NON_FINITE_COST,
+        StepSizeSelectionResult.FAILURE_INVALID_ALPHA,
+    )
+    failed_ls = (np.isin(sr, failed_codes) & valid).sum(axis=-1)
+
+    def stats(v):
+        v = np.asarray(v, np.float64).ravel()
+        return {
+            "mean": float(v.mean()),
+            "median": float(np.median(v)),
+            "p95": float(np.quantile(v, 0.95)),
+            "max": float(v.max()),
+        }
+
+    return {
+        "num_iterations": stats(iters),
+        "num_qp_iterations": stats(qp_iters),
+        "num_line_search_steps": stats(ls_steps),
+        "num_failed_line_searches": stats(failed_ls),
+    }
+
+
+def nls_result_to_string(result: NLSResult, use_color: bool = False, include_qp: bool = False) -> str:
+    """Render ONE lane's solve history (``tree_map(lambda t: t[i],
+    batched_result)``); analog of NLSSolverOutputs::ToString
+    (structs.cc:238-268)."""
+    n = int(result.num_iterations)
+    term = NLSTerminationState(int(result.termination_state))
+    good = bool(termination_state_indicates_satisfied_tol(result.termination_state))
+    out = [
+        _color(f"Terminated with state: {term.name}", good, use_color),
+        f"Iterations: {n}, total QP iterations: {int(result.num_qp_iterations())}, "
+        f"line-search steps: {int(result.num_line_search_steps())}, "
+        f"failed line searches: {int(result.num_failed_line_searches())}",
+    ]
+    it = result.iterations
+    for i in range(n):
+        step = StepSizeSelectionResult(int(it.step_result[i]))
+        state = OptimizerState(int(it.optimizer_state[i]))
+        out.append(
+            f"iter={i} state={state.name} lambda={float(it.lam[i]):.3e} "
+            f"f={float(it.errors_initial.f[i]):.6e} "
+            f"|eq|={float(it.errors_initial.equality[i]):.6e} "
+            f"penalty={float(it.penalty[i]):.3e} "
+            f"df={float(it.directional_derivatives.d_f[i]):.3e} "
+            f"deq={float(it.directional_derivatives.d_equality[i]):.3e} "
+            f"step={_color(step.name, step == StepSizeSelectionResult.SUCCESS, use_color)}"
+        )
+        for j in range(int(it.line_search.num_steps[i])):
+            out.append(
+                f"    alpha={float(it.line_search.alpha[i, j]):.6f} "
+                f"f={float(it.line_search.f[i, j]):.6e} "
+                f"|eq|={float(it.line_search.equality[i, j]):.6e}"
+            )
+        if include_qp:
+            variant = QPSolverVariant(int(getattr(result, "solver_variant", 0)))
+            if variant == QPSolverVariant.NULL_SPACE:
+                ns = QPNullSpaceTerminationState(int(it.qp_termination_state[i]))
+                out.append(f"    qp (null-space): {ns.name}")
+            elif variant == QPSolverVariant.MATRIX_FREE_CG:
+                # No nested per-QP rows: qp_num_iterations is the fixed CG
+                # trip count.
+                cg_term = QPTerminationState(int(it.qp_termination_state[i]))
+                out.append(f"    cg (matrix-free): term={cg_term.name} iters={int(it.qp_num_iterations[i])}")
+            else:
+                qp_term = QPTerminationState(int(it.qp_termination_state[i]))
+                out.append(
+                    f"    qp: term={qp_term.name} "
+                    f"iters={int(it.qp_num_iterations[i])} "
+                    f"kkt_final_max={float(it.qp_kkt_final_max[i]):.3e}"
+                )
+                # The nested per-QP-iteration rows when recorded
+                # (structs.cc:159-206).
+                if it.qp_iterations.mu.shape[-1] > 0:
+                    row = tree_map(lambda a: a[i], it.qp_iterations)
+                    for j in range(int(it.qp_num_iterations[i])):
+                        out.extend("    " + ln for ln in qp_iteration_to_string(row, j).split("\n"))
+    return "\n".join(out)

@@ -10,9 +10,10 @@ checks. No JAX; every case takes well under a second.
   contiguous feature-major copies bit for bit, at N = 2..8, K = 0 and 1,
   both barriers, on box rows M = 0, the general path's pairs, repeated
   variables and 2N rows.
-* ``qp_route``: "pairs" exactly for ``pair_rows(N)``, "any" for every other
-  row pattern, and a raise for N, K, M or a variable the kernel does not
-  take, at every N and K around the instances.
+* ``qp_route``: on the register route "pairs" exactly for ``pair_rows(N)``
+  and "any" for every other row pattern; "warp" past the register caps
+  (``REGISTER_MAX_N``) or past 2N rows; a raise for a variable out of
+  range, at every N and K around the caps.
 * The CUDA wrappers raise on CPU tensors, wrong shapes, dtypes and
   out-of-range rows before touching a device.
 * ``fused_ik_solve_batch`` on strided batch-major CPU tensors equals the
@@ -95,24 +96,22 @@ def test_fused_qp_batch_reads_strided_batch_major(N, K, barrier):
 @pytest.mark.parametrize("K", [0, 1, 2])
 @pytest.mark.parametrize("N", [1, 2, 3, 4, 5, 6, 7, 8, 9])
 def test_qp_route_chooser(N, K):
-    inside = 2 <= N <= 8 and K in (0, 1)
+    register = N <= fq.REGISTER_MAX_N[K]
     patterns = dict(_row_patterns(max(N, 1)))
     patterns["pairs_reversed_with_x0"] = (0,) + fq.pair_rows(N)[::-1]
     for name, var in patterns.items():
-        if not inside:
-            with pytest.raises(NotImplementedError):
-                fq.qp_route(N, K, var)
+        if not (register and len(var) <= 2 * N):
+            assert fq.qp_route(N, K, var) == "warp", name
             continue
         want = "pairs" if var == tuple(1 + m // 2 for m in range(2 * (N - 1))) else "any"
         assert fq.qp_route(N, K, var) == want, name
-    if inside:
+    if register:
         assert fq.qp_route(N, K, fq.pair_rows(N)) == "pairs"
-        with pytest.raises(NotImplementedError):
-            fq.qp_route(N, K, (0,) * (2 * N + 1))  # more rows than 2N
-        with pytest.raises(ValueError):
-            fq.qp_route(N, K, (N,))  # a variable past N - 1
-        with pytest.raises(ValueError):
-            fq.qp_route(N, K, (-1,))
+    assert fq.qp_route(N, K, (0,) * (2 * N + 1)) == "warp"  # more rows than 2N
+    with pytest.raises(ValueError):
+        fq.qp_route(N, K, (N,))  # a variable past N - 1
+    with pytest.raises(ValueError):
+        fq.qp_route(N, K, (-1,))
 
 
 def test_fused_qp_cuda_wrapper_checks_its_arguments():
@@ -123,10 +122,11 @@ def test_fused_qp_cuda_wrapper_checks_its_arguments():
     sched = (6, 0.1, "complementarity", True)
     with pytest.raises(ValueError, match="on"):
         fq._fused_qp_cuda(G, c, A, b, ia, ib, var, *sched)  # CPU tensors
-    with pytest.raises(NotImplementedError):
-        fq._fused_qp_cuda(G[:, :1, :1], c[:, :1], A[:, :, :1], b, ia[:, :0], ib[:, :0], (), *sched)  # N = 1
-    with pytest.raises(NotImplementedError):
-        fq._fused_qp_cuda(G, c, torch.cat([A, A], 1), torch.cat([b, b], 1), ia, ib, var, *sched)  # K = 2
+    big = lambda n, k: tuple(torch.zeros(s, dtype=torch.float64) for s in ((B, n, n), (B, n), (B, k, n), (B, k)))  # noqa: E731
+    with pytest.raises(NotImplementedError, match="192"):
+        fq._fused_qp_cuda(*big(192, 1), ia[:, :0], ib[:, :0], (), *sched)  # D = 193
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        fq._fused_qp_cuda(*big(150, 1), ia[:, :1].expand(B, 3000), ib[:, :1].expand(B, 3000), (0,) * 3000, *sched)
     with pytest.raises(ValueError, match="out of range"):
         fq._fused_qp_cuda(G, c, A, b, ia, ib, (1, 1, 2, 3), *sched)
     with pytest.raises(ValueError, match="columns"):

@@ -223,16 +223,9 @@ NOT_PORTED = {
     "cg": (dict(qp_solver="cg"), dict(axis_name="mp"), NotImplementedError, "item 9"),
     "cg_distributed_preconditioner": (
         dict(qp_solver="cg"), dict(distributed_cg_preconditioner=True), NotImplementedError, "item 9"),
-    "parallel_line_search": (
-        dict(parallel_line_search=True, line_search_strategy=port.LineSearchStrategy.ARMIJO_BACKTRACK), {}
-    ),
-    "fuse_probe_linearize": (
-        dict(parallel_line_search=True, fuse_probe_linearize=True,
-             line_search_strategy=port.LineSearchStrategy.ARMIJO_BACKTRACK), {},
-    ),
-    "log_qp_eigenvalues": (dict(log_qp_eigenvalues=True), {}),
-    "exit_callback": ({}, dict(exit_callback=lambda row: True)),
-    "axis_name": ({}, dict(axis_name="mp")),
+    # parallel_line_search, fuse_probe_linearize, log_qp_eigenvalues and
+    # exit_callback are ported since (tests/test_torch_general_rest*.py).
+    "axis_name": ({}, dict(axis_name="mp"), NotImplementedError, "item 9"),
     # Ported since: the Riccati backend now runs and refuses a condensed
     # system that is not a horizon-4 MPC transcription.
     "riccati": (dict(kkt_solver="riccati:4:2:1"), {}, ValueError, "expects a"),
@@ -264,10 +257,21 @@ def test_params_keep_the_jax_assertions():
         QPInteriorPointParams(kkt_solver="cholesky")
 
 
-def test_fused_qp_kernel_sizes_are_checked():
-    """The CUDA wrapper refuses sizes the kernel has no instance for, before
-    it touches a device."""
-    for N, K, M in ((9, 1, 2), (1, 1, 0), (4, 2, 2), (3, 0, 7)):
-        with pytest.raises(NotImplementedError):
-            fq._check_cuda_shape(N, K, M)
-    fq._check_cuda_shape(8, 1, 16)
+@pytest.mark.parametrize("N, K, M, dtype, refused", [
+    (192, 1, 0, torch.float32, "N \\+ K <= 192"),  # D = 193, past the warp route
+    (200, 0, 2, torch.float64, "N \\+ K <= 192"),
+    (150, 1, 3000, torch.float64, "shared memory"),  # one instance's slab past a CTA
+    (191, 1, 4000, torch.float32, "shared memory"),
+    (8, 1, 16, torch.float64, None),  # the register route's largest K = 1 instance
+    (1, 2, 2, torch.float32, None),  # N = 1 and K = 2 on the register route
+    (9, 1, 2, torch.float32, None),  # the warp route from here
+    (191, 1, 380, torch.float64, None),  # D = 192 fits one CTA in float64
+])
+def test_fused_qp_kernel_sizes_are_checked(N, K, M, dtype, refused):
+    """The CUDA wrapper refuses sizes the card has no route for, naming the
+    limit, before it touches a device; every size within them has a route."""
+    if refused is None:
+        fq._check_cuda_shape(N, K, M, dtype)
+    else:
+        with pytest.raises(NotImplementedError, match=refused):
+            fq._check_cuda_shape(N, K, M, dtype)
