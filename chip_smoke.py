@@ -8,9 +8,10 @@ checkout; imports torch, numpy and the port, never jax or mini_opt_tpu.
 Phases, each of which exits non-zero on failure:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> exit 1;
-2. build csrc/ with nvcc for sm_90a, print the build seconds and kernel
-   1's ptxas registers, spill stores and stack frame per instance (planar
-   and spatial, n = 2..8, float and double);
+2. build csrc/ with nvcc for sm_90a and, beside it, the hand-written
+   kernel-1 instances phases 3-4 and 35 launch (one nvcc each,
+   csrc/fused_ik.cu at one family, n and type); print the build seconds and each kernel-1
+   instance's ptxas registers, spill stores, stack frame and build seconds;
 3. the kernel against its plain PyTorch version on batch-major card
    tensors, bit for bit in float64 and float32, flags and history included
    (the kernel's parity printed beside): at B = 8192 + 13 (a ragged
@@ -310,9 +311,9 @@ Phases, each of which exits non-zero on failure:
    Mehrotra + Armijo) on the general path, solve_ik_batch(qp_solver=
    "pallas_fused") at B = 8192 in float32: one kernel-6 launch (the warp
    route) per outer iteration and nothing else, parity beside the blocked
-   tier's on the same rows (phase 7), bit for bit against the same call
-   with the plain kernels, ms and device kernels a call, kernel 6 alone
-   (held), its bound and its plain version;
+   tier's on the same rows (phase 7), kernel 6 on the call's last QPs bit
+   for bit against its plain version, ms a call, kernel 6 alone (held),
+   its bound and its plain version;
 38. bench.py --general's cell (planar n = 2, 10/6/2, complementarity,
    Armijo, B = 8192, float32) on both QP routes with the sequential, the
    parallel and the parallel + fused-probe line search: launches, parity
@@ -325,9 +326,38 @@ Phases, each of which exits non-zero on failure:
    the stopped lanes USER_CALLBACK, lane 0 through JSON and the batch
    through npz exactly, one device_profile trace holding the solver's
    phases;
-40. the kernel line (this slice's launches in the rows of kernels 4, 5 and
-   6, the earlier slices' in theirs), the seconds of each phase, then the
-   device line as the last line of stdout.
+40. kernel 1 at n = 1, 9, 16, 24 and 31, planar and spatial, float64 and
+   float32 (their twenty instances built first, on every core, so that no
+   build runs beside the host-timed phases before), against its plain version bit for bit at B = 8192 + 13 (a
+   NaN-target and a NaN-start lane), B = 1 and on strided inputs (the
+   smaller batches against the same plain call's lanes); then planar
+   n = 31 (D = 32) through fused_ik_solve_batch at B = 8192, float32, the
+   arm's instances and budget 6/3/2: one launch, parity on the first 256
+   lanes at least the float64 CPU plain version's there (phase 1's
+   workers), bit for bit, kernel ms (held), one device kernel a call (a CUDA
+   graph of one call), the plain version's ms and the bound;
+41. kernel 2 on the spatial chain (families.cuh SpatialChain) at n = 33 and
+   48, both types, bit for bit at B = 2055 (a NaN lane), 1 and W + 1; then
+   the spatial arm n = 48 (D = 49) through fused_spatial_ik_solve_batch at
+   B = 8192, float32, 6/3/2, gated and timed as phase 40's cell;
+42. kernel 2's global route (each warp's slab in a global scratch) bit for
+   bit at planar n = 192 and 255 (float32), 162 and 200 (float64), and on
+   the generated pose chain N = 72 + two closures (D = 216) in both types,
+   B = GLOBAL_SLABS + 7 (seven warps solve two instances each) at 2/1/1;
+   then planar n = 255 (D = 256) through fused_ik_solve_batch at B = 8192,
+   float32, 6/3/2, gated and timed as phase 40's cell;
+43. kernel 7's run-time route (the schedule a device table, the 3k x 3k
+   Schur system in the slab) bit for bit in both types on topology (i)
+   (N = 64, borders {0, 8, ..., 56}, the 21 closures spanning at least 16
+   poses: k = 8), (ii) (N = 96, a closure every 8 poses: k = 12, 11
+   closures) and (iii) ((i) plus three closures to pose 63: k = 9, 24
+   closures) at B = 1037 (a NaN-measurement and a NaN-start lane), 1 and
+   W + 1; then (i) and (ii) through solve_pose_graph_rings at B = 8192,
+   float32, 6/2: one launch, converged share at least 0.99, bit for bit,
+   timed as phase 40's cell;
+44. the kernel line (this slice's cells in the rows of kernels 1, 2 and 7,
+   the earlier slices' launches in theirs), the seconds of each phase, then
+   the device line as the last line of stdout.
 
 The 10,000-pose scale point and the sparse bundle adjustment (64 x 8,192,
 4 cameras a landmark) run in scripts/cg_path_times.py, not here.
@@ -341,7 +371,8 @@ and kernels 8-9 (phases 18-19) are held bit for bit in both types, and so
 is kernel 1, hand-written (phases 3-4) and generated (phases 22-23), and
 the generated pose instances of kernels 1 and 2 (phases 26-27) and the
 generated instances of kernel 2 with a retract (phase 32), and kernel 6's
-new routes and the arm on the general path (phases 36-37). The CG path
+new routes and the arm on the general path (phases 36-37), and every new
+size and route of kernels 1, 2 and 7 (phases 40-43). The CG path
 (phases 29-31) runs no kernel: float32 on the card against float64 on the
 CPU, CG_F_GATE on the final cost and CG_X_GATE on the drift or landmark
 error, each set from the readings in PERF.md §6. Phases 33-34
@@ -381,6 +412,7 @@ from mini_opt_tpu_torch.instances import (
     planar_instances,
     quadrotor_mpc_instances,
     ring_instances,
+    spatial_fk,
     spatial_instances,
 )
 from mini_opt_tpu_torch.models import mpc as mpcm
@@ -672,14 +704,13 @@ def check_blocked(tag, got, want, max_err, nan_lanes=()):
 
 def plan_bounds():
     """(the largest n whose float64 plan keeps more than one warp per CTA,
-    the largest n of each type's plan): where W falls to 1 and the sizes
-    past which kernel 2 raises."""
+    the largest n of each type's shared-memory plan): where W falls to 1 and
+    the sizes past which kernel 2 takes its global route."""
     last, wide = {}, None
     for dtype in (torch.float64, torch.float32):
         for n in range(33, 400):
-            try:
-                plan = blk.launch_plan(blk.planar_slab_shape(n), 1, dtype)
-            except ValueError:
+            plan = blk.launch_plan(blk.planar_slab_shape(n), 1, dtype)
+            if plan.storage != "shared":  # phase 42 takes the global route
                 break
             last[dtype] = n
             if dtype == torch.float64 and plan.warps > 1:
@@ -887,7 +918,7 @@ def blocked_paths(card, kind):
     plans = []
     for dtype in (torch.float32, torch.float64):
         plan = blk.launch_plan(blk.planar_slab_shape(ARM_N), B, dtype)
-        ctas = lib.mo_blocked_occupancy(0, ARM_N, blk._CUDA_DTYPE_IDS[dtype], plan.warps)
+        ctas = lib.mo_blocked_occupancy(0, ARM_N, blk._CUDA_DTYPE_IDS[dtype], plan.warps, 0)
         if ctas < 1:
             fail(f"phase8: occupancy query for n={ARM_N} {dtype} returned {ctas}")
         plans.append(f"{str(dtype).replace('torch.', '')}: {plan.warps} warps/CTA, {plan.rows_per_lane} rows/lane, "
@@ -1570,14 +1601,11 @@ def ring_vs_plain(max_err):
     # the script's depth: each plain call costs its operations, not its B).
     cases += [(name, n, cl, bud, lambda dt: 1037, nan, (torch.float64, torch.float32)[k % 2])
               for k, (name, n, cl, bud) in enumerate(RING_EXTRA_CASES)]
-    cases += [
-        ("ring N=16 6/2, one graph", RING_N, None, RING_BUDGET, lambda dt: 1, (), None),
-        ("ring N=16 6/2, B = W + 1", RING_N, None, RING_BUDGET, ragged, (), None),
-    ]
     for dtype in (torch.float64, torch.float32):
         n = global_ring_n(dtype)
-        cases.append((f"ring N={n} 2/1 (the smallest global-route N in {str(dtype).replace('torch.', '')})", n,
-                      None, (2, 1), lambda dt: 67, nan, dtype))
+        # 1/1 (slice 17 cut it from 2/1: the plain call costs N's operations).
+        cases.append((f"ring N={n} 1/1 (the smallest global-route N in {str(dtype).replace('torch.', '')})", n,
+                      None, (1, 1), lambda dt: 67, nan, dtype))
     for name, n, closures, (iters, ls), batch, nan_lanes, only in cases:
         for dtype in (torch.float64, torch.float32) if only is None else (only,):
             B = batch(dtype)
@@ -1595,6 +1623,13 @@ def ring_vs_plain(max_err):
             plan = pr.launch_plan(n, len(fam.closure_list), B, dtype)
             check_ring(f"phase14 {name} B={B} ({plan.storage}, {plan.warps} graphs/CTA)", got, want, max_err,
                        nan_lanes)
+            if name == RING_CASES[0][0]:
+                # One graph and a ragged last CTA (W + 1 graphs), against
+                # the same plain call's lanes: every lane's arithmetic is
+                # its own (slice 17 cut the two plain calls of their own).
+                for label, Bs in (("one graph", 1), ("B = W + 1", ragged(dtype))):
+                    one = pr._pose_ring_cuda(fam, d_t[:, :Bs].contiguous(), x_t[:, :Bs].contiguous(), iters, ls)
+                    check_ring(f"phase14 {name}, {label} B={Bs}", one, tuple(t[:, :Bs] for t in want), max_err)
 
 
 def ring_plan_lines():
@@ -1839,40 +1874,33 @@ def check_mpc(tag, got, want, flag_row, max_err, nan_lanes=()):
 def mpc_vs_plain(err8, err9):
     """Phase 18: kernels 8 and 9 against their plain versions, bit for bit."""
     B = 8192 + 13
-    solves = [("cart-pole T=20 8/3/2", "cartpole", MPC_COLD, False),
+    # One instance and a ragged last CTA (W + 1 instances for W warps per
+    # CTA) at the main path's budgets run against the first lanes of the
+    # same plain call (its lanes are independent, and a plain call costs its
+    # operations, not B; slice 17 cut the plain calls of their own).
+    solves = [("cart-pole T=20 8/3/2 +history", "cartpole", MPC_COLD, True),
               ("cart-pole T=20 2/2/1 +history", "cartpole", (2, 2, 1), True),
-              ("quadrotor T=12 8/3/2", "quadrotor", MPC_COLD, False)]
+              ("quadrotor T=12 8/3/2 +history", "quadrotor", MPC_COLD, True)]
     for name, kind, bud, hist in solves:
         for dtype in (torch.float64, torch.float32):
             fam, x_t, z_t = mpc_inputs(kind, B, 1, dtype, poison=True)
-            solve_vs_plain(f"phase18 kernel 8 {name} B={B}", fam, x_t, z_t, bud, hist, err8, (5, 9))
+            want = pm._mpc_plain(fam, x_t, z_t, *bud, hist)
+            solve_vs_plain(f"phase18 kernel 8 {name} B={B}", fam, x_t, z_t, bud, hist, err8, (5, 9), want=want)
+            if bud == MPC_COLD:
+                for Bs in (1, pm.launch_plan(fam, 1, dtype).warps + 1):
+                    solve_vs_plain(f"phase18 kernel 8 {name} B={Bs}", fam, x_t[:, :Bs].contiguous(),
+                                   z_t[:, :Bs].contiguous(), bud, hist, err8,
+                                   want=tuple(w[..., :Bs] for w in want))
     servos = [("cart-pole T=20 1/1/1 x 8 periods", "cartpole", MPC_SERVO),
               ("quadrotor T=12 2/1/1 x 8 periods", "quadrotor", QUAD_SERVO)]
     for name, kind, bud in servos:
         for dtype in (torch.float64, torch.float32):
             fam, x_t, z_t = mpc_inputs(kind, B, 2, dtype, poison=True)
-            servo_vs_plain(f"phase18 kernel 9 {name} B={B}", fam, x_t, z_t, 8, bud, err9, (5, 9))
-
-    # One instance, and a ragged last CTA (W + 1 instances for W warps per
-    # CTA), on both plants at the main path's budgets. The kernels run each
-    # batch; the plain versions, whose lanes are independent and whose cost
-    # is their operations' count, not B, run once on both batches' lanes.
-    for kind, bud9 in (("cartpole", MPC_SERVO), ("quadrotor", QUAD_SERVO)):
-        for dtype in (torch.float64, torch.float32):
-            sizes = (1, pm.launch_plan(mpc_family(kind), 1, dtype).warps + 1)
-            inputs = [mpc_inputs(kind, Bs, 3, dtype) for Bs in sizes]
-            fam = inputs[0][0]
-            x_all, z_all = (torch.cat([inp[i] for inp in inputs], 1) for i in (1, 2))
-            want8 = pm._mpc_plain(fam, x_all, z_all, *MPC_COLD, True)
-            want9 = pm._mpc_servo_plain(fam, x_all, z_all, 8, *bud9)
-            lo = 0
-            for Bs, (_, x_t, z_t) in zip(sizes, inputs):
-                lanes = slice(lo, lo + Bs)
-                solve_vs_plain(f"phase18 kernel 8 {kind} 8/3/2 +history B={Bs}", fam, x_t, z_t, MPC_COLD, True, err8,
-                               want=tuple(w[..., lanes] for w in want8))
-                servo_vs_plain(f"phase18 kernel 9 {kind} {bud9} x 8 periods B={Bs}", fam, x_t, z_t, 8, bud9, err9,
-                               want=tuple(w[..., lanes] for w in want9))
-                lo += Bs
+            want = pm._mpc_servo_plain(fam, x_t, z_t, 8, *bud)
+            servo_vs_plain(f"phase18 kernel 9 {name} B={B}", fam, x_t, z_t, 8, bud, err9, (5, 9), want=want)
+            for Bs in (1, pm.launch_plan(fam, 1, dtype).warps + 1):
+                servo_vs_plain(f"phase18 kernel 9 {name} B={Bs}", fam, x_t[:, :Bs].contiguous(),
+                               z_t[:, :Bs].contiguous(), 8, bud, err9, want=tuple(w[..., :Bs] for w in want))
 
     # The global-scratch route (float64) and one warp per CTA (float32).
     for dtype, storage in ((torch.float64, "global"), (torch.float32, "shared")):
@@ -2436,7 +2464,8 @@ def pose_report(poses, emit_s, build_s, paths):
             lib = fam.cuda_program.blocked_library()
             for dtype in (torch.float32, torch.float64):
                 plan = blk.launch_plan(blk.slab_shape(fam), POSE_B, dtype)
-                ctas = lib.mo_generated_blocked_occupancy(blk._CUDA_DTYPE_IDS[dtype], plan.warps)
+                ctas = lib.mo_generated_blocked_occupancy(blk._CUDA_DTYPE_IDS[dtype], plan.warps,
+                                                          int(plan.storage == "global"))
                 if ctas < 1:
                     fail(f"phase25 {name}: occupancy query for {dtype} returned {ctas}")
                 lib_occ[(N, dtype)] = ctas
@@ -3512,26 +3541,28 @@ def qp6_new_routes(max_err):
     for label, N, K, var, source in qp6_cases():
         for dtype in (torch.float64, torch.float32):
             plan = fq.launch_plan(N, K, len(var), 1037, dtype)
-            batches = [(1037, b) for b in ("complementarity", "mpc")]
             w = plan.instances_per_cta if plan.route == "warp" else 32
             small = "complementarity" if dtype == torch.float64 else "mpc"
-            if N < ARM_N:  # at N = 48 the plain version costs 3 s a call; N = 9 and 16 cover the warp route's edges
-                batches += [(1, small), (w + 1, small)]
-            for B, barrier in batches:
-                ts = qp6_inputs(N, K, var, source, B, dtype, seed=7 * N + K)
-                route = fq.qp_route(N, K, var, dtype)
+            route = fq.qp_route(N, K, var, dtype)
+            ts = qp6_inputs(N, K, var, source, 1037, dtype, seed=7 * N + K)
+            for barrier in ("complementarity", "mpc"):
                 args = (*ts, var, 6, 0.1, barrier, True)
-                before = fq.FUSED_QP_LAUNCHES
-                got = fq._fused_qp_cuda(*args)
-                torch.cuda.synchronize()
-                if fq.FUSED_QP_LAUNCHES != before + 1:
-                    fail(f"phase36 {label}: the fused QP wrapper did not count its launch")
                 want = fq._fused_qp_plain_batch(*args)
-                if B > 5 and not bool(got[0].isnan().any()):
-                    fail(f"phase36 {label} B={B}: the NaN lane came out finite")
-                finite = torch.isfinite(got[0]).all(-1).double().mean().item()
-                check_bits(f"phase36 fused QP {label} ({route} route, {plan.instances_per_cta} a CTA) {barrier} "
-                           f"B={B} (finite lanes {finite:.4f})", got, want, max_err)
+                # One QP and a ragged last CTA against the same plain call's
+                # first lanes (slice 17 cut their plain calls of their own);
+                # at N = 48 the kernel's B = 1037 alone.
+                batches = (1037, 1, w + 1) if barrier == small and N < ARM_N else (1037,)
+                for B in batches:
+                    before = fq.FUSED_QP_LAUNCHES
+                    got = fq._fused_qp_cuda(*(t[:B] for t in ts), var, 6, 0.1, barrier, True)
+                    torch.cuda.synchronize()
+                    if fq.FUSED_QP_LAUNCHES != before + 1:
+                        fail(f"phase36 {label}: the fused QP wrapper did not count its launch")
+                    if B > 5 and not bool(got[0].isnan().any()):
+                        fail(f"phase36 {label} B={B}: the NaN lane came out finite")
+                    finite = torch.isfinite(got[0]).all(-1).double().mean().item()
+                    check_bits(f"phase36 fused QP {label} ({route} route, {plan.instances_per_cta} a CTA) {barrier} "
+                               f"B={B} (finite lanes {finite:.4f})", got, tuple(t[:B] for t in want), max_err)
 
     # Past the plain version's reach: against qp_ip_solve.
     B = 64
@@ -3603,9 +3634,12 @@ def arm_general_params(dtype=torch.float32, qp_solver="pallas_fused"):
 def arm_general_path(card, kind, blocked_parity):
     """Phase 37: the 48-joint arm through solve_ik_batch(qp_solver=
     "pallas_fused") at B = 8192, float32: kernel 6's warp route, one launch
-    a QP call; parity beside the blocked tier's on the same rows; the same
-    call with the plain kernels bit for bit; times, device kernels a call,
-    kernel 6 alone and its bound. Returns kernel 6's row fields."""
+    a QP call; parity beside the blocked tier's on the same rows; kernel 6
+    on the call's last QPs against its plain version bit for bit; times,
+    kernel 6 alone and its bound. Returns kernel 6's row fields. (Slice 17
+    cut its depth: the whole call with the plain kernels swapped in, six
+    3.5-s plain QP calls, and a profiled call of some 348,000 device kernels
+    went; the earlier readings of both stand in PERF.md.)"""
     B = ARM_GENERAL_B
     targets, x0 = medium_n_planar_instances(B, ARM_N, seed=0)
     t32, x32 = targets.astype(np.float32), x0.astype(np.float32)
@@ -3622,22 +3656,22 @@ def arm_general_path(card, kind, blocked_parity):
         fail(f"phase37: unexpected solutions {tuple(res.x.shape)} {res.x.device}")
     err = effector_error("planar", res.x.cpu().numpy(), targets)
     parity = float((err < 1e-3).mean())
-    with plain_kernels():
-        plain_e2e_ms, ref = event_ms(lambda: mot.solve_ik_batch(t32, x32, params=params))
-    same = bit_identical((res.x, ref.x), (res.termination_state, ref.termination_state))
+    qp_args = seen["_fused_qp_cuda"]
+    qp_got = fq._fused_qp_cuda(*qp_args)
+    plain_ms, qp_want = event_ms(lambda: fq._fused_qp_plain_batch(*qp_args))
+    same = bit_identical(*zip(qp_got, qp_want))
     print(f"# phase37 solve_ik_batch planar n={ARM_N} B={B} float32 6/3/2 mpc armijo qp_solver=pallas_fused: "
           f"launches {got} for 1 call; parity {parity:.6f} (effector error p50 {np.median(err):.3e}, max "
-          f"{err.max():.3e}; the blocked tier's on the same rows, phase 7: {blocked_parity:.6f}); against the "
-          f"plain kernels on the card ({plain_e2e_ms:.1f} ms): bit-identical {same}", flush=True)
+          f"{err.max():.3e}; the blocked tier's on the same rows, phase 7: {blocked_parity:.6f}); kernel 6 on the "
+          f"call's last QPs against its plain version ({plain_ms:.1f} ms): bit-identical {same}", flush=True)
     if not same:
-        fail("phase37: the arm's kernel route disagrees with the plain route")
+        fail("phase37: kernel 6 disagrees with its plain version on the arm's QPs")
     entry = lambda: mot.solve_ik_batch(t32, x32, params=params)  # noqa: E731
     # One timed call (a call takes seconds: the host issues some 350,000
     # device kernels); the counted call above warmed it.
     e2e_ms, _ = event_ms(entry)
     e2e_all = [e2e_ms]
-    _, busy_ms, n_kernels, _ = profile_call(entry, sessions=1)
-    qp_args = seen["_fused_qp_cuda"]
+    busy_ms, n_kernels = None, None
     k_ms, k_all = time_ms(lambda: fq._fused_qp_cuda(*qp_args), held=True)
     plan = fq.launch_plan(ARM_N, 1, len(qp_args[6]), B, torch.float32)
     # The plain version's operations on 64 of the QPs, per instance.
@@ -3646,7 +3680,6 @@ def arm_general_path(card, kind, blocked_parity):
     N, K, M = ARM_N, 1, len(qp_args[6])
     nbytes = (stored(qp_args[0][:, :, 0]) * (N + 1) // 2 + sum(stored(t) for t in qp_args[1:6]) + B * (N + K)) * 4
     bound_ms, bound_by = roofline(ops, nbytes)
-    plain_ms, _ = event_ms(lambda: fq._fused_qp_plain_batch(*qp_args))
     dev = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms busy in {n_kernels} device kernels"
     print(f"# phase37 on {kind} ({card}): entry point {e2e_ms:.3f} ms/call (repeats {e2e_all}), profiled call "
           f"{dev}; kernel 6 alone at B={B} N={N} K=1 M={M} float32 3 iterations mpc ({plan.route} route, "
@@ -3670,9 +3703,9 @@ def line_search_paths(card, kind):
     """Phase 38: bench.py --general's cell (planar n = 2, 10/6/2,
     complementarity, Armijo, B = 8192, float32) on both QP routes, with the
     sequential, the parallel and the parallel + fused-probe line search:
-    launches, parity (>= 0.99 each), ms and device kernels a call; then in
-    float64 at B = 1024 each parallel variant against the sequential one (x
-    within 1e-12, termination states equal). Returns the launches."""
+    launches, parity (>= 0.99 each), ms a call; then in float64 at B = 1024
+    each parallel variant against the sequential one (x within 1e-12,
+    termination states equal). Returns the launches."""
     B = GENERAL_B
     targets, x0 = planar_instances(B, 2, seed=0)
     t32, x32 = targets.astype(np.float32), x0.astype(np.float32)
@@ -3691,8 +3724,9 @@ def line_search_paths(card, kind):
             parity = float((err < 1e-3).mean())
             entry = lambda: mot.solve_ik_batch(t32, x32, params=params)  # noqa: E731
             e2e_ms, e2e_all = time_ms(entry, repeats=1, launches=1, warmup=0)  # the counted call warmed it
-            _, busy_ms, n_kernels, _ = profile_call(entry, sessions=1)
-            dev = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms busy in {n_kernels} device kernels"
+            # No profiled call (slice 17 cut the script's depth; the earlier
+            # readings of each variant's device kernels stand in PERF.md).
+            dev = "not measured"
             print(f"# phase38 {route}, {name} line search, solve_ik_batch planar n=2 B={B} float32 10/6/2 on {kind} "
                   f"({card}): launches {got} for 1 call; parity {parity:.6f}; {e2e_ms:.3f} ms/call (repeats "
                   f"{e2e_all}); profiled call {dev}", flush=True)
@@ -3810,6 +3844,397 @@ def history_path(card, kind):
     return got
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-43 (slice 17): the hand-written fused tiers at every size the
+# JAX package's entry points take.
+# ---------------------------------------------------------------------------
+
+# Phase 40: kernel 1's instances past n = 2..8 (each built at first use, one
+# nvcc an instance; phase 2 builds these beside the main library).
+SIZE_NS = (1, 9, 16, 24, 31)
+SIZE_B = 8192 + 13
+WIDE_N = 31  # the widest chain of the register tier (D = 32)
+WIDE_B = 8192
+# The spatial arm on kernel 2 (D = 49, examples/blocked_medium_n.py's width)
+# and the blocked tier's sizes past one CTA's slab or D = 192.
+SPATIAL_NS = (33, ARM_N)
+GLOBAL_CASES = ((192, torch.float32), (255, torch.float32), (162, torch.float64), (200, torch.float64))
+GLOBAL_N = 255  # the global route's cell: D = 256
+PLAIN_LANES = 1024  # its plain version's lanes
+SHORT = dict(max_iterations=2, qp_iterations=1, ls_iterations=1, barrier="mpc", line_search="armijo")
+# A generated pose chain past D = 192 on the global route (D = 216).
+POSE_GLOBAL = (72, ((10, 60), (30, 70)))
+# Phase 43: kernel 7's run-time route. (i) eight border poses joined by
+# every closure spanning at least 16 poses (k = 8, 21 closures); (ii) the
+# N = 96 chain with a closure every 8 poses (k = 12, 11 closures); (iii)
+# (i) plus three closures to pose 63 (k = 9, 24 closures).
+TOPO_I = tuple((a, b) for a in range(0, 57, 8) for b in range(0, 57, 8) if b - a >= 16)
+TOPO_II = tuple((8 * j, 8 * j + 8) for j in range(11))
+TOPO_III = TOPO_I + ((8, 63), (24, 63), (40, 63))
+TABLE_CASES = (("(i) k=8, 21 closures", 64, TOPO_I), ("(ii) k=12, 11 closures", 96, TOPO_II),
+               ("(iii) k=9, 24 closures", 64, TOPO_III))
+CELL_TOPOLOGIES = ("(i) k=8, 21 closures", "(ii) k=12, 11 closures")  # also run at B = 8192
+TABLE_B = 1024 + 13
+# Lanes of each full-width cell whose float64 CPU plain version sets the
+# parity gate (solved in phase 1's worker pool).
+REF_LANES = {"planar31": 256, "spatial48": 64, "planar255": 64}
+
+
+def kernel1_instances(late=False):
+    """The hand-written kernel-1 instances this script launches, as
+    _build.build_fused_ik takes them, in both types: phases 3-4's and 35's
+    (planar n = 2 and 4, spatial n = 3), or with ``late`` phase 40's."""
+    sizes = {(f, n) for f in (0, 1) for n in SIZE_NS} if late else {(0, 2), (0, 4), (1, 3)}
+    return sorted((f, n, dbl) for f, n in sizes for dbl in (False, True))
+
+
+def print_instances(instances, paths, tag):
+    """Each kernel-1 instance's ptxas line and build seconds."""
+    for (f, n, dbl), path in zip(instances, paths):
+        secs = path.with_suffix(".seconds")
+        for name, nreg, spill, _, stack in ptxas_report(path.with_suffix(".log").read_text()):
+            if "fused_ik_kernel" in name:
+                print(f"# {tag} ptxas fused_ik<{'double' if dbl else 'float'}, {('Planar', 'Spatial')[f]}<{n}>>: "
+                      f"{nreg} registers, {spill} bytes spill stores, {stack} bytes stack frame; build "
+                      f"{secs.read_text().strip() if secs.exists() else '-'} s "
+                      f"({'-O1' if n > _build.LARGE_FUSED_IK_N else '-O3'})", flush=True)
+
+
+def spatial_arm_instances(B, n, seed=0):
+    """The spatial arm's cell (the 48-joint arm's construction,
+    examples/blocked_medium_n.py, on the spatial chain): a reference pose
+    per instance (joint 0 in [-0.3, 0.3], the others in [0.3, 1.2] rad, off
+    the straight chain's singularity) as the warm start, and a target a small
+    task step (+-0.05 per axis) from its effector."""
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0.3, 1.2, (B, n))
+    th[:, 0] = rng.uniform(-0.3, 0.3, B)
+    return spatial_fk(th, LINK) + rng.uniform(-0.05, 0.05, (B, 3)), th
+
+
+def size_reference(name):
+    """A full-width cell's float64 CPU plain version on its first REF_LANES
+    lanes (run in a worker process): the effector errors."""
+    torch.set_num_threads(2)
+    lanes = REF_LANES[name]
+    if name == "planar31":
+        data, x0 = medium_n_planar_instances(WIDE_B, WIDE_N, seed=0)
+        solve, kind = mot.fused_ik_solve_batch, "planar"
+    elif name == "spatial48":
+        data, x0 = spatial_arm_instances(WIDE_B, ARM_N, seed=0)
+        solve, kind = mot.fused_spatial_ik_solve_batch, "spatial"
+    else:
+        data, x0 = medium_n_planar_instances(WIDE_B, GLOBAL_N, seed=0)
+        solve, kind = mot.fused_ik_solve_batch, "planar"
+    d, x = (torch.as_tensor(a[:lanes]) for a in (data, x0))
+    xs = solve(d, x, device="cpu", **ARM)
+    return effector_error(kind, xs.numpy(), data[:lanes])
+
+
+def size_references(pool):
+    return {name: pool.apply_async(size_reference, (name,)) for name in REF_LANES}
+
+
+def cell_gate(tag, kind, x, data, ref):
+    """The full-width cells' gate: the share of lanes with effector error <
+    1e-3 on the reference lanes at least the float64 CPU plain version's
+    there."""
+    err = effector_error(kind, x.detach().cpu(), data)
+    lanes = len(ref)
+    share, share_ref = float((err[:lanes] < 1e-3).mean()), float((ref < 1e-3).mean())
+    print(f"# {tag}: parity {float((err < 1e-3).mean()):.6f} over {len(err)} lanes (p50 {np.median(err):.3e}); "
+          f"on the first {lanes} lanes {share:.6f}, the float64 CPU plain version {share_ref:.6f}", flush=True)
+    if not share >= share_ref:
+        fail(f"{tag}: parity {share} on the reference lanes is below the float64 CPU plain version's {share_ref}")
+    return float((err < 1e-3).mean())
+
+
+def cell_times(tag, kernel, plain, ops_call, B, bytes_per_instance, launches=5, repeats=3):
+    """A full-width cell's kernel (held), its plain version once, its
+    device kernels a call (one call captured in a CUDA graph) and its bound:
+    the plain version's operations per instance (counted by ops_call, a call
+    on few lanes: elementwise work is the same for every lane) times B, and
+    the bytes each instance reads and writes. Returns the row and the plain
+    call's outputs."""
+    k_ms, k_all = time_ms(kernel, repeats=repeats, launches=launches, warmup=1, held=True)
+    nodes = graph_nodes(kernel)
+    if nodes != {"kernel": 1}:
+        fail(f"{tag}: a call is not one device kernel ({nodes})")
+    plain_ms, want = event_ms(plain)
+    ops_lanes, ops = ops_call()
+    bound_ms, bound_by = roofline(ops / ops_lanes * B, B * bytes_per_instance)
+    print(f"# {tag}: kernel alone on the card {k_ms:.4f} ms (held; repeats {k_all}), one device kernel a call "
+          f"({nodes}); plain {plain_ms:.3f} ms; {ops / ops_lanes:.0f} elementwise ops per instance -> bound "
+          f"{bound_ms:.6f} ms ({bound_by}), kernel = {k_ms / bound_ms:.1f}x bound", flush=True)
+    return dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, ops_per_instance=ops / ops_lanes), want
+
+
+def ik_sizes_paths(card, kind, refs):
+    """Phase 40: kernel 1 at n = 1, 9, 16, 24, 31, both families and types,
+    against its plain version bit for bit (B = 8205 with a NaN-target and a
+    NaN-start lane; B = 1 and strided inputs against the same plain call's
+    lanes: every lane's arithmetic is its own); then the n = 31 cell through
+    fused_ik_solve_batch. Its instances are built here, on every core,
+    so that no build runs beside the host-timed phases before it."""
+    t0 = time.perf_counter()
+    late = kernel1_instances(late=True)
+    paths = _build.build_fused_ik(late)
+    print(f"# phase40 build: {len(paths)} kernel-1 instances in {time.perf_counter() - t0:.1f} s", flush=True)
+    print_instances(late, paths, "phase40")
+    max_err = {"float64": 0.0, "float32": 0.0}
+    for n in SIZE_NS:
+        for fam_kind in ("planar", "spatial"):
+            data, x0 = (planar_instances if fam_kind == "planar" else spatial_instances)(SIZE_B, n, seed=n)
+            data[5, 0] = np.nan
+            x0[9, min(1, n - 1)] = np.nan
+            family = (fik.planar_family if fam_kind == "planar" else fik.spatial_family)(n, LINK)
+            for dtype in (torch.float64, torch.float32):
+                d = torch.as_tensor(data, dtype=dtype, device="cuda")
+                x = torch.as_tensor(x0, dtype=dtype, device="cuda")
+                bud = (BENCH["max_iterations"], BENCH["qp_iterations"], BENCH["ls_iterations"], "armijo", "mpc", False)
+                before = fik.KERNEL_LAUNCHES
+                got = fik._fused_solve_cuda(family, d, x, *bud)
+                one = fik._fused_solve_cuda(family, d[:1], x[:1], *bud)
+                ds, xs = torch.stack([d[:33], d[:33]], 2)[:, :, 0], x[:33].T.contiguous().T
+                strided = fik._fused_solve_cuda(family, ds, xs, *bud)
+                torch.cuda.synchronize()
+                if fik.KERNEL_LAUNCHES != before + 3:
+                    fail(f"phase40 {fam_kind} n={n}: the kernel wrapper did not count its launches")
+                want = fik._fused_solve_plain_batch(family, d, x, *bud)
+                torch.cuda.synchronize()
+                tag = f"phase40 {fam_kind} n={n} 4/2/1"
+                for label, g, lanes in (("B=8205", got, SIZE_B), ("B=1", one, 1), ("B=33 strided", strided, 33)):
+                    check_against_plain(f"{tag} {label}", fam_kind, data[:lanes],
+                                        (g[0].T, g[1].T, None), (want[0][:lanes].T, want[1][:lanes].T, None), max_err)
+    CLOCK.mark("phase 40 (bit for bit)")
+
+    # The n = 31 cell: planar, the arm's instances and budget, float32.
+    data, x0 = medium_n_planar_instances(WIDE_B, WIDE_N, seed=0)
+    t32, x32 = (a.astype(np.float32) for a in (data, x0))
+    reset_counts()
+    x, state = mot.fused_ik_solve_batch(t32, x32, return_state=True, **ARM)
+    torch.cuda.synchronize()
+    got = counts()
+    if got["fused_ik"] != 1 or sum(got.values()) != 1:
+        fail(f"phase40 n={WIDE_N} cell: launches {got}, expected one kernel-1 launch")
+    parity = cell_gate(f"phase40 fused_ik_solve_batch planar n={WIDE_N} B={WIDE_B} float32 6/3/2 (launches {got})",
+                       "planar", x, data, refs["planar31"].get())
+    family = fik.planar_family(WIDE_N, LINK)
+    d_c, x_c = (torch.as_tensor(a, device="cuda") for a in (t32, x32))
+    bud = (*ARM_ARGS, False)
+    plain = lambda: fik._fused_solve_plain_batch(family, d_c, x_c, *bud)  # noqa: E731
+    row, want = cell_times(f"phase40 kernel 1 planar n={WIDE_N} B={WIDE_B} float32 6/3/2 on {kind} ({card})",
+                           lambda: fik._fused_solve_cuda(family, d_c, x_c, *bud), plain,
+                           lambda: (64, count_ops(lambda: fik._fused_solve_plain_batch(family, d_c[:64], x_c[:64],
+                                                                                       *bud))),
+                           WIDE_B, (2 + WIDE_N + WIDE_N + 3) * 4)
+    check_against_plain(f"phase40 n={WIDE_N} cell B={WIDE_B}", "planar", data, (x.T, state.T, None),
+                        (want[0].T, want[1].T, None), max_err)
+    CLOCK.mark("phase 40")
+    return dict(row, launches=got["fused_ik"], parity=parity, max_err=max_err)
+
+
+def spatial_chain_paths(card, kind, refs):
+    """Phase 41: kernel 2's spatial chain (families.cuh SpatialChain)
+    against its plain version bit for bit at n = 33 and 48, both types (B =
+    2055 with a NaN lane, B = 1 and B = W + 1 against the same plain call's
+    lanes); then the spatial arm through fused_spatial_ik_solve_batch."""
+    max_err = {"float64": 0.0, "float32": 0.0}
+    B = 2048 + 7
+    for n in SPATIAL_NS:
+        data, x0 = spatial_arm_instances(B, n, seed=n)
+        data[5, 0] = np.nan
+        family = fik.spatial_family(n, LINK)
+        for dtype in (torch.float64, torch.float32):
+            d_t, x_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
+            W = blk.launch_plan(blk.slab_shape(family), 1, dtype).warps
+            before = blk.BLOCKED_LAUNCHES
+            runs = [(Bc, blk._blocked_solve_cuda(family, d_t[:, :Bc], x_t[:, :Bc], *ARM_ARGS))
+                    for Bc in (B, 1, W + 1)]
+            torch.cuda.synchronize()
+            if blk.BLOCKED_LAUNCHES != before + 3:
+                fail(f"phase41 spatial n={n}: the blocked kernel wrapper did not count its launches")
+            want = blk._blocked_solve_plain(family, d_t, x_t, *ARM_ARGS)
+            for Bc, got in runs:
+                check_blocked(f"phase41 spatial n={n} (D={n + 1}) 6/3/2 B={Bc} ({W} warps/CTA)", got,
+                              tuple(t[:, :Bc] for t in want), max_err, (5,) if Bc == B else ())
+    CLOCK.mark("phase 41 (bit for bit)")
+
+    data, x0 = spatial_arm_instances(WIDE_B, ARM_N, seed=0)
+    t32, x32 = (a.astype(np.float32) for a in (data, x0))
+    reset_counts()
+    x, state = mot.fused_spatial_ik_solve_batch(t32, x32, return_state=True, **ARM)
+    torch.cuda.synchronize()
+    got = counts()
+    if got["blocked"] != 1 or sum(got.values()) != 1:
+        fail(f"phase41 spatial arm: launches {got}, expected one kernel-2 launch")
+    parity = cell_gate(f"phase41 fused_spatial_ik_solve_batch spatial n={ARM_N} B={WIDE_B} float32 6/3/2 "
+                       f"(launches {got})", "spatial", x, data, refs["spatial48"].get())
+    family = fik.spatial_family(ARM_N, LINK)
+    d_t, x_t = mot.batch_from_numpy(t32, x32, "cuda")
+    plain = lambda: blk._blocked_solve_plain(family, d_t, x_t, *ARM_ARGS)  # noqa: E731
+    row, want = cell_times(f"phase41 kernel 2 spatial n={ARM_N} (D=49) B={WIDE_B} float32 6/3/2 on {kind} ({card})",
+                           lambda: blk._blocked_solve_cuda(family, d_t, x_t, *ARM_ARGS), plain,
+                           lambda: (WIDE_B, count_ops(plain)), WIDE_B, (3 + ARM_N + ARM_N + 3) * 4)
+    check_blocked(f"phase41 spatial arm B={WIDE_B}", (x.T, state.T), want, max_err)
+    CLOCK.mark("phase 41")
+    return dict(row, launches=got["blocked"], parity=parity, max_err=max_err)
+
+
+def global_pose_family():
+    """Phase 42's generated pose chain past D = 192, and its edges."""
+    N, closures = POSE_GLOBAL
+    edges = chain_edges(N, closures)
+    return mot.family_from_problem(pg.scalar_pose_graph_builder(N, edges), 3 * len(edges))
+
+
+def global_route_paths(card, kind, refs, pose_global):
+    """Phase 42: kernel 2's global route against its plain version bit for
+    bit at planar n = 192, 255 (float32) and 162, 200 (float64), B =
+    GLOBAL_SLABS + 7 (seven warps solve two instances each) with a NaN lane,
+    and on the generated pose chain N = 72 + two closures (D = 216) in both
+    types; then planar n = 255 through fused_ik_solve_batch."""
+    max_err = {"float64": 0.0, "float32": 0.0}
+    B = blk.GLOBAL_SLABS + 7
+    for n, dtype in GLOBAL_CASES:
+        data, x0 = medium_n_planar_instances(B, n, seed=n)
+        data[5, 0] = np.nan
+        family = fik.planar_family(n, LINK)
+        d_t, x_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
+        args = (family, d_t, x_t) + tuple(SHORT[k] for k in ("max_iterations", "qp_iterations", "ls_iterations",
+                                                              "line_search", "barrier"))
+        plan = blk.launch_plan(blk.slab_shape(family), B, dtype)
+        before = blk.BLOCKED_LAUNCHES
+        got = blk._blocked_solve_cuda(*args)
+        torch.cuda.synchronize()
+        if blk.BLOCKED_LAUNCHES != before + 1 or plan.storage != "global":
+            fail(f"phase42 planar n={n}: not one launch on the global route ({plan})")
+        check_blocked(f"phase42 planar n={n} (D={n + 1}) 2/1/1 B={B} ({plan.storage}, {plan.rows_per_lane} "
+                      f"rows/lane, {plan.warp_bytes} B a slab, {plan.slabs} slabs)", got,
+                      blk._blocked_solve_plain(*args), max_err, (5,))
+    N, closures = POSE_GLOBAL
+    bud = tuple(SHORT[k] for k in ("max_iterations", "qp_iterations", "ls_iterations", "line_search", "barrier"))
+    data, x0 = chain_closure_instances(B, N, closures, seed=N)
+    # A NaN start (a NaN measurement leaves the Gauss-Newton matrix finite,
+    # and two iterations do not push lambda past its cap to flag the lane).
+    x0[5, 4] = np.nan
+    for dtype in (torch.float64, torch.float32):
+        d_t, x_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
+        plan = blk.launch_plan(blk.slab_shape(pose_global), B, dtype)
+        before = blk.GENERATED_LAUNCHES
+        got = blk._blocked_solve_cuda(pose_global, d_t, x_t, *bud)
+        torch.cuda.synchronize()
+        if blk.GENERATED_LAUNCHES != before + 1 or plan.storage != "global":
+            fail(f"phase42 generated pose N={N}: not one launch on the global route ({plan})")
+        check_blocked(f"phase42 generated pose chain N={N} + {closures} (D={3 * N}) 2/1/1 B={B} ({plan.storage}, "
+                      f"{plan.rows_per_lane} rows/lane, {plan.warp_bytes} B a slab)", got,
+                      blk._blocked_solve_plain(pose_global, d_t, x_t, *bud), max_err, (5,))
+    CLOCK.mark("phase 42 (bit for bit)")
+
+    data, x0 = medium_n_planar_instances(WIDE_B, GLOBAL_N, seed=0)
+    t32, x32 = (a.astype(np.float32) for a in (data, x0))
+    reset_counts()
+    x, state = mot.fused_ik_solve_batch(t32, x32, return_state=True, **ARM)
+    torch.cuda.synchronize()
+    got = counts()
+    if got["blocked"] != 1 or sum(got.values()) != 1:
+        fail(f"phase42 n={GLOBAL_N}: launches {got}, expected one kernel-2 launch")
+    parity = cell_gate(f"phase42 fused_ik_solve_batch planar n={GLOBAL_N} (D=256) B={WIDE_B} float32 6/3/2, the "
+                       f"global route (launches {got})", "planar", x, data, refs["planar255"].get())
+    family = fik.planar_family(GLOBAL_N, LINK)
+    d_t, x_t = mot.batch_from_numpy(t32, x32, "cuda")
+    plan = blk.launch_plan(blk.slab_shape(family), WIDE_B, torch.float32)
+    # The plain version on the first PLAIN_LANES lanes (slice 17 cut its
+    # 8,192-lane call: a (256, 256, B) tensor an operation).
+    lanes = 64
+    d_p, x_p = d_t[:, :PLAIN_LANES].contiguous(), x_t[:, :PLAIN_LANES].contiguous()
+    plain = lambda: blk._blocked_solve_plain(family, d_p, x_p, *ARM_ARGS)  # noqa: E731
+    row, want = cell_times(
+        f"phase42 kernel 2 planar n={GLOBAL_N} (D=256) B={WIDE_B} float32 6/3/2, {plan.slabs} slabs of "
+        f"{plan.warp_bytes} B, {plan.rows_per_lane} rows/lane, on {kind} ({card}; plain on {PLAIN_LANES} lanes)",
+        lambda: blk._blocked_solve_cuda(family, d_t, x_t, *ARM_ARGS), plain,
+        lambda: (lanes, count_ops(lambda: blk._blocked_solve_plain(family, d_t[:, :lanes].contiguous(),
+                                                                 x_t[:, :lanes].contiguous(), *ARM_ARGS))),
+        WIDE_B, (2 + GLOBAL_N + GLOBAL_N + 3) * 4, launches=1, repeats=2)
+    check_blocked(f"phase42 n={GLOBAL_N} cell B={WIDE_B}, its first {PLAIN_LANES} lanes",
+                  (x.T[:, :PLAIN_LANES], state.T[:, :PLAIN_LANES]), want, max_err)
+    row["plain_lanes"] = PLAIN_LANES
+    CLOCK.mark("phase 42")
+    return dict(row, launches=got["blocked"], parity=parity, max_err=max_err)
+
+
+def table_ring_paths(card, kind):
+    """Phase 43: kernel 7's run-time route on topologies (i)-(iii) against its
+    plain version bit for bit (B = 1037 with a NaN-measurement and a
+    NaN-start lane, B = 1 and W + 1 against the same plain call's lanes;
+    float64, and (iii) in float32 too); then (i) and (ii) through
+    solve_pose_graph_rings at full width in float32, bit for bit."""
+    max_err = {"float64": 0.0, "float32": 0.0}
+    iters, ls = RING_BUDGET
+    ops = {}
+    for name, n, closures in TABLE_CASES:
+        fam, data, x0 = ring_case(n, closures, TABLE_B, seed=n)
+        data[5, 4] = np.nan
+        x0[9, 2] = np.nan
+        k = pr.table_route(fam.closure_list)
+        # (i) and (ii) in float32 at their full-width cells below (slice 17
+        # cut their plain calls here; a plain call costs its operations).
+        for dtype in (torch.float64,) if name in CELL_TOPOLOGIES else (torch.float64, torch.float32):
+            d_t, x_t = mot.batch_from_numpy(data, x0, "cuda", dtype)
+            W = pr.launch_plan(n, len(closures), 1, dtype, k).warps
+            before = pr.KERNEL_LAUNCHES
+            runs = [(Bc, pr._pose_ring_cuda(fam, d_t[:, :Bc].contiguous(), x_t[:, :Bc].contiguous(), iters, ls))
+                    for Bc in (TABLE_B, 1, W + 1)]
+            torch.cuda.synchronize()
+            if pr.KERNEL_LAUNCHES != before + 3 or not k:
+                fail(f"phase43 {name}: not three launches on the run-time route (k = {k})")
+            out = []
+            # The cells' operation counts come from this call: a lane's
+            # operations do not depend on B or the type.
+            count = count_ops(lambda: out.append(pr._pose_ring_plain(fam, d_t, x_t, iters, ls)))
+            ops[name] = count / TABLE_B
+            want = out[0]
+            plan = pr.launch_plan(n, len(closures), TABLE_B, dtype, k)
+            for Bc, got in runs:
+                check_ring(f"phase43 {name} N={n} 6/2 B={Bc} ({plan.storage}, {W} graphs/CTA, {plan.warp_bytes} B a "
+                           f"graph)", got, tuple(t[:, :Bc] for t in want), max_err, (5, 9) if Bc == TABLE_B else ())
+    CLOCK.mark("phase 43 (bit for bit)")
+
+    rows = {}
+    for name, n, closures in TABLE_CASES:
+        if name not in CELL_TOPOLOGIES:
+            continue
+        fam, data, x0 = ring_case(n, closures, RING_B, seed=0)
+        meas = data.astype(np.float32).reshape(RING_B, -1, 3)
+        starts = x0.astype(np.float32).reshape(RING_B, n, 3)
+        reset_counts()
+        x, state = pg.solve_pose_graph_rings(meas, starts, closures=closures, max_iterations=iters,
+                                             ls_iterations=ls, return_state=True)
+        torch.cuda.synchronize()
+        got = counts()
+        if got["pose_ring"] != 1 or sum(got.values()) != 1:
+            fail(f"phase43 {name}: launches {got}, expected one pose-ring launch")
+        f = state[:, 0].double().cpu().numpy()
+        share = float(np.mean(f < 2e-3 * n))
+        print(f"# phase43 solve_pose_graph_rings {name} N={n} B={RING_B} float32 6/2: launches {got}; converged "
+              f"share (cost < {2e-3 * n:.3g}) {share:.6f}, cost median {np.median(f):.4e}, lanes flagged "
+              f"{int((state[:, 2] != 0).sum())}, all finite {bool(torch.isfinite(x).all())}", flush=True)
+        if not share >= 0.99:
+            fail(f"phase43 {name}: converged share {share} is below 0.99")
+        d_t = torch.as_tensor(meas.reshape(RING_B, -1), device="cuda").T.contiguous()
+        x_t = torch.as_tensor(starts.reshape(RING_B, -1), device="cuda").T.contiguous()
+        plain = lambda: pr._pose_ring_plain(fam, d_t, x_t, iters, ls)  # noqa: E731
+        E = fam.n_edges
+        row, want = cell_times(
+            f"phase43 kernel 7 {name} N={n} B={RING_B} float32 6/2 on {kind} ({card})",
+            lambda: pr._pose_ring_cuda(fam, d_t, x_t, iters, ls), plain, lambda: (1, ops[name]),
+            RING_B, (3 * E + 3 * n + 3 * n + 3) * 4, launches=10)
+        check_ring(f"phase43 {name} cell B={RING_B}", (x.reshape(RING_B, -1).T, state.T), want, max_err)
+        rows[name] = dict(row, launches=got["pose_ring"], converged_share=share)
+    CLOCK.mark("phase 43")
+    return rows, max_err
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
@@ -3839,22 +4264,34 @@ def main():
 
 
 def run_phases(card, kind, retract_builder, pool):
-    """Phases 2-40."""
+    """Phases 2-43."""
+    # Phases 40-42's float64 CPU references, in the worker pool.
+    size_refs = size_references(pool)
     # Phase 2: build. Phase 21's generated families and phase 25's pose
     # families are emitted and built at the same time: every nvcc process of
     # both runs at once.
     t0 = time.perf_counter()
     families = generated_families()
     poses = pose_families()
+    pose_global = global_pose_family()
     emitters = {name: fam.cuda_program.source for name, (fam, _, _) in families.items()}
     emitters.update(pose_emitters(poses))
-    with concurrent.futures.ThreadPoolExecutor(1) as emit_pool:
+    emitters[f"pose N={POSE_GLOBAL[0]} (global route)"] = pose_global.cuda_program.blocked_source
+    with concurrent.futures.ThreadPoolExecutor(2) as emit_pool:
         generated = emit_pool.submit(emit_and_build, emitters)
+        instances = emit_pool.submit(_build.build_fused_ik, kernel1_instances())
         lib_path = _build.build()
         gen_emit_s, gen_build_s, gen_paths = generated.result()
+        ik_paths = instances.result()
     _build.load_library()
     print(f"# build: {time.perf_counter() - t0:.1f} s -> {lib_path.name} (with {len(gen_paths)} generated "
-          f"families)", flush=True)
+          f"families and {len(ik_paths)} kernel-1 instances)", flush=True)
+    seconds = lib_path.with_suffix(".seconds")
+    if seconds.exists():
+        print("# build seconds per source: " + ", ".join(seconds.read_text().split("\n")).strip(", "), flush=True)
+    # Phase 2: kernel 1's instances (family, n, type), one library each
+    # (phase 40 builds its own).
+    print_instances(kernel1_instances(), ik_paths, "phase2")
     log = lib_path.with_suffix(".log")
     if log.exists():
         text = log.read_text()
@@ -3862,19 +4299,14 @@ def run_phases(card, kind, retract_builder, pool):
         spilling = sum(int(b) > 0 for b in re.findall(r"(\d+) bytes spill stores", text))
         print(f"# ptxas: {len(regs)} kernel instances, registers max {max(regs, default=0)}, "
               f"{spilling} with spill stores", flush=True)
-        # Phase 2: kernel 1's instances (family, n, type).
-        for name, nreg, spill, _, stack in ptxas_report(text):
-            m = re.search(r"fused_ik_kernelI([fd])N2mo\d+(Planar|Spatial)ILi(\d+)E", name)
-            if m:
-                t, fam, n = m.groups()
-                print(f"# phase2 ptxas fused_ik<{'float' if t == 'f' else 'double'}, {fam}<{n}>>: {nreg} "
-                      f"registers, {spill} bytes spill stores, {stack} bytes stack frame", flush=True)
         # Phase 8's build lines: the blocked kernels, from the same build.
         for name, nreg, spill, _, stack in ptxas_report(text):
-            m = re.search(r"blocked_(sqp|kkt_warp|kkt)_kernelI([fd])(?:Li(\d+)E)?", name)
+            m = re.search(r"blocked_(sqp|sqp_global|kkt_warp|kkt)_kernelI([fd])(?:Li(\d+)E)?", name)
             if m:
                 kernel, t, rows = m.groups()
-                label = f"blocked_{kernel}<{'float' if t == 'f' else 'double'}" + (f", R={rows}>" if rows else ">")
+                fam = re.search(r"(Planar|Spatial)Chain", name)
+                label = (f"blocked_{kernel}<{'float' if t == 'f' else 'double'}" + (f", R={rows}" if rows else "")
+                         + (f", {fam.group()}" if fam else "") + ">")
                 print(f"# phase8 ptxas {label}: {nreg} registers, {spill} bytes spill stores, {stack} bytes "
                       f"stack frame", flush=True)
         # Phase 9: the general path's kernels, from the same build. Kernels
@@ -4043,6 +4475,10 @@ def run_phases(card, kind, retract_builder, pool):
     CLOCK.mark("phase 38")
     history_launches = history_path(card, kind)
     CLOCK.mark("phase 39")
+    ik_row = ik_sizes_paths(card, kind, size_refs)
+    spatial_row = spatial_chain_paths(card, kind, size_refs)
+    global_row = global_route_paths(card, kind, size_refs, pose_global)
+    table_rows, table_err = table_ring_paths(card, kind)
 
     # This slice's launches, in the rows of the kernels its paths ran.
     tuned = lambda *pairs: {f: tuner_launches[f][k] for f, k in pairs}  # noqa: E731
@@ -4073,6 +4509,18 @@ def run_phases(card, kind, retract_builder, pool):
         else:
             row["slice16_launches"]["history float64 B=64"] = history_launches.get(key, 0)
     general_rows[0]["implicit_backward"] = implicit_times
+    # Slice 17's cells (phases 40-43) in the rows of kernels 1, 2 and 7.
+    for row in blocked_rows + ring_rows:
+        if row["name"] == "blocked_sqp":
+            row["slice17"] = {"spatial n=48 B=8192 float32 6/3/2": spatial_row,
+                              f"planar n={GLOBAL_N} global route B=8192 float32 6/3/2": global_row}
+            row["spatial_source"] = "mini_opt_tpu_torch/csrc/blocked_spatial.cu"
+            for r in (spatial_row, global_row):
+                row["max_abs_err"] = max(row["max_abs_err"], max(r.pop("max_err").values()))
+        if row["name"] == "pose_ring":
+            row["slice17"] = {f"{name} B=8192 float32 6/2": r for name, r in table_rows.items()}
+            row["max_abs_err"] = max(row["max_abs_err"], max(table_err.values()))
+    ik_err = ik_row.pop("max_err")
     print(f"# chip_smoke.py: {time.perf_counter() - t0:.1f} s from the build's start; seconds per phase "
           f"{json.dumps(CLOCK.summary())}", flush=True)
     print(json.dumps({"kernels": [{
@@ -4082,8 +4530,8 @@ def run_phases(card, kind, retract_builder, pool):
         "replaces": "mini_opt_tpu/ops/pallas_ik.py:323",
         "function": "_make_kernel",
         "launches": launches,
-        "max_abs_err": max(max_err.values()),
-        "max_abs_diff_f64": max_err["float64"],
+        "max_abs_err": max(max(max_err.values()), max(ik_err.values())),
+        "max_abs_diff_f64": max(max_err["float64"], ik_err["float64"]),
         "ms": rows[B]["kernel_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -4095,6 +4543,7 @@ def run_phases(card, kind, retract_builder, pool):
         "ops_per_instance": ops_per_instance,
         "slice15_launches": tuned(("spatial_ik", "fused_ik"), ("planar_ik", "fused_ik_generated"),
                                   ("pose_graph_n4", "fused_ik_generated")),
+        "slice17": {f"planar n={WIDE_N} B=8192 float32 6/3/2": ik_row},
         "card": card,
     }] + generated_rows + blocked_rows + general_rows + ring_rows + mpc_rows + pose_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

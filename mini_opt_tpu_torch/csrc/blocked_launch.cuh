@@ -2,8 +2,10 @@
 // emits from a Problem (one generated .cu per family, built at first use),
 // the counterpart of fused_ik_launch.cuh for kernel 1: the routines the
 // emitted functor calls, and the launcher that instantiates
-// blocked_sqp_kernel<T, R, GeneratedFamily> for the R that the family's D
-// takes (2, 4 or 6 KKT rows a lane), in float and double.
+// blocked_sqp_kernel<T, R, GeneratedFamily> (or, on the global route,
+// blocked_sqp_global_kernel) for the R that the family's D
+// takes (2, 4 or 6 KKT rows a lane on the shared route, G false; 6 or 8 on
+// the global route past D = 128), in float and double.
 //
 // The functor has PlanarChain's interface (families.cuh): nvar(), M, ROWS,
 // nlo() / nhi(), lo_slot / hi_slot / lo_val / hi_val, scratch(), retract(i, a)
@@ -118,18 +120,29 @@ __device__ void scatter_eq(int lane, int nb, const int* ix, const T* out, int ro
 }
 
 // Kernel 2 on the family with the rows a lane its D takes, in `dtype` (0
-// float, 1 double): a launch, or (occupancy_only) the CTAs of a.warps
-// instances that fit one SM.
+// float, 1 double), on the shared route or (a.scratch) the global one: a
+// launch, or (occupancy_only) the CTAs of a.warps instances that fit one SM.
+// The shared route's instance exists up to D = 192, the global route's from
+// D = 129 (below that a slab fits a CTA) to 256; kNoInstance elsewhere.
 template <class F>
 int launch_generated(const F& fam, int dtype, const blocked::LaunchArgs& a, bool occupancy_only) {
-  constexpr int R = blocked::rows_per_lane(F::N + F::M);
-  static_assert(R > 0, "kernel 2 takes D = n + m up to 192");
+  constexpr int D = F::N + F::M;
+  constexpr int R = blocked::rows_per_lane(D), RG = blocked::global_rows_per_lane(D);
+  static_assert(RG > 0, "kernel 2 takes D = n + m up to 256");
   if (a.B <= 0 || a.warps < 1 || a.warps > blocked::kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
-  switch (dtype) {
-    case 0: return blocked::launch_rows<float, R>(fam, a, occupancy_only);
-    case 1: return blocked::launch_rows<double, R>(fam, a, occupancy_only);
-    default: return kNoInstance;
+  if (dtype != 0 && dtype != 1) return kNoInstance;
+  if (a.scratch != nullptr) {
+    if constexpr (D > 128) {
+      return dtype == 0 ? blocked::launch_rows<float, RG, true>(fam, a, occupancy_only)
+                        : blocked::launch_rows<double, RG, true>(fam, a, occupancy_only);
+    }
+    return kNoInstance;
   }
+  if constexpr (R > 0) {
+    return dtype == 0 ? blocked::launch_rows<float, R, false>(fam, a, occupancy_only)
+                      : blocked::launch_rows<double, R, false>(fam, a, occupancy_only);
+  }
+  return kNoInstance;
 }
 
 // Text of the launcher's return code (blocked_sqp.cuh's, or CUDA's).

@@ -57,6 +57,13 @@
 // its first __syncwarp. Kernel 3 (blocked_kkt.cu) runs the warp routines
 // below on one system per warp up to D = 192 and the CTA routines above past
 // it.
+// - Past one CTA's shared memory or D = 192 (to 256), the global route
+//   (blocked_sqp_global_kernel): the same solve with R = 6 or 8 rows a lane,
+//   its slab a row of a global scratch array of one slab per warp of the
+//   grid (one warp a CTA, 264 warps, ops/blocked.py::GLOBAL_SLABS), each
+//   warp solving instances w, w + 264, ... in turn; its guarded stores are
+//   plain ones (put_if<true>). A kernel of its own: folding the route into
+//   the shared kernel's body cost that kernel 6.6% at D = 49.
 //
 // Order of operations: every sum the JAX kernel takes with jnp.sum over a
 // stacked axis is taken here term by term in index order, the factor's
@@ -151,6 +158,13 @@ __host__ __device__ constexpr int rows_per_lane(int D) {
   return D <= 64 ? 2 : (D <= 128 ? 4 : (D <= 192 ? 6 : 0));
 }
 
+// The same on the global route (each warp's slab in a global scratch
+// array, for systems past one CTA's shared memory or past D = 192): 6 up to
+// 192, 8 up to 256 (the tile table's 8-bit row and column); 0 past that.
+__host__ __device__ constexpr int global_rows_per_lane(int D) {
+  return D <= 192 ? 6 : (D <= 256 ? 8 : 0);
+}
+
 // The KKT matrix's layout: its lower triangle by columns, each column in
 // whole tiles of 4 rows. Column j holds rows (j & ~3) .. Dp - 1 (Dp = D
 // rounded up to 4; the rows above j and past D - 1 are padding that nothing
@@ -240,6 +254,26 @@ inline void store_if(bool p, T* at, T v) {
 }
 #endif
 
+// The guarded stores of a slab in shared memory (G false: the predicated
+// st.shared above) or in the global scratch (G true: a guarded store that
+// the compiler predicates).
+template <bool G, typename T>
+__device__ __forceinline__ void put_tile_if(bool p, T* at, const T (&v)[kTile]) {
+  if constexpr (G) {
+    if (p) store_tile(at, v);
+  } else {
+    store_tile_if(p, at, v);
+  }
+}
+template <bool G, typename T>
+__device__ __forceinline__ void put_if(bool p, T* at, T v) {
+  if constexpr (G) {
+    if (p) *at = v;
+  } else {
+    store_if(p, at, v);
+  }
+}
+
 // The unpivoted LDL^T of the D x D matrix A (the tiled layout above, tiles
 // its tile table), by one warp. On exit A's diagonal holds the pivots d and
 // its strict lower triangle L (unit diagonal implied); w (D slots) is
@@ -251,8 +285,8 @@ inline void store_if(bool p, T* at, T v) {
 // 16-byte store. A tile's padding rows take the same arithmetic on values
 // nothing reads. Every load is unconditional (a tile past the end reads
 // column k's first tile, which no lane writes in the step). Begins and ends
-// with a __syncwarp.
-template <typename T, int R>
+// with a __syncwarp. G: A and w lie in global memory (the global route).
+template <typename T, int R, bool G = false>
 __device__ void ldlt_factor_warp(T* A, T* w, const unsigned short* tiles, int D, int lane) {
   constexpr int U = R <= 2 ? 4 : 2;  // tiles in flight per lane
   const int end = colA(D, D) / kTile;
@@ -266,8 +300,8 @@ __device__ void ldlt_factor_warp(T* A, T* w, const unsigned short* tiles, int D,
       if (k + 1 + u * kWarp >= D) break;  // no lane has a row this far down
       const int i = k + 1 + lane + u * kWarp;
       const T lk = Lk[i < D ? i : k] / dk;
-      store_if(i < D, Lk + (i < D ? i : k), lk);
-      store_if(i < D, w + (i < D ? i : k), dk * lk);
+      put_if<G>(i < D, Lk + (i < D ? i : k), lk);
+      put_if<G>(i < D, w + (i < D ? i : k), dk * lk);
     }
     warp_sync();
     for (int t0 = first; t0 < end; t0 += U * kWarp) {
@@ -285,7 +319,7 @@ __device__ void ldlt_factor_warp(T* A, T* w, const unsigned short* tiles, int D,
         const int t = t0 + u * kWarp;
 #pragma unroll
         for (int q = 0; q < kTile; ++q) a[u][q] = a[u][q] - l[u][q] * wj[u];
-        store_tile_if(t < end, A + kTile * (t < end ? t : own), a[u]);
+        put_tile_if<G>(t < end, A + kTile * (t < end ? t : own), a[u]);
       }
     }
     warp_sync();
@@ -407,10 +441,10 @@ __device__ __forceinline__ T ftb_cand(T v, T dv, T tau) {
 // in index order four at a time, without a guard.
 
 // Lanes 0..2 write `value` into a[count .. round4(count)).
-template <typename T>
+template <bool G, typename T>
 __device__ __forceinline__ void pad_tile(T* a, int count, T value, int lane) {
   const bool mine = count + lane < round4(count);
-  store_if(mine, a + (mine ? count + lane : 0), value);
+  put_if<G>(mine, a + (mine ? count + lane : 0), value);
 }
 
 // alpha_a = min(alpha_a, min_j a[j]) and alpha_b likewise over j < count
@@ -488,7 +522,7 @@ __device__ T sum2_terms(const T* a, int na, const T* b, int nb) {
   return acc;
 }
 
-// One instance's slab of shared memory.
+// One instance's slab, of shared memory or of the global scratch.
 template <typename T>
 struct Slab {
   T* A;    // colA(D): the KKT matrix in whole tiles (colA), factored in place
@@ -589,7 +623,7 @@ __device__ void assemble_kkt(const Slab<T>& s, const Lane<R>& L, bool with_sig, 
 // Reads G, c, Jeq, req from the slab and the lane's shifted bounds ib_lo /
 // ib_hi; returns the uniform factorization flag, and in xy the primal of
 // the lane's variable rows and the dual of its equality rows.
-template <typename T, int R>
+template <typename T, int R, bool G>
 __device__ T qp_solve(const Slab<T>& s, const Lane<R>& L, const T (&ib_lo)[R], const T (&ib_hi)[R],
                       const SolveOptions& opt, T (&xy)[R]) {
   const int n = L.n, D = L.D, nlo = L.nlo, nhi = L.nhi;
@@ -599,7 +633,7 @@ __device__ T qp_solve(const Slab<T>& s, const Lane<R>& L, const T (&ib_lo)[R], c
   for (int r = 0; r < R; ++r) zero[r] = T(0);
 
   assemble_kkt(s, L, false, zero);
-  ldlt_factor_warp<T, R>(s.A, s.vec, s.tiles, D, L.lane);
+  ldlt_factor_warp<T, R, G>(s.A, s.vec, s.tiles, D, L.lane);
   T bad = factor_bad(s.A, D);
   T v[R];
 #pragma unroll
@@ -640,15 +674,15 @@ __device__ T qp_solve(const Slab<T>& s, const Lane<R>& L, const T (&ib_lo)[R], c
     for (int r = 0; r < R; ++r) {
       const bool lo = L.slo[r] >= 0, hi = L.shi[r] >= 0;
       const int jl = lo ? L.slo[r] : 0, jh = hi ? L.shi[r] : 0;
-      store_if(lo, s.scr + jl, ftb_cand(s_lo[r], ds_lo[r], tau_v));
-      store_if(lo, s.scr + lo4 + jl, ftb_cand(z_lo[r], dz_lo[r], tau_v));
-      store_if(hi, s.scr + 2 * lo4 + jh, ftb_cand(s_hi[r], ds_hi[r], tau_v));
-      store_if(hi, s.scr + 2 * lo4 + hi4 + jh, ftb_cand(z_hi[r], dz_hi[r], tau_v));
+      put_if<G>(lo, s.scr + jl, ftb_cand(s_lo[r], ds_lo[r], tau_v));
+      put_if<G>(lo, s.scr + lo4 + jl, ftb_cand(z_lo[r], dz_lo[r], tau_v));
+      put_if<G>(hi, s.scr + 2 * lo4 + jh, ftb_cand(s_hi[r], ds_hi[r], tau_v));
+      put_if<G>(hi, s.scr + 2 * lo4 + hi4 + jh, ftb_cand(z_hi[r], dz_hi[r], tau_v));
     }
-    pad_tile(s.scr, nlo, T(INFINITY), L.lane);
-    pad_tile(s.scr + lo4, nlo, T(INFINITY), L.lane);
-    pad_tile(s.scr + 2 * lo4, nhi, T(INFINITY), L.lane);
-    pad_tile(s.scr + 2 * lo4 + hi4, nhi, T(INFINITY), L.lane);
+    pad_tile<G>(s.scr, nlo, T(INFINITY), L.lane);
+    pad_tile<G>(s.scr + lo4, nlo, T(INFINITY), L.lane);
+    pad_tile<G>(s.scr + 2 * lo4, nhi, T(INFINITY), L.lane);
+    pad_tile<G>(s.scr + 2 * lo4 + hi4, nhi, T(INFINITY), L.lane);
     warp_sync();
     ap_v = ad_v = T(1);
     min2_into(ap_v, s.scr, ad_v, s.scr + lo4, nlo);
@@ -661,11 +695,11 @@ __device__ T qp_solve(const Slab<T>& s, const Lane<R>& L, const T (&ib_lo)[R], c
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const bool lo = L.slo[r] >= 0, hi = L.shi[r] >= 0;
-      store_if(lo, s.scr + (lo ? L.slo[r] : 0), t_lo[r]);
-      store_if(hi, s.scr + lo4 + (hi ? L.shi[r] : 0), t_hi[r]);
+      put_if<G>(lo, s.scr + (lo ? L.slo[r] : 0), t_lo[r]);
+      put_if<G>(hi, s.scr + lo4 + (hi ? L.shi[r] : 0), t_hi[r]);
     }
-    pad_tile(s.scr, nlo, T(-0.0), L.lane);
-    pad_tile(s.scr + lo4, nhi, T(-0.0), L.lane);
+    pad_tile<G>(s.scr, nlo, T(-0.0), L.lane);
+    pad_tile<G>(s.scr + lo4, nhi, T(-0.0), L.lane);
     warp_sync();
     return sum2_terms(s.scr, nlo, s.scr + lo4, nhi);
   };
@@ -722,7 +756,7 @@ __device__ T qp_solve(const Slab<T>& s, const Lane<R>& L, const T (&ib_lo)[R], c
       if (nhi > 0) sig_d[r] = sig_d[r] + (L.shi[r] >= 0 ? sig_hi[r] : T(0));
     }
     assemble_kkt(s, L, true, sig_d);
-    ldlt_factor_warp<T, R>(s.A, s.vec, s.tiles, D, L.lane);
+    ldlt_factor_warp<T, R, G>(s.A, s.vec, s.tiles, D, L.lane);
     bad = nmax(bad, factor_bad(s.A, D));
 
     // Condensed solve for a barrier value and corrector terms: d the primal
@@ -827,8 +861,9 @@ struct BlockedIO {
 };
 
 // The whole fused solve of instance `inst` of family `fam` by one warp
-// (this lane: `lane`) on its slab, on the tensors of BlockedIO.
-template <typename T, int R, class F>
+// (this lane: `lane`) on its slab, on the tensors of BlockedIO. G: the slab
+// lies in the global scratch.
+template <typename T, int R, class F, bool G>
 __device__ void blocked_sqp_solve(const F& fam, const T* __restrict__ data, const T* __restrict__ x0,
                                   T* __restrict__ x_out, T* __restrict__ state, long long ds0, long long ds1,
                                   long long xs0, long long xs1, int B, const SolveOptions& opt,
@@ -902,7 +937,7 @@ __device__ void blocked_sqp_solve(const F& fam, const T* __restrict__ data, cons
     warp_sync();
 
     T xy[R];
-    const T bad_it = qp_solve<T, R>(s, L, ib_lo, ib_hi, opt, xy);
+    const T bad_it = qp_solve<T, R, G>(s, L, ib_lo, ib_hi, opt, xy);
     fac_bad = nmax(fac_bad, bad_it);
 
     // d_f = c . dx and d_eq = sum_k sgn(r_eq,k) (J_k . dx), each product's
@@ -914,7 +949,7 @@ __device__ void blocked_sqp_solve(const F& fam, const T* __restrict__ data, cons
       if (i < L.D) s.vec[i] = xy[r];
       if (L.var(r)) s.scr[i] = s.c[i] * xy[r];
     }
-    pad_tile(s.scr, n, T(-0.0), lane);
+    pad_tile<G>(s.scr, n, T(-0.0), lane);
     warp_sync();
     const T d_f = sum_terms(s.scr, n);
     T d_eq = T(0);
@@ -928,7 +963,7 @@ __device__ void blocked_sqp_solve(const F& fam, const T* __restrict__ data, cons
         for (int r = 0; r < R; ++r) {
           if (L.var(r)) s.scr[L.row(r)] = s.Jeq[k * n + L.row(r)] * xy[r];
         }
-        pad_tile(s.scr, n, T(-0.0), lane);
+        pad_tile<G>(s.scr, n, T(-0.0), lane);
         warp_sync();
         const T t = sgn(s.req[k]) * sum_terms(s.scr, n);
         d_eq = k == 0 ? t : d_eq + t;
@@ -1056,8 +1091,27 @@ __global__ void __launch_bounds__(kMaxWarps * kWarp)
   const int inst = blockIdx.x * (blockDim.x / kWarp) + warp;
   if (inst >= B) return;  // the whole warp, before its first __syncwarp
   const size_t slab = carve<T, F>(fam, nullptr, nullptr);
-  blocked_sqp_solve<T, R, F>(fam, data, x0, x_out, state, ds0, ds1, xs0, xs1, B, opt, smem + warp * slab, inst,
-                             threadIdx.x % kWarp);
+  blocked_sqp_solve<T, R, F, false>(fam, data, x0, x_out, state, ds0, ds1, xs0, xs1, B, opt, smem + warp * slab,
+                                    inst, threadIdx.x % kWarp);
+}
+
+// Kernel 2 on the global route: warp w of the grid owns row w of the
+// (W * grid, slab bytes) global scratch and solves instances w,
+// w + W * grid, ... in turn on it, so the scratch holds a slab per warp of
+// the grid, not per instance. A kernel of its own, so that the shared
+// route's code stays as it was.
+template <typename T, int R, class F>
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
+    blocked_sqp_global_kernel(F fam, const T* __restrict__ data, const T* __restrict__ x0, T* __restrict__ x_out,
+                              T* __restrict__ state, long long ds0, long long ds1, long long xs0, long long xs1,
+                              int B, SolveOptions opt, unsigned char* __restrict__ scratch) {
+  const int first = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+  const int stride = gridDim.x * (blockDim.x / kWarp);
+  const size_t slab = carve<T, F>(fam, nullptr, nullptr);
+  for (int inst = first; inst < B; inst += stride) {
+    blocked_sqp_solve<T, R, F, true>(fam, data, x0, x_out, state, ds0, ds1, xs0, xs1, B, opt, scratch + first * slab,
+                                     inst, threadIdx.x % kWarp);
+  }
 }
 
 // Host side of a launch: checks that a CTA of `threads` threads with `bytes`
@@ -1082,76 +1136,113 @@ struct LaunchArgs {
   int warps;  // instances per CTA
   SolveOptions opt;
   cudaStream_t stream;
+  // The global route: the (slabs, slab_bytes) scratch, one slab per warp of
+  // the grid (the grid is slabs / warps CTAs); null for shared slabs.
+  void* scratch;
+  int slabs;
+  long long slab_bytes;
 };
 
 // A launcher's arguments (strides: data's instance and row stride, then
-// x0's); cudaErrorInvalidValue for a budget the kernel does not take.
+// x0's; scratch null, or `slabs` slabs of `slab_bytes`);
+// cudaErrorInvalidValue for a budget or scratch the kernel does not take.
 inline int launch_args(const void* data, const void* x0, const long long* strides, void* x_out, void* state,
                        int B, int warps, int max_iterations, int qp_iterations, int ls_iterations,
-                       int polynomial, int mpc, void* stream, LaunchArgs* a) {
-  if (max_iterations < 1 || qp_iterations < 0 || ls_iterations < 0) {
+                       int polynomial, int mpc, void* scratch, int slabs, long long slab_bytes, void* stream,
+                       LaunchArgs* a) {
+  if (max_iterations < 1 || qp_iterations < 0 || ls_iterations < 0 ||
+      (scratch != nullptr && (slabs < 1 || warps < 1 || slabs % warps != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *a = LaunchArgs{BlockedIO{data, x0, x_out, state, {strides[0], strides[1]}, {strides[2], strides[3]}},
                   B,
                   warps,
                   SolveOptions{max_iterations, qp_iterations, ls_iterations, polynomial != 0, mpc != 0},
-                  static_cast<cudaStream_t>(stream)};
+                  static_cast<cudaStream_t>(stream),
+                  scratch,
+                  slabs,
+                  slab_bytes};
   return 0;
 }
 
-// The arguments of an occupancy query for CTAs of `warps` instances.
-inline LaunchArgs occupancy_args(int warps) {
+// The arguments of an occupancy query for CTAs of `warps` instances, on the
+// global route where `global` holds.
+inline LaunchArgs occupancy_args(int warps, bool global) {
+  static char placeholder;
   return LaunchArgs{BlockedIO{nullptr, nullptr, nullptr, nullptr, {0, 0}, {0, 0}}, 1, warps,
-                    SolveOptions{1, 0, 0, false, false}, nullptr};
+                    SolveOptions{1, 0, 0, false, false}, nullptr, global ? &placeholder : nullptr, warps, 0};
 }
 
-// Kernel 2 with R rows a lane: a launch, or (occupancy_only) the CTAs of
-// a.warps instances that fit one SM, negative on an error.
-template <typename T, int R, class F>
+// Kernel 2 with R rows a lane, its slabs in shared memory or (G) in the
+// global scratch: a launch, or (occupancy_only) the CTAs of a.warps
+// instances that fit one SM, negative on an error. The global route takes
+// only a scratch whose slabs hold carve's count.
+template <typename T, int R, bool G, class F>
 int launch_rows(const F& fam, const LaunchArgs& a, bool occupancy_only) {
   const int threads = a.warps * kWarp;
-  const size_t bytes = static_cast<size_t>(a.warps) * carve<T, F>(fam, nullptr, nullptr);
-  const int rc = allow_dynamic_smem(blocked_sqp_kernel<T, R, F>, threads, kMaxWarps * kWarp, bytes);
-  if (occupancy_only) {
-    if (rc != 0) return rc > 0 ? -rc : rc;
-    int blocks = 0;
-    const cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, blocked_sqp_kernel<T, R, F>, threads, bytes);
-    return e == cudaSuccess ? blocks : -static_cast<int>(e);
+  const size_t slab = carve<T, F>(fam, nullptr, nullptr);
+  const size_t bytes = G ? 0 : static_cast<size_t>(a.warps) * slab;
+  if (G && !occupancy_only && slab > static_cast<size_t>(a.slab_bytes)) return kTooLarge;
+  auto run = [&](auto kernel, int grid, auto... scratch) {
+    const int rc = allow_dynamic_smem(kernel, threads, kMaxWarps * kWarp, bytes);
+    if (occupancy_only) {
+      if (rc != 0) return rc > 0 ? -rc : rc;
+      int blocks = 0;
+      const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, bytes);
+      return e == cudaSuccess ? blocks : -static_cast<int>(e);
+    }
+    if (rc != 0) return rc;
+    kernel<<<grid, threads, bytes, a.stream>>>(fam, static_cast<const T*>(a.io.data), static_cast<const T*>(a.io.x0),
+                                               static_cast<T*>(a.io.x_out), static_cast<T*>(a.io.state), a.io.ds[0],
+                                               a.io.ds[1], a.io.xs[0], a.io.xs[1], a.B, a.opt, scratch...);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (G) {
+    return run(blocked_sqp_global_kernel<T, R, F>, a.slabs / a.warps, static_cast<unsigned char*>(a.scratch));
+  } else {
+    return run(blocked_sqp_kernel<T, R, F>, (a.B + a.warps - 1) / a.warps);
   }
-  if (rc != 0) return rc;
-  const int grid = (a.B + a.warps - 1) / a.warps;
-  blocked_sqp_kernel<T, R, F><<<grid, threads, bytes, a.stream>>>(
-      fam, static_cast<const T*>(a.io.data), static_cast<const T*>(a.io.x0), static_cast<T*>(a.io.x_out),
-      static_cast<T*>(a.io.state), a.io.ds[0], a.io.ds[1], a.io.xs[0], a.io.xs[1], a.B, a.opt);
-  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, class F>
+// Kernel 2 on the family's instance with the rows a lane its D takes, on
+// the shared route or (G) the global one (which a.scratch must name).
+template <typename T, bool G, class F>
 int launch_family(const F& fam, const LaunchArgs& a, bool occupancy_only) {
-  if (a.warps < 1 || a.warps > kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
-  switch (rows_per_lane(fam.nvar() + F::M)) {
-    case 2: return launch_rows<T, 2>(fam, a, occupancy_only);
-    case 4: return launch_rows<T, 4>(fam, a, occupancy_only);
-    case 6: return launch_rows<T, 6>(fam, a, occupancy_only);
-    default: return kTooLarge;
+  if (a.warps < 1 || a.warps > kMaxWarps || G != (a.scratch != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int D = fam.nvar() + F::M;
+  if constexpr (G) {
+    switch (global_rows_per_lane(D)) {
+      case 6: return launch_rows<T, 6, true>(fam, a, occupancy_only);
+      case 8: return launch_rows<T, 8, true>(fam, a, occupancy_only);
+      default: return kTooLarge;
+    }
+  } else {
+    switch (rows_per_lane(D)) {
+      case 2: return launch_rows<T, 2, false>(fam, a, occupancy_only);
+      case 4: return launch_rows<T, 4, false>(fam, a, occupancy_only);
+      case 6: return launch_rows<T, 6, false>(fam, a, occupancy_only);
+      default: return kTooLarge;
+    }
   }
 }
 
-// family: 0 planar (families.cuh PlanarChain).
-template <typename T>
-int dispatch_family(int family, int n, double link, const LaunchArgs& a, bool occupancy_only) {
-  switch (family) {
-    case 0: return launch_family<T>(PlanarChain{n, link}, a, occupancy_only);
-    default: return kNoInstance;
-  }
-}
-
-// The instances of one dtype, each built in its own source file so that the
-// two compile in parallel: blocked.cu (float), blocked_f64.cu (double).
-int launch_float(int family, int n, double link, const LaunchArgs& a, bool occupancy_only);
-int launch_double(int family, int n, double link, const LaunchArgs& a, bool occupancy_only);
+// The instances, each group built in its own source file so that they
+// compile in parallel and each file's kernels are the only callers of the
+// routines they inline: blocked.cu (the planar chain's shared-route float
+// instances, with the C launcher), blocked_f64.cu (double),
+// blocked_spatial.cu and blocked_spatial_f64.cu (families.cuh SpatialChain),
+// blocked_global.cu, blocked_global_f64.cu, blocked_spatial_global.cu and
+// blocked_spatial_global_f64.cu (the global route's).
+int launch_planar_float(int n, double link, const LaunchArgs& a, bool occupancy_only);
+int launch_planar_double(int n, double link, const LaunchArgs& a, bool occupancy_only);
+int launch_spatial_float(int n, double link, const LaunchArgs& a, bool occupancy_only);
+int launch_spatial_double(int n, double link, const LaunchArgs& a, bool occupancy_only);
+int launch_global_planar_float(int n, double link, const LaunchArgs& a, bool occupancy_only);
+int launch_global_planar_double(int n, double link, const LaunchArgs& a, bool occupancy_only);
+int launch_global_spatial_float(int n, double link, const LaunchArgs& a, bool occupancy_only);
+int launch_global_spatial_double(int n, double link, const LaunchArgs& a, bool occupancy_only);
 #endif
 
 }  // namespace blocked

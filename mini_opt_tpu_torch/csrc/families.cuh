@@ -11,7 +11,7 @@
 // The link length is a runtime member. Every expression keeps the operand
 // order of the Python version, so both round alike.
 //
-// PlanarChain at the end is the blocked tier's planar family
+// PlanarChain and SpatialChain at the end are the blocked tier's families
 // (blocked_sqp.cuh): the same arithmetic with the chain length a runtime
 // value, evaluated by the instance's warp.
 #pragma once
@@ -336,6 +336,130 @@ struct PlanarChain {
     const T ey = py - tgt[1];
     f = T(0.5) * (ey * ey);
     eq = fabs(px - tgt[0]);
+    __syncwarp();
+  }
+};
+
+// The spatial chain with a runtime number of joints n, for the blocked tier:
+// Spatial's arithmetic, with PlanarChain's cooperative interface. The
+// rotation chain is a product of prefixes, so every lane runs all of it (the
+// same operations in joint order, so every lane holds the same effector p);
+// lane l records the axis w_a and origin q_a of its joints a = l, l + 32, ...
+// as the chain passes them, and then makes their Jacobian columns
+// J_a = w_a x (p - q_a) from the slots it wrote itself.
+struct SpatialChain {
+  static constexpr int M = 1;
+  static constexpr int ROWS = 3;
+  static constexpr int kLanes = 32;
+  int n;
+  double link;
+
+  __host__ __device__ int nvar() const { return n; }
+  // Joints 1..n-1 limited to [0, pi]: slack j sits on joint j + 1.
+  __host__ __device__ int nlo() const { return n - 1; }
+  __host__ __device__ int nhi() const { return n - 1; }
+  __device__ int lo_slot(int i) const { return i - 1; }  // -1: no bound
+  __device__ int hi_slot(int i) const { return i - 1; }
+  __device__ double lo_val(int) const { return 0.0; }
+  __device__ double hi_val(int) const { return kPi; }
+  // Scratch: w_a and q_a (6 a joint), then J_y and J_z (J_x goes straight
+  // to J_eq).
+  __host__ __device__ int scratch() const { return 8 * n; }
+
+  template <typename T>
+  __device__ __forceinline__ T retract(int, T a) const {
+    const T two_pi = T(2.0 * kPi);
+    return a - two_pi * floor((a + T(kPi)) / two_pi);
+  }
+
+  // The effector p on every lane; with wq, the lane's joints' w_a (wq[6a
+  // ..]) and q_a (wq[6a + 3 ..]). Spatial::fk's operations in its order.
+  template <typename T>
+  __device__ void chain(int lane, const T* th, T* wq, T (&p)[3]) const {
+    const T L = T(link);
+    T R[3][3] = {{T(1), T(0), T(0)}, {T(0), T(1), T(0)}, {T(0), T(0), T(1)}};
+    p[0] = p[1] = p[2] = T(0);
+    for (int a = 0; a < n; ++a) {
+      const int axis_col = a % 2 == 0 ? 2 : 1;  // z-axis or y-axis column
+      if (wq != nullptr && (a - lane) % kLanes == 0) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          wq[6 * a + r] = R[r][axis_col];
+          wq[6 * a + 3 + r] = p[r];
+        }
+      }
+      const T c_ = cos(th[a]), s_ = sin(th[a]);
+      if (a % 2 == 0) {  // R = R @ Rz
+        T c0[3], c1[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          c0[r] = c_ * R[r][0] + s_ * R[r][1];
+          c1[r] = -s_ * R[r][0] + c_ * R[r][1];
+        }
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          R[r][0] = c0[r];
+          R[r][1] = c1[r];
+        }
+      } else {  // R = R @ Ry
+        T c0[3], c2[3];
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          c0[r] = c_ * R[r][0] - s_ * R[r][2];
+          c2[r] = s_ * R[r][0] + c_ * R[r][2];
+        }
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+          R[r][0] = c0[r];
+          R[r][2] = c2[r];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 3; ++r) p[r] = p[r] + L * R[r][0];
+    }
+  }
+
+  // G: packed lower triangle (row i at i (i + 1) / 2), Jeq (1, n), c (n),
+  // req (1) in the slab; f to every lane.
+  template <typename T>
+  __device__ void linearize(int lane, const T* th, const T* tgt, T* scr, T* G, T* Jeq, T* c, T* req,
+                            T& f) const {
+    T* wq = scr;
+    T* jy = scr + 6 * n;
+    T* jz = scr + 7 * n;
+    T p[3];
+    chain(lane, th, wq, p);
+    for (int a = lane; a < n; a += kLanes) {
+      T d[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) d[r] = p[r] - wq[6 * a + 3 + r];
+      const T* w = wq + 6 * a;
+      Jeq[a] = w[1] * d[2] - w[2] * d[1];
+      jy[a] = w[2] * d[0] - w[0] * d[2];
+      jz[a] = w[0] * d[1] - w[1] * d[0];
+    }
+    __syncwarp();
+    const T ry = p[1] - tgt[1];
+    const T rz = p[2] - tgt[2];
+    const T rx = p[0] - tgt[0];
+    f = T(0.5) * (ry * ry + rz * rz);
+    for (int q = lane; q < n * (n + 1) / 2; q += kLanes) {
+      const int i = packed_row(q), j = q - i * (i + 1) / 2;
+      G[q] = jy[i] * jy[j] + jz[i] * jz[j];
+    }
+    for (int a = lane; a < n; a += kLanes) c[a] = jy[a] * ry + jz[a] * rz;
+    if (lane == 0) req[0] = rx;
+    __syncwarp();
+  }
+
+  template <typename T>
+  __device__ void errors(int lane, const T* th, const T* tgt, T*, T& f, T& eq) const {
+    T p[3];
+    chain<T>(lane, th, nullptr, p);
+    const T ey = p[1] - tgt[1];
+    const T ez = p[2] - tgt[2];
+    f = T(0.5) * (ey * ey + ez * ez);
+    eq = fabs(p[0] - tgt[0]);
     __syncwarp();
   }
 };

@@ -1,61 +1,54 @@
-// The fused IK kernel's hand-written instances: the solver skeleton
-// (fused_sqp.cuh) for the planar and spatial families (families.cuh),
-// N = 2..8, in float and double, behind a plain C launcher that
-// ops/fused_ik.py binds with ctypes. The kernel and its launch are in
-// fused_ik_launch.cuh, which the families emitted from a Problem
-// (ops/fused_emit.py) share.
+// One hand-written instance of the fused IK kernel: the solver skeleton
+// (fused_sqp.cuh) on the planar or spatial family (families.cuh) at one
+// chain length and type, behind a plain C launcher that ops/fused_ik.py binds
+// with ctypes. The kernel and its launch are in fused_ik_launch.cuh, which
+// the families emitted from a Problem (ops/fused_emit.py) share.
+//
+// This file is not part of the main library: ops/_build.py builds it once per
+// (family, n, type) at first use, each with its own nvcc, passing
+//   MO_IK_FAMILY   0 planar, 1 spatial
+//   MO_IK_N        the chain length
+//   MO_IK_DOUBLE   0 float, 1 double
+//   MO_FUSED_IK_MIN_N / MO_FUSED_IK_MAX_N   the chain lengths the port takes
+//                  (ops/fused_ik.py CUDA_MIN_N / CUDA_MAX_N, their one home)
+// so that a process builds only the instances it launches. A fully unrolled
+// instance at n = 31 is large; building all 124 in one file would put every
+// one of them on the path of every process.
+#include <type_traits>
+
 #include "families.cuh"
 #include "fused_ik_launch.cuh"
 
+#if !defined(MO_IK_FAMILY) || !defined(MO_IK_N) || !defined(MO_IK_DOUBLE) || !defined(MO_FUSED_IK_MIN_N) || \
+    !defined(MO_FUSED_IK_MAX_N)
+#error "fused_ik.cu is built per instance by ops/_build.py::build_fused_ik"
+#endif
+static_assert(MO_IK_N >= MO_FUSED_IK_MIN_N && MO_IK_N <= MO_FUSED_IK_MAX_N, "no instance at this chain length");
+static_assert(MO_IK_FAMILY == 0 || MO_IK_FAMILY == 1, "family: 0 planar, 1 spatial");
+
 namespace {
 
-template <typename T, template <int> class Fam>
-int dispatch_n(int n, double link, const LaunchArgs& a) {
-  switch (n) {
-    case 2: return launch<T>(Fam<2>{{}, link}, a);
-    case 3: return launch<T>(Fam<3>{{}, link}, a);
-    case 4: return launch<T>(Fam<4>{{}, link}, a);
-    case 5: return launch<T>(Fam<5>{{}, link}, a);
-    case 6: return launch<T>(Fam<6>{{}, link}, a);
-    case 7: return launch<T>(Fam<7>{{}, link}, a);
-    case 8: return launch<T>(Fam<8>{{}, link}, a);
-    default: return mo::kNoInstance;
-  }
-}
-
-template <typename T>
-int dispatch_family(int family, int n, double link, const LaunchArgs& a) {
-  switch (family) {
-    case 0: return dispatch_n<T, mo::Planar>(n, link, a);
-    case 1: return dispatch_n<T, mo::Spatial>(n, link, a);
-    default: return mo::kNoInstance;
-  }
-}
+using Real = std::conditional_t<MO_IK_DOUBLE != 0, double, float>;
+using Family = std::conditional_t<MO_IK_FAMILY == 0, mo::Planar<MO_IK_N>, mo::Spatial<MO_IK_N>>;
 
 }  // namespace
 
-// family: 0 planar, 1 spatial; dtype: 0 float, 1 double. data (B, rows)
-// and x0 (B, n) at the element strides in `strides` (data 2, x0 2); x_out
-// (B, n), state (B, 3) and hist (B, max_iterations, 7 + n) contiguous, hist
-// may be NULL.
-extern "C" int mo_fused_ik_launch(int family, int n, int dtype, const void* data, const void* x0,
-                                  const long long* strides, void* x_out, void* state, void* hist,
-                                  int B, int max_iterations, int qp_iterations, int ls_iterations,
-                                  int polynomial, int mpc, double link, void* stream) {
+// data (B, rows) and x0 (B, n) at the element strides in `strides` (data 2,
+// x0 2); x_out (B, n), state (B, 3) and hist (B, max_iterations, 7 + n)
+// contiguous, hist may be NULL; all of this instance's type.
+extern "C" int mo_fused_ik_launch(const void* data, const void* x0, const long long* strides, void* x_out,
+                                  void* state, void* hist, int B, int max_iterations, int qp_iterations,
+                                  int ls_iterations, int polynomial, int mpc, double link, void* stream) {
   LaunchArgs a;
   if (const int rc = launch_args(data, x0, strides, x_out, state, hist, B, max_iterations, qp_iterations,
                                  ls_iterations, polynomial, mpc, stream, &a)) {
     return rc;
   }
-  switch (dtype) {
-    case 0: return dispatch_family<float>(family, n, link, a);
-    case 1: return dispatch_family<double>(family, n, link, a);
-    default: return mo::kNoInstance;
-  }
+  return launch<Real>(Family{{}, link}, a);
 }
 
-// Text of any launcher's return code (fused_sqp.cuh's, or CUDA's).
-extern "C" const char* mo_cuda_error_string(int rc) { return error_text(rc); }
+// Text of the launcher's return code (fused_sqp.cuh's, or CUDA's).
+extern "C" const char* mo_fused_ik_error_string(int rc) { return error_text(rc); }
 
 #ifdef MO_FUSED_SPANS
 // The phase spans of instance 0 (fused_sqp.cuh IkSpan order), summed since

@@ -1,6 +1,9 @@
 // Kernel 7's launcher (the device code is in pose_ring.cuh): the float
 // instances, the topology schedule and the plain C entry points that
-// ops/pose_ring.py binds with ctypes. The launcher runs on the caller's
+// ops/pose_ring.py binds with ctypes: mo_pose_ring_launch for up to
+// kMaxClosures closures and kMaxBorders borders (the schedule by value, the
+// Schur system a template on k), mo_pose_ring_table_launch past them (the
+// schedule a device table, k a run-time value). The launcher runs on the caller's
 // stream (PyTorch's current stream), allocates nothing (the caller passes the
 // global scratch array on the route that needs one), does not synchronise,
 // and returns cudaGetLastError() so that a refused launch is reported.
@@ -8,6 +11,10 @@
 
 int mo::ring::launch_float(const Topology& tp, const LaunchArgs& a, bool occupancy_only) {
   return dispatch_k<float>(tp, a, occupancy_only);
+}
+
+int mo::ring::launch_float_table(const TopoTable& tp, const LaunchArgs& a, bool occupancy_only) {
+  return launch<float, 0>(tp, a, occupancy_only);
 }
 
 namespace {
@@ -105,6 +112,52 @@ extern "C" int mo_pose_ring_occupancy(int dtype, int n, int n_cl, const int* clo
   const mo::ring::LaunchArgs a{nullptr, nullptr, nullptr, nullptr, global_scratch ? &placeholder : nullptr,
                                1, warps, 0, 0, nullptr};
   return launch(dtype, tp, a, true);
+}
+
+// The run-time route, for any number of closures and border poses: the
+// schedule's arrays in the device table `table` (int32: cl_from and cl_to
+// (n_cl each), border (k), seg_lo and seg_hi (n_seg each), as
+// ops/pose_ring.py::ring_schedule makes them), the Schur system of the k
+// borders in the slab. Otherwise as mo_pose_ring_launch.
+extern "C" int mo_pose_ring_table_launch(int dtype, int n, int n_cl, int k, int n_seg, const int* table,
+                                         double anchor_weight, const void* data, const void* x0, void* x_out,
+                                         void* state, void* scratch, int B, int warps, int max_iterations,
+                                         int ls_iterations, void* stream) {
+  if (B <= 0 || max_iterations < 0 || ls_iterations < 0 || n < 2 || n_cl < 1 || k < 2 || n_seg < 0 ||
+      table == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const mo::ring::TopoTable tp{n, n_cl, table, table + n_cl, k, table + 2 * n_cl, n_seg,
+                               table + 2 * n_cl + k, table + 2 * n_cl + k + n_seg, anchor_weight * anchor_weight,
+                               0.5 * anchor_weight * anchor_weight};
+  const mo::ring::LaunchArgs a{data, x0, x_out, state, scratch, B, warps, max_iterations, ls_iterations,
+                               static_cast<cudaStream_t>(stream)};
+  switch (dtype) {
+    case 0: return mo::ring::launch_float_table(tp, a, false);
+    case 1: return mo::ring::launch_double_table(tp, a, false);
+    default: return mo::kNoInstance;
+  }
+}
+
+// Slots of one instance's slab on the run-time route (Layout(n, n_cl,
+// k).total); -1 for no such graph.
+extern "C" int mo_pose_ring_table_slots(int n, int n_cl, int k) {
+  if (n < 2 || n_cl < 1 || k < 2) return -1;
+  return mo::ring::Layout(n, n_cl, k).total;
+}
+
+// CTAs per SM of the run-time route's kernel at `warps` instances per CTA
+// on the shared (global_scratch 0) or global (1) slab route.
+extern "C" int mo_pose_ring_table_occupancy(int dtype, int n, int n_cl, int k, int warps, int global_scratch) {
+  if (n < 2 || n_cl < 1 || k < 2) return -static_cast<int>(cudaErrorInvalidValue);
+  static char placeholder;
+  const mo::ring::TopoTable tp{n, n_cl, nullptr, nullptr, k, nullptr, 0, nullptr, nullptr, 1.0, 0.5};
+  const mo::ring::LaunchArgs a{nullptr, nullptr, nullptr, nullptr, global_scratch ? &placeholder : nullptr,
+                               1, warps, 0, 0, nullptr};
+  switch (dtype) {
+    case 0: return mo::ring::launch_float_table(tp, a, true);
+    case 1: return mo::ring::launch_double_table(tp, a, true);
+    default: return mo::kNoInstance;
+  }
 }
 
 #ifdef MO_RING_SPANS

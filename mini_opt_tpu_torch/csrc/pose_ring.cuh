@@ -44,7 +44,11 @@
 //   a step ahead); every lane inverts the pivot block alike, so the next
 //   step's operands are in its registers. The back substitution passes each
 //   step's values by shuffle. With k >= 2 borders, lane i builds and
-//   factors row i of the borders' 3k x 3k Schur system.
+//   factors row i of the borders' 3k x 3k Schur system. Past kMaxBorders
+//   borders or kMaxClosures closures (the run-time route, K = 0: any
+//   topology), the schedule is a device table (TopoTable) and the Schur
+//   system lives in the slab, rows l, l + 32, ... on lane l, factored column
+//   by column in the same order (bordered_solve_rt).
 // - The line-search probes are independent (the plain version evaluates
 //   each and blends), so their edge terms are evaluated together, up to
 //   kProbeChunk probes a round; then the Armijo tests, the takes and the
@@ -88,7 +92,10 @@ constexpr double kPi = 3.141592653589793;
 
 // The topology as a schedule: closures in declaration order, the border
 // poses ascending (one closure: its lower endpoint; several: every
-// endpoint), and the chain segments between them in ascending order.
+// endpoint), and the chain segments between them in ascending order. Up to
+// kMaxClosures closures and kMaxBorders borders the schedule is passed by
+// value and the Schur system is a template on k; past them (TopoTable) its
+// arrays are a small device table and k a run-time value.
 struct Topology {
   int n;
   int n_cl;
@@ -103,6 +110,23 @@ struct Topology {
   double half_wa2;  // 0.5 * anchor_weight^2
 };
 
+// The same schedule with run-time sizes: its arrays point into one device
+// table [cl_from (n_cl), cl_to (n_cl), border (k), seg_lo (n_seg), seg_hi
+// (n_seg)] that the caller keeps (ops/pose_ring.py::ring_schedule).
+struct TopoTable {
+  int n;
+  int n_cl;
+  const int* cl_from;
+  const int* cl_to;
+  int k;
+  const int* border;
+  int n_seg;
+  const int* seg_lo;
+  const int* seg_hi;
+  double wa2;
+  double half_wa2;
+};
+
 __host__ __device__ inline int round4(int k) { return (k + 3) & ~3; }
 
 // One instance's slots, each array from a 4-slot (16-byte) boundary: the
@@ -112,15 +136,17 @@ __host__ __device__ inline int round4(int k) { return (k + 3) & ~3; }
 // edge); ZW (18N: two border columns per pose); 9 per closure; the 3E
 // measurements; the terms area: kEdgeValues rows of e4 = round4(E) slots
 // (the linearization's per-edge values; a line-search round's cost terms,
-// one row per probe; the terms of g . dx).
+// one row per probe; the terms of g . dx). With kr > 0 border poses on the
+// run-time route, the borders' 3kr x 3kr Schur system (row-major, factored
+// in place), its right-hand side / solution and its pivots follow.
 struct Layout {
-  int x, best, bx, dx, g, zy, D, U, ZW, Cb, meas, terms, e4, total;
+  int x, best, bx, dx, g, zy, D, U, ZW, Cb, meas, terms, e4, Sh, Sy, Sd, total;
   __host__ __device__ static int take(int& o, int n) {
     const int at = o;
     o += round4(n);
     return at;
   }
-  __host__ __device__ Layout(int n, int n_cl) {
+  __host__ __device__ Layout(int n, int n_cl, int kr = 0) {
     const int E = n - 1 + n_cl;
     e4 = round4(E);
     int o = 0;
@@ -136,6 +162,9 @@ struct Layout {
     Cb = take(o, 9 * n_cl);
     meas = take(o, 3 * E);
     terms = take(o, kEdgeValues * e4);
+    Sh = take(o, 9 * kr * kr);
+    Sy = take(o, 3 * kr);
+    Sd = take(o, 3 * kr);
     total = o;
   }
 };
@@ -365,9 +394,9 @@ __device__ __forceinline__ T* dyn_smem() {
 // ---------------------------------------------------------------------------
 
 // The warp's view of its instance: the topology, the slab and its layout.
-template <typename T>
+template <typename T, class TP = Topology>
 struct Ctx {
-  const Topology& tp;
+  const TP& tp;
   T* s;
   Layout L;
   int lane;
@@ -376,7 +405,8 @@ struct Ctx {
   __device__ V3<T> zy(int p) const { return load_v(s + L.zy + 3 * p); }
 };
 
-__device__ __forceinline__ void edge_ij(const Topology& tp, int e, int& i, int& j) {
+template <class TP>
+__device__ __forceinline__ void edge_ij(const TP& tp, int e, int& i, int& j) {
   if (e < tp.n - 1) {
     i = e;
     j = e + 1;
@@ -416,17 +446,17 @@ __device__ __forceinline__ M3<T> jac_j(T c, T sn) {
 }
 
 // The anchor's cost term at the pose (ax, ay, theta).
-template <typename T>
-__device__ __forceinline__ T anchor_term(const Topology& tp, T ax, T ay, T ath) {
+template <typename T, class TP>
+__device__ __forceinline__ T anchor_term(const TP& tp, T ax, T ay, T ath) {
   const T at = wrap(ath);
   return T(tp.half_wa2) * (ax * ax + ay * ay + at * at);
 }
 
 // Gauss-Newton blocks at x into the slab: D, U, the closure blocks Cb[j]
 // = block(min_j, max_j), the gradient g. Returns the cost on every lane.
-template <typename T>
-__device__ __forceinline__ T linearize(const Ctx<T>& cx) {
-  const Topology& tp = cx.tp;
+template <typename T, class TP>
+__device__ __forceinline__ T linearize(const Ctx<T, TP>& cx) {
+  const TP& tp = cx.tp;
   T* s = cx.s;
   const Layout& L = cx.L;
   const int N = cx.N, E = cx.E, lane = cx.lane;
@@ -526,8 +556,8 @@ __device__ __forceinline__ T linearize(const Ctx<T>& cx) {
 // The coupling block(p, q) entry (r, c) of pose p in a segment with the
 // border pose q of its column, where the JAX kernel's Brow holds one; 0
 // where it holds none.
-template <typename T, int K>
-__device__ __forceinline__ T brow_entry(const Ctx<T>& cx, int p, int q, int lo, int hi, int r, int c) {
+template <typename T, int K, class TP>
+__device__ __forceinline__ T brow_entry(const Ctx<T, TP>& cx, int p, int q, int lo, int hi, int r, int c) {
   const T* s = cx.s;
   const Layout& L = cx.L;
   if constexpr (K == 1) {
@@ -579,8 +609,8 @@ __device__ __forceinline__ Part part_of(int lane, int ncol) {
 // and the border couplings, which the sweep does not write) are loaded a
 // step ahead. Every lane stores every step, lanes without a part to a slot
 // of the terms area, which the sweep does not use.
-template <typename T, int K>
-__device__ __forceinline__ T sweep(const Ctx<T>& cx, int lo, int hi, int ncol, const int (&cols)[2], T lam) {
+template <typename T, int K, class TP>
+__device__ __forceinline__ T sweep(const Ctx<T, TP>& cx, int lo, int hi, int ncol, const int (&cols)[2], T lam) {
   T* s = cx.s;
   const Layout& L = cx.L;
   const Part pt = part_of(cx.lane, ncol);
@@ -688,15 +718,16 @@ __device__ __forceinline__ T sweep(const Ctx<T>& cx, int lo, int hi, int ncol, c
 }
 
 // 1 where the bad flag is set or any step entry is not finite (uniform).
-template <typename T>
-__device__ __forceinline__ T finite_flag(const Ctx<T>& cx, T bad) {
+template <typename T, class TP>
+__device__ __forceinline__ T finite_flag(const Ctx<T, TP>& cx, T bad) {
   bool fin = true;
   for (int q = cx.lane; q < 3 * cx.N; q += kWarp) fin = fin && isfinite(cx.s[cx.L.dx + q]);
   return mo::nmax(bad, __all_sync(kAll, fin) ? T(0) : T(1));
 }
 
 // Segment s's border columns, left then right: returns their count.
-__device__ __forceinline__ int seg_cols(const Topology& tp, int sg, int (&cols)[2]) {
+template <class TP>
+__device__ __forceinline__ int seg_cols(const TP& tp, int sg, int (&cols)[2]) {
   int nc = 0;
   if (tp.seg_lo[sg] - 1 >= 0) cols[nc++] = tp.seg_lo[sg] - 1;
   if (tp.seg_hi[sg] + 1 <= tp.n - 1) cols[nc++] = tp.seg_hi[sg] + 1;
@@ -704,9 +735,9 @@ __device__ __forceinline__ int seg_cols(const Topology& tp, int sg, int (&cols)[
 }
 
 // (H + lam I) dx = -g for one closure: dx into the slab; returns bad.
-template <typename T>
-__device__ __forceinline__ T bordered_solve(const Ctx<T>& cx, T lam) {
-  const Topology& tp = cx.tp;
+template <typename T, class TP>
+__device__ __forceinline__ T bordered_solve(const Ctx<T, TP>& cx, T lam) {
+  const TP& tp = cx.tp;
   T* s = cx.s;
   const Layout& L = cx.L;
   const int a = tp.border[0];
@@ -775,10 +806,17 @@ __device__ __forceinline__ T bordered_solve(const Ctx<T>& cx, T lam) {
   return finite_flag(cx, bad);
 }
 
-template <int K>
-__device__ __forceinline__ int border_index(const Topology& tp, int p) {
+template <int K, class TP>
+__device__ __forceinline__ int border_index(const TP& tp, int p) {
 #pragma unroll
   for (int i = 0; i < K; ++i)
+    if (tp.border[i] == p) return i;
+  return -1;
+}
+
+// The same for k = tp.k border poses at run time.
+__device__ __forceinline__ int border_index_rt(const TopoTable& tp, int p) {
+  for (int i = 0; i < tp.k; ++i)
     if (tp.border[i] == p) return i;
   return -1;
 }
@@ -790,10 +828,10 @@ __device__ __forceinline__ int border_index(const Topology& tp, int p) {
 // left-looking LDL^T of fused_sqp.cuh's ldlt_factor then runs column by
 // column, lane i making L_ij from its row and row j's entries by shuffle,
 // and the substitutions run lane by lane in ldlt_apply's order.
-template <typename T, int K>
-__device__ __forceinline__ T bordered_solve_multi(const Ctx<T>& cx, T lam) {
+template <typename T, int K, class TP>
+__device__ __forceinline__ T bordered_solve_multi(const Ctx<T, TP>& cx, T lam) {
   constexpr int DK = 3 * K;
-  const Topology& tp = cx.tp;
+  const TP& tp = cx.tp;
   T* s = cx.s;
   const Layout& L = cx.L;
   const int lane = cx.lane;
@@ -906,14 +944,156 @@ __device__ __forceinline__ T bordered_solve_multi(const Ctx<T>& cx, T lam) {
   return finite_flag(cx, bad);
 }
 
+// (H + lam I) dx = -g for k = tp.k border poses at run time (the run-time
+// route, past kMaxBorders borders or kMaxClosures closures): dx into the
+// slab; returns bad. bordered_solve_multi's arithmetic in its order, with
+// the borders' 3k x 3k Schur system in the slab (Layout::Sh, row-major)
+// instead of a row per lane in registers: lane l builds rows l, l + 32, ...,
+// with every update of that row in the same order; the left-looking LDL^T
+// takes column j on the rows j.. (row j's entry is the pivot d_j, the rows
+// below divide by it), a __syncwarp between a column's entries and its
+// quotients; the forward substitution takes x_k from the slab after a
+// __syncwarp a step; the back substitution runs each row on its owner, k
+// ascending, a __syncwarp a row.
+template <typename T>
+__device__ __forceinline__ T bordered_solve_rt(const Ctx<T, TopoTable>& cx, T lam) {
+  const TopoTable& tp = cx.tp;
+  const int DK = 3 * tp.k;
+  T* s = cx.s;
+  const Layout& L = cx.L;
+  const int lane = cx.lane;
+  T* H = s + L.Sh;
+  T* Y = s + L.Sy;
+  T* Dg = s + L.Sd;
+  T bad = T(0);
+  for (int sg = 0; sg < tp.n_seg; ++sg) {
+    int cols[2] = {0, 0};
+    const int nc = seg_cols(tp, sg, cols);
+    bad = mo::nmax(bad, sweep<T, 0>(cx, tp.seg_lo[sg], tp.seg_hi[sg], nc, cols, lam));
+  }
+
+  // Row i of H and of the right-hand side.
+  for (int i = lane; i < DK; i += kWarp) {
+    const int bi = i / 3, r = i % 3, pb = tp.border[bi];
+    const T* dr = s + L.D + 9 * pb + 3 * r;
+    for (int j = 0; j < DK; ++j) H[i * DK + j] = j / 3 == bi ? dr[j % 3] + (j % 3 == r ? lam : T(0)) : T(0);
+    Y[i] = -s[L.g + 3 * pb + r];
+  }
+  // block(bi, bj) += or -= M on row i (row r of M: m0, m1, m2).
+  auto add_row = [&](int i, int bj, T m0, T m1, T m2, bool sub) {
+    T* h = H + i * DK + 3 * bj;
+    h[0] = sub ? h[0] - m0 : h[0] + m0;
+    h[1] = sub ? h[1] - m1 : h[1] + m1;
+    h[2] = sub ? h[2] - m2 : h[2] + m2;
+  };
+  for (int i2 = 0; i2 + 1 < tp.k; ++i2) {
+    const int p = tp.border[i2];
+    if (tp.border[i2 + 1] != p + 1) continue;
+    const T* u = s + L.U + 9 * p;
+    for (int i = lane; i < DK; i += kWarp) {
+      const int bi = i / 3, r = i % 3;
+      if (bi == i2) add_row(i, i2 + 1, u[3 * r], u[3 * r + 1], u[3 * r + 2], false);  // U(p)
+      if (bi == i2 + 1) add_row(i, i2, u[r], u[3 + r], u[6 + r], false);              // U(p)^T
+    }
+  }
+  for (int jc = 0; jc < tp.n_cl; ++jc) {
+    const int f = tp.cl_from[jc], t = tp.cl_to[jc];
+    const int lo = border_index_rt(tp, f < t ? f : t), hi = border_index_rt(tp, f < t ? t : f);
+    const T* cb = s + L.Cb + 9 * jc;
+    for (int i = lane; i < DK; i += kWarp) {
+      const int bi = i / 3, r = i % 3;
+      if (bi == lo) add_row(i, hi, cb[3 * r], cb[3 * r + 1], cb[3 * r + 2], false);  // Cb
+      if (bi == hi) add_row(i, lo, cb[r], cb[3 + r], cb[6 + r], false);              // Cb^T
+    }
+  }
+  for (int sg = 0; sg < tp.n_seg; ++sg) {
+    int cols[2] = {0, 0};
+    const int nc = seg_cols(tp, sg, cols);
+    const int lo = tp.seg_lo[sg], hi = tp.seg_hi[sg];
+    for (int cp = 0; cp < nc; ++cp) {
+      const int P = cols[cp];
+      const bool left = P == lo - 1;
+      const int r_p = left ? lo : hi, bP = border_index_rt(tp, P);
+      for (int i = lane; i < DK; i += kWarp) {
+        const int r = i % 3;
+        if (i / 3 != bP) continue;
+        // Row r of C = block(P, r_p): U(P) row r, or U(hi)^T row r.
+        const T* u = s + L.U + 9 * (left ? P : hi);
+        const T c0 = left ? u[3 * r] : u[r], c1 = left ? u[3 * r + 1] : u[3 + r], c2 = left ? u[3 * r + 2] : u[6 + r];
+        const T* z = s + L.zy + 3 * r_p;
+        Y[i] = Y[i] - dot3(c0, c1, c2, z[0], z[1], z[2]);
+        for (int cq = 0; cq < nc; ++cq) {
+          const T* w = s + L.ZW + 18 * r_p + 9 * cq;
+          add_row(i, border_index_rt(tp, cols[cq]), dot3(c0, c1, c2, w[0], w[3], w[6]),
+                  dot3(c0, c1, c2, w[1], w[4], w[7]), dot3(c0, c1, c2, w[2], w[5], w[8]), true);
+        }
+      }
+    }
+  }
+
+  // LDL^T, column j: row i >= j takes H_ij - sum_k (L_ik L_jk) d_k (k < j),
+  // row j's is the pivot d_j, the rows below divide by it.
+  for (int j = 0; j < DK; ++j) {
+    warp_sync();  // column j - 1's quotients (and the rows' assembly) are in
+    for (int i = j + lane; i < DK; i += kWarp) {
+      T acc = H[i * DK + j];
+      for (int k = 0; k < j; ++k) acc = acc - H[i * DK + k] * H[j * DK + k] * Dg[k];
+      if (i == j) {
+        Dg[j] = acc;
+      } else {
+        H[i * DK + j] = acc;
+      }
+    }
+    warp_sync();
+    for (int i = j + 1 + lane; i < DK; i += kWarp) H[i * DK + j] = H[i * DK + j] / Dg[j];
+  }
+  warp_sync();
+  for (int j = 0; j < DK; ++j) {
+    const T dj = Dg[j];
+    const bool good = (fabs(dj) > mo::Tiny<T>::value()) && isfinite(dj);
+    bad = mo::nmax(bad, good ? T(0) : T(1));
+  }
+  // Forward substitution, diagonal, back substitution (ldlt_apply's order).
+  for (int k = 0; k < DK; ++k) {
+    warp_sync();  // y_k is final
+    const T yk = Y[k];
+    for (int i = k + 1 + lane; i < DK; i += kWarp) Y[i] = Y[i] - H[i * DK + k] * yk;
+  }
+  warp_sync();
+  for (int i = lane; i < DK; i += kWarp) Y[i] = Y[i] / Dg[i];
+  for (int i2 = DK - 1; i2 >= 0; --i2) {
+    warp_sync();  // rows past i2 are final
+    if (i2 % kWarp == lane) {
+      T y = Y[i2];
+      for (int k = i2 + 1; k < DK; ++k) y = y - H[k * DK + i2] * Y[k];
+      Y[i2] = y;
+    }
+  }
+  warp_sync();
+  for (int i = lane; i < DK; i += kWarp) s[L.dx + 3 * tp.border[i / 3] + i % 3] = Y[i];
+  warp_sync();  // the borders' steps are in dx
+  for (int sg = 0; sg < tp.n_seg; ++sg) {
+    int cols[2] = {0, 0};
+    const int nc = seg_cols(tp, sg, cols);
+    for (int p = tp.seg_lo[sg] + lane; p <= tp.seg_hi[sg]; p += kWarp) {
+      V3<T> xp = cx.zy(p);
+      for (int cq = 0; cq < nc; ++cq) xp = vsub(xp, mv(cx.ZW(p, cq), load_v(s + L.dx + 3 * cols[cq])));
+      T* dp = s + L.dx + 3 * p;
+      for (int r2 = 0; r2 < 3; ++r2) dp[r2] = xp.a[r2];
+    }
+  }
+  warp_sync();
+  return finite_flag(cx, bad);
+}
+
 // The whole solve of one instance by one warp on its slab: data (3E, B),
 // x0 (3N, B), x_out (3N, B), state (3, B), feature-major.
-template <typename T, int K>
-__device__ __forceinline__ void solve(const Topology& tp, T* slab, const T* __restrict__ data, const T* __restrict__ x0,
+template <typename T, int K, class TP>
+__device__ __forceinline__ void solve(const TP& tp, T* slab, const T* __restrict__ data, const T* __restrict__ x0,
                       T* __restrict__ x_out, T* __restrict__ state, int inst, int B, int max_iterations,
                       int ls_iterations) {
   const int N = tp.n, E = N - 1 + tp.n_cl;
-  const Ctx<T> cx{tp, slab, Layout(N, tp.n_cl), static_cast<int>(threadIdx.x % kWarp), N, E};
+  const Ctx<T, TP> cx{tp, slab, Layout(N, tp.n_cl, K == 0 ? tp.k : 0), static_cast<int>(threadIdx.x % kWarp), N, E};
   const Layout& L = cx.L;
   T* s = slab;
   const int lane = cx.lane, nx = 3 * N;
@@ -942,6 +1122,8 @@ __device__ __forceinline__ void solve(const Topology& tp, T* slab, const T* __re
     T bad;
     if constexpr (K == 1) {
       bad = bordered_solve(cx, lam);
+    } else if constexpr (K == 0) {
+      bad = bordered_solve_rt(cx, lam);
     } else {
       bad = bordered_solve_multi<T, K>(cx, lam);
     }
@@ -1028,16 +1210,17 @@ constexpr int kMinCtas = K == 1 ? (sizeof(T) == 4 ? 6 : 4) : 1;
 // warps, its slab in the CTA's dynamic shared memory (kShared) or row
 // `inst` of the instance-major (B, slots) global scratch. The route is a
 // template argument so that the compiler addresses a shared slab as shared
-// memory.
-template <typename T, int K, bool kShared>
+// memory. K = 0: the run-time route (TopoTable, the Schur system in the
+// slab).
+template <typename T, int K, bool kShared, class TP = Topology>
 __global__ void __launch_bounds__(kMaxWarps * kWarp, kMinCtas<T, K>)
-    pose_ring_kernel(Topology tp, const T* __restrict__ data, const T* __restrict__ x0,
+    pose_ring_kernel(TP tp, const T* __restrict__ data, const T* __restrict__ x0,
                      T* __restrict__ x_out, T* __restrict__ state, T* __restrict__ scratch, int B,
                      int max_iterations, int ls_iterations) {
   const int warp = threadIdx.x / kWarp;
   const int inst = blockIdx.x * (blockDim.x / kWarp) + warp;
   if (inst >= B) return;  // the whole warp, before its first __syncwarp
-  const int slots = Layout(tp.n, tp.n_cl).total;
+  const int slots = Layout(tp.n, tp.n_cl, K == 0 ? tp.k : 0).total;
   T* slab = kShared ? dyn_smem<T>() + static_cast<size_t>(warp) * slots : scratch + static_cast<size_t>(inst) * slots;
   solve<T, K>(tp, slab, data, x0, x_out, state, inst, B, max_iterations, ls_iterations);
 }
@@ -1058,14 +1241,15 @@ struct LaunchArgs {
 // Kernel 7 for K borders on one route: a launch, or (occupancy_only) the
 // CTAs of a.warps instances that fit one SM, negative on an error.
 // kTooLarge where the slabs do not fit one CTA's shared memory.
-template <typename T, int K, bool kShared>
-int launch_route(const Topology& tp, const LaunchArgs& a, bool occupancy_only) {
-  const size_t smem = kShared ? static_cast<size_t>(a.warps) * Layout(tp.n, tp.n_cl).total * sizeof(T) : 0;
+template <typename T, int K, bool kShared, class TP>
+int launch_route(const TP& tp, const LaunchArgs& a, bool occupancy_only) {
+  const size_t smem =
+      kShared ? static_cast<size_t>(a.warps) * Layout(tp.n, tp.n_cl, K == 0 ? tp.k : 0).total * sizeof(T) : 0;
   int rc = 0;
   if (smem > static_cast<size_t>(kMaxSmem)) {
     rc = mo::kTooLarge;
   } else if (smem > 48 * 1024) {
-    rc = static_cast<int>(cudaFuncSetAttribute(pose_ring_kernel<T, K, kShared>,
+    rc = static_cast<int>(cudaFuncSetAttribute(pose_ring_kernel<T, K, kShared, TP>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   }
   const int threads = a.warps * kWarp;
@@ -1073,19 +1257,19 @@ int launch_route(const Topology& tp, const LaunchArgs& a, bool occupancy_only) {
     if (rc != 0) return rc > 0 ? -rc : rc;
     int blocks = 0;
     const cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pose_ring_kernel<T, K, kShared>, threads, smem);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pose_ring_kernel<T, K, kShared, TP>, threads, smem);
     return e == cudaSuccess ? blocks : -static_cast<int>(e);
   }
   if (rc != 0) return rc;
   const int grid = (a.B + a.warps - 1) / a.warps;
-  pose_ring_kernel<T, K, kShared><<<grid, threads, smem, a.stream>>>(
+  pose_ring_kernel<T, K, kShared, TP><<<grid, threads, smem, a.stream>>>(
       tp, static_cast<const T*>(a.data), static_cast<const T*>(a.x0), static_cast<T*>(a.x_out),
       static_cast<T*>(a.state), static_cast<T*>(a.scratch), a.B, a.max_iterations, a.ls_iterations);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int K>
-int launch(const Topology& tp, const LaunchArgs& a, bool occupancy_only) {
+template <typename T, int K, class TP>
+int launch(const TP& tp, const LaunchArgs& a, bool occupancy_only) {
   if (a.warps < 1 || a.warps > kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
   return a.scratch != nullptr ? launch_route<T, K, false>(tp, a, occupancy_only)
                               : launch_route<T, K, true>(tp, a, occupancy_only);
@@ -1106,8 +1290,10 @@ int dispatch_k(const Topology& tp, const LaunchArgs& a, bool occupancy_only) {
 
 // The instances of one dtype, each built in its own source file so that
 // the two compile in parallel: pose_ring.cu (float), pose_ring_f64.cu
-// (double).
+// (double); launch_*_table are the run-time route's.
 int launch_float(const Topology& tp, const LaunchArgs& a, bool occupancy_only);
 int launch_double(const Topology& tp, const LaunchArgs& a, bool occupancy_only);
+int launch_float_table(const TopoTable& tp, const LaunchArgs& a, bool occupancy_only);
+int launch_double_table(const TopoTable& tp, const LaunchArgs& a, bool occupancy_only);
 
 }  // namespace mo::ring

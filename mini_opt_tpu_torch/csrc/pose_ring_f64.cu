@@ -5,3 +5,7 @@
 int mo::ring::launch_double(const Topology& tp, const LaunchArgs& a, bool occupancy_only) {
   return dispatch_k<double>(tp, a, occupancy_only);
 }
+
+int mo::ring::launch_double_table(const TopoTable& tp, const LaunchArgs& a, bool occupancy_only) {
+  return launch<double, 0>(tp, a, occupancy_only);
+}

@@ -7,8 +7,10 @@ shared library with a plain C interface. The library lands in
 flags, so an unchanged tree loads the library it already built. A family
 generated from a Problem gets a library of its own, from the source that
 ``ops/fused_emit.py`` emits for it, with the same flags
-(``load_generated``). A failed build raises with nvcc's stderr; nothing
-falls back to another path.
+(``load_generated``), and so does each hand-written instance of kernel 1
+(``csrc/fused_ik.cu`` at one family, chain length and type:
+``load_fused_ik``), so that a process builds only the sizes it launches. A
+failed build raises with nvcc's stderr; nothing falls back to another path.
 
 No kernel is built at import: the CPU tests import every module, and this
 host may have no ``nvcc``.
@@ -16,6 +18,7 @@ host may have no ``nvcc``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -23,6 +26,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -54,8 +58,12 @@ def nvcc_path():
     )
 
 
+# Built once per instance (build_fused_ik), never into the main library.
+INSTANCE_SOURCES = ("fused_ik.cu",)
+
+
 def _cu_sources():
-    cu = sorted(CSRC.glob("*.cu"))
+    cu = sorted(p for p in CSRC.glob("*.cu") if p.name not in INSTANCE_SOURCES)
     if not cu:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     return cu
@@ -83,26 +91,30 @@ def library_path():
     return BUILD_DIR / f"libmini_opt_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds):
-    """Run the commands in parallel; raise with the stderr of the first that
-    fails, after every process has ended."""
-    procs = [
-        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for c in cmds
-    ]
-    outs = [p.communicate() for p in procs]
-    for c, p, (_, err) in zip(cmds, procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {p.returncode}): {' '.join(c)}\n{err}"
-            )
-    return outs
+def _run_all(cmds, timed=False, jobs=None):
+    """Run the commands in parallel, at most ``jobs`` at a time (all at once
+    by default); raise with the stderr of the first that fails, after every
+    process has ended. Returns each one's (stdout, stderr), with ``timed``
+    (stdout, stderr, seconds from its start to its end)."""
+
+    def run(c):
+        start = time.perf_counter()
+        p = subprocess.run(c, capture_output=True, text=True)
+        return p.returncode, p.stdout, p.stderr, time.perf_counter() - start
+
+    with concurrent.futures.ThreadPoolExecutor(jobs or max(1, len(cmds))) as pool:
+        done = list(pool.map(run, cmds))
+    for c, (rc, _, err, _) in zip(cmds, done):
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(c)}\n{err}")
+    return [(out, err, s) if timed else (out, err) for _, out, err, s in done]
 
 
 def build():
     """Compile ``csrc/*.cu`` into the hashed shared library unless it is
     already there; return its path. ptxas's report (registers, spills per
-    kernel instance) is kept beside it in a ``.log`` file."""
+    kernel instance) is kept beside it in a ``.log`` file, each source's
+    build seconds in a ``.seconds`` file."""
     target = library_path()
     if target.exists():
         return target
@@ -115,9 +127,13 @@ def build():
             [
                 [nvcc, *_flags(), "-Xptxas", "-v", "-c", str(p), "-o", o]
                 for p, o in zip(cu, objs)
-            ]
+            ],
+            timed=True,
         )
-        target.with_suffix(".log").write_text("".join(err for _, err in outs))
+        target.with_suffix(".log").write_text("".join(err for _, err, _ in outs))
+        target.with_suffix(".seconds").write_text(
+            "".join(f"{p.name} {s:.2f}\n" for p, (_, _, s) in zip(cu, outs))
+        )
         partial = os.path.join(tmp, target.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", partial]])
         os.replace(partial, target)  # atomic: a concurrent loader sees all or nothing
@@ -208,15 +224,116 @@ def load_generated(source):
                     i, i,  # B, warps per CTA
                     i, i, i,  # max_iterations, qp_iterations, ls_iterations
                     i, i,  # polynomial line search, Mehrotra barrier
+                    p, i, ctypes.c_longlong,  # global scratch (or NULL), its slabs, bytes a slab
                     p,  # cudaStream_t
                 ]
                 lib.mo_generated_blocked_launch.restype = i
-                lib.mo_generated_blocked_occupancy.argtypes = [i, i]  # dtype, warps per CTA
+                lib.mo_generated_blocked_occupancy.argtypes = [i, i, i]  # dtype, warps per CTA, global
                 lib.mo_generated_blocked_occupancy.restype = i
             lib.mo_generated_error_string.argtypes = [i]
             lib.mo_generated_error_string.restype = ctypes.c_char_p
             _generated[path] = lib
         return _generated[path]
+
+
+# Kernel 1's hand-written instances past this chain length build with
+# LARGE_GENERATED_FLAGS: every D-loop of fused_sqp.cuh is unrolled, so the
+# instance grows as n^3 (the LDL^T) and NVVM's time with it. At -O3 one
+# instance took 12-15 s at n = 12, 17-22 s at 16, 40-51 s at 24 and more
+# than 300 s at 31 (ptxas spilled from n = 9 on); at -O1 every n took
+# 5-6 s (H100 machine, 8 cores, 8 builds at a time).
+LARGE_FUSED_IK_N = 12
+
+
+def fused_ik_flags(family: int, n: int, double: bool):
+    """nvcc's flags for kernel 1's hand-written instance of ``family`` (0
+    planar, 1 spatial) at chain length n in float or double: NVCC_FLAGS, the
+    instance's defines and the chain lengths the port takes
+    (``ops/fused_ik.py`` CUDA_MIN_N / CUDA_MAX_N, passed so that they have
+    one home). Raises ValueError for a chain length without an instance."""
+    from . import fused_ik
+
+    if not fused_ik.CUDA_MIN_N <= n <= fused_ik.CUDA_MAX_N or family not in (0, 1):
+        raise ValueError(
+            f"csrc/fused_ik.cu has instances of families 0 and 1 at n = {fused_ik.CUDA_MIN_N}.."
+            f"{fused_ik.CUDA_MAX_N}; got family {family}, n = {n}"
+        )
+    return (
+        *NVCC_FLAGS,
+        *(LARGE_GENERATED_FLAGS if n > LARGE_FUSED_IK_N else ()),
+        f"-DMO_IK_FAMILY={family}", f"-DMO_IK_N={n}", f"-DMO_IK_DOUBLE={int(double)}",
+        f"-DMO_FUSED_IK_MIN_N={fused_ik.CUDA_MIN_N}", f"-DMO_FUSED_IK_MAX_N={fused_ik.CUDA_MAX_N}",
+    )
+
+
+def fused_ik_path(family: int, n: int, double: bool):
+    """Where the library of one kernel-1 instance lives: named by the
+    instance and a hash of its flags, ``csrc/fused_ik.cu`` and the headers."""
+    h = hashlib.sha256(" ".join(fused_ik_flags(family, n, double)).encode())
+    for p in [CSRC / "fused_ik.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    tag = f"{('planar', 'spatial')[family]}{n}_{'f64' if double else 'f32'}"
+    return BUILD_DIR / f"libmini_opt_fused_ik_{tag}_{h.hexdigest()[:16]}.so"
+
+
+def build_fused_ik(instances, jobs=None):
+    """Build every kernel-1 instance ``(family, n, double)`` of ``instances``
+    that is not built yet, one nvcc process each, ``jobs`` at a time (the
+    host's cores by default); return their library paths. ptxas's report is
+    kept beside each library as ``.log``, the build's seconds as
+    ``.seconds``."""
+    instances = list(instances)
+    paths = [fused_ik_path(*inst) for inst in instances]
+    todo = {p: inst for p, inst in zip(paths, instances) if not p.exists()}
+    if todo:
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            cmds, parts = [], []
+            for p, inst in todo.items():
+                partial = os.path.join(tmp, p.name)
+                cmds.append([nvcc, *fused_ik_flags(*inst), "-Xptxas", "-v", "-shared", str(CSRC / "fused_ik.cu"),
+                             "-o", partial])
+                parts.append((p, partial))
+            outs = _run_all(cmds, timed=True, jobs=jobs or os.cpu_count())
+            for (p, partial), (_, err, seconds) in zip(parts, outs):
+                p.with_suffix(".log").write_text(err)
+                p.with_suffix(".seconds").write_text(f"{seconds:.2f}\n")
+                os.replace(partial, p)
+    return paths
+
+
+_fused_ik = {}
+
+
+def load_fused_ik(family: int, n: int, double: bool):
+    """The bound library of kernel 1's hand-written instance, built on first
+    use (``mo_fused_ik_launch``, ``mo_fused_ik_error_string``). Kept by
+    instance, so a call after the first reads and hashes no file."""
+    key = (family, n, bool(double))
+    lib = _fused_ik.get(key)
+    if lib is not None:
+        return lib
+    path = build_fused_ik([key])[0]
+    with _lock:
+        if key not in _fused_ik:
+            lib = ctypes.CDLL(str(path))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.mo_fused_ik_launch.argtypes = [
+                p, p,  # data, x0
+                ctypes.POINTER(ctypes.c_longlong),  # their 4 strides
+                p, p, p,  # x_out, state, history (or NULL)
+                i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
+                i, i,  # polynomial line search, Mehrotra barrier
+                ctypes.c_double,  # link length
+                p,  # cudaStream_t
+            ]
+            lib.mo_fused_ik_launch.restype = i
+            lib.mo_fused_ik_error_string.argtypes = [i]
+            lib.mo_fused_ik_error_string.restype = ctypes.c_char_p
+            _fused_ik[key] = lib
+        return _fused_ik[key]
 
 
 def load_library():
@@ -227,17 +344,6 @@ def load_library():
             path = build()
             lib = ctypes.CDLL(str(path))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.mo_fused_ik_launch.argtypes = [
-                i, i, i,  # family, n, dtype
-                p, p,  # data, x0
-                ctypes.POINTER(ctypes.c_longlong),  # their 4 strides
-                p, p, p,  # x_out, state, history (or NULL)
-                i, i, i, i,  # B, max_iterations, qp_iterations, ls_iterations
-                i, i,  # polynomial line search, Mehrotra barrier
-                ctypes.c_double,  # link length
-                p,  # cudaStream_t
-            ]
-            lib.mo_fused_ik_launch.restype = i
             lib.mo_blocked_launch.argtypes = [
                 i, i, i,  # family, n, dtype
                 p, p,  # data, x0
@@ -246,11 +352,12 @@ def load_library():
                 i, i,  # B, warps per CTA
                 i, i, i,  # max_iterations, qp_iterations, ls_iterations
                 i, i,  # polynomial line search, Mehrotra barrier
+                p, i, ctypes.c_longlong,  # global scratch (or NULL), its slabs, bytes a slab
                 ctypes.c_double,  # link length
                 p,  # cudaStream_t
             ]
             lib.mo_blocked_launch.restype = i
-            lib.mo_blocked_occupancy.argtypes = [i, i, i, i]  # family, n, dtype, warps
+            lib.mo_blocked_occupancy.argtypes = [i, i, i, i, i]  # family, n, dtype, warps, global
             lib.mo_blocked_occupancy.restype = i
             lib.mo_blocked_kkt_launch.argtypes = [
                 i, i,  # dtype, D
@@ -321,6 +428,20 @@ def load_library():
                 i, i,  # graphs per CTA, global scratch
             ]
             lib.mo_pose_ring_occupancy.restype = i
+            lib.mo_pose_ring_table_launch.argtypes = [
+                i, i, i, i, i,  # dtype, n poses, closures, border poses k, segments
+                p,  # the schedule's device table (int32)
+                ctypes.c_double,  # anchor weight
+                p, p, p, p, p,  # data, x0, x_out, state, scratch (or NULL)
+                i, i,  # B, graphs per CTA
+                i, i,  # max_iterations, ls_iterations
+                p,  # cudaStream_t
+            ]
+            lib.mo_pose_ring_table_launch.restype = i
+            lib.mo_pose_ring_table_slots.argtypes = [i, i, i]  # n poses, closures, k
+            lib.mo_pose_ring_table_slots.restype = i
+            lib.mo_pose_ring_table_occupancy.argtypes = [i, i, i, i, i, i]  # dtype, n, closures, k, warps, global
+            lib.mo_pose_ring_table_occupancy.restype = i
             lib.mo_mpc_scratch_slots.argtypes = [i, i]  # plant, horizon
             lib.mo_mpc_scratch_slots.restype = i
             lib.mo_mpc_launch.argtypes = [

@@ -10,8 +10,15 @@ of ``pallas_blocked.py``:
   ``csrc/blocked_sqp.cuh``): the whole fused SQP, one warp per instance and
   ``launch_plan(slab_shape(family), B, dtype).warps`` instances per CTA,
   the instance's KKT matrix (its lower triangle in 4-row tiles) factored in
-  its slab of shared memory. It replaces ``_make_blocked_kernel``. The hand-written planar chain's instances are
-  in ``blocked.cu``; a family generated from a Problem gets its own
+  its slab of shared memory; past one CTA's shared memory or D = 192, in a
+  slab of a global scratch array that each warp of the grid reuses for the
+  instances it solves in turn (the global route, up to D = 256). It replaces
+  ``_make_blocked_kernel``. The hand-written planar and spatial chains'
+  instances are in ``blocked.cu``, ``blocked_f64.cu``,
+  ``blocked_spatial.cu`` and ``blocked_spatial_f64.cu`` (the global route's
+  in ``blocked_global.cu``, ``blocked_spatial_global.cu`` and their
+  ``_f64`` twins); a family generated
+  from a Problem gets its own
   instance, emitted by ``ops/fused_emit.py``'s blocked target and built at
   first use (``csrc/blocked_launch.cuh``). Both read the caller's
   batch-major tensors at their strides, so a ``blocked_solve_batch`` call on
@@ -65,8 +72,9 @@ BLOCKED_LAUNCHES = 0
 GENERATED_LAUNCHES = 0
 KKT_LAUNCHES = 0
 
-# Families with a blocked-tier device functor (csrc/families.cuh).
-_CUDA_FAMILY_IDS = {"planar": 0}
+# Families with a blocked-tier device functor (csrc/families.cuh
+# PlanarChain, SpatialChain).
+_CUDA_FAMILY_IDS = {"planar": 0, "spatial": 1}
 
 # Kernel 2's launch (csrc/blocked_sqp.cuh): one warp per instance, up to
 # WARPS_PER_CTA instances per CTA, each instance's slab in the CTA's dynamic
@@ -75,6 +83,15 @@ _CUDA_FAMILY_IDS = {"planar": 0}
 WARPS_PER_CTA = 4
 MAX_CTA_SMEM = 232_448  # bytes of dynamic shared memory one H100 CTA may hold
 MAX_ROWS_PER_LANE = 6
+# The global route, past one CTA's shared memory or 32 * MAX_ROWS_PER_LANE
+# rows: one warp a CTA, GLOBAL_SLABS warps in the grid at most, each with a
+# slab of a (slabs, bytes) global scratch on which it solves instances w, w +
+# slabs, ... in turn; up to MAX_GLOBAL_D rows (8 a lane; the tile table
+# holds a row and a column in 8 bits each). At D = 256, B = 8192 the grid of
+# 264 warps (2 an SM) ran in 2.86 s a call, 132 in 4.12, 528 in 3.77, 1056
+# in 3.02 (H100, float32, 6/3/2).
+GLOBAL_SLABS = 264
+MAX_GLOBAL_D = 256
 
 
 def _tri(k):
@@ -111,11 +128,20 @@ def planar_slab_shape(n: int) -> SlabShape:
     return SlabShape(n, 1, 2, n - 1, n - 1, 3 * n)
 
 
+def spatial_slab_shape(n: int) -> SlabShape:
+    """The hand-written spatial chain's (csrc/families.cuh ``SpatialChain``):
+    one equality row, three data rows, joints 1..n-1 bounded on both sides,
+    and 8n scratch slots (each joint's axis and origin, J_y, J_z)."""
+    return SlabShape(n, 1, 3, n - 1, n - 1, 8 * n)
+
+
 def slab_shape(family) -> SlabShape:
-    """The slab shape of ``family`` on kernel 2: the planar functor's, or a
-    generated family's with the scratch of its emitted blocked functor
+    """The slab shape of ``family`` on kernel 2: its hand-written functor's,
+    or a generated family's with the scratch of its emitted blocked functor
     (``ops/fused_emit.py``)."""
     if family.cuda_functor is not None:
+        if family.cuda_functor[0] == "spatial":
+            return spatial_slab_shape(family.n)
         return planar_slab_shape(family.n)
     return SlabShape(
         family.n, family.m_eq, family.data_rows,
@@ -150,12 +176,21 @@ def rows_per_lane(D: int) -> int:
     return 2 if D <= 64 else 4 if D <= 128 else 6 if D <= 32 * MAX_ROWS_PER_LANE else 0
 
 
+def global_rows_per_lane(D: int) -> int:
+    """The same on the global route: csrc/blocked_sqp.cuh's
+    ``global_rows_per_lane`` (6 or 8; 0: no instance)."""
+    return 6 if D <= 192 else 8 if D <= MAX_GLOBAL_D else 0
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """How kernel 2 launches for B instances of a family: ``warps``
-    (instances) per CTA, ``rows_per_lane`` of the KKT system, ``slots`` of
-    one instance's slab and its ``warp_bytes`` (rounded up to 16),
-    ``cta_bytes`` of dynamic shared memory per CTA, ``grid`` CTAs."""
+    """How kernel 2 launches for B instances of a family: ``storage``
+    "shared" (each instance's slab in its CTA's dynamic shared memory) or
+    "global" (each warp of the grid's slab a row of a (``slabs``,
+    ``warp_bytes``) global scratch array, 0 slabs on the shared route);
+    ``warps`` (instances) per CTA, ``rows_per_lane`` of the KKT system,
+    ``slots`` of one instance's slab and its ``warp_bytes`` (rounded up to
+    16), ``cta_bytes`` of dynamic shared memory per CTA, ``grid`` CTAs."""
 
     warps: int
     rows_per_lane: int
@@ -163,28 +198,35 @@ class LaunchPlan:
     warp_bytes: int
     cta_bytes: int
     grid: int
+    storage: str = "shared"
+    slabs: int = 0
 
 
 def launch_plan(s: SlabShape, B: int, dtype: torch.dtype) -> LaunchPlan:
     """The launch plan of kernel 2 for B instances in ``dtype`` of the family
     of slab shape ``s`` (``slab_shape(family)``, ``planar_slab_shape(n)``):
-    WARPS_PER_CTA instances per CTA, fewer where that many slabs do not fit
-    MAX_CTA_SMEM. Raises ValueError where one slab does not fit a CTA
-    or D = n + m exceeds 32 * MAX_ROWS_PER_LANE: the kernel has no route for
-    those sizes (the CPU path takes them)."""
+    on the shared route WARPS_PER_CTA instances per CTA, fewer where that
+    many slabs do not fit MAX_CTA_SMEM; where one slab does not fit a CTA
+    or D = n + m exceeds 32 * MAX_ROWS_PER_LANE, the global route (one warp a
+    CTA, min(B, GLOBAL_SLABS) slabs). Raises ValueError past MAX_GLOBAL_D:
+    the kernel has no route for those sizes (the CPU path takes them)."""
     D = s.n + s.m
+    size = torch.empty((), dtype=dtype).element_size()
     slots = slab_slots(s, dtype)
     # Whole 16-byte units, so that every slab is aligned alike.
-    warp_bytes = -(-slots * torch.empty((), dtype=dtype).element_size() // 16) * 16
+    warp_bytes = -(-slots * size // 16) * 16
     rows = rows_per_lane(D)
-    if rows == 0 or warp_bytes > MAX_CTA_SMEM:
+    if rows and warp_bytes <= MAX_CTA_SMEM:
+        warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // warp_bytes)
+        return LaunchPlan(warps, rows, slots, warp_bytes, warps * warp_bytes, -(-B // warps))
+    rows = global_rows_per_lane(D)
+    if rows == 0:
         raise ValueError(
-            f"the blocked kernel takes no n = {s.n} in {dtype}: one instance's slab "
-            f"({warp_bytes} B, D = {D}) does not fit a CTA ({MAX_CTA_SMEM} B, D <= "
-            f"{32 * MAX_ROWS_PER_LANE})"
+            f"the blocked kernel takes no n = {s.n}: D = {D} passes its global route's {MAX_GLOBAL_D} rows "
+            f"(8 a lane); one instance's slab would be {warp_bytes} B, past one CTA's {MAX_CTA_SMEM} B"
         )
-    warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // warp_bytes)
-    return LaunchPlan(warps, rows, slots, warp_bytes, warps * warp_bytes, -(-B // warps))
+    slabs = min(B, GLOBAL_SLABS)
+    return LaunchPlan(1, rows, slots, warp_bytes, 0, slabs, "global", slabs)
 
 
 def kkt_slab_slots(D: int, dtype: torch.dtype) -> int:
@@ -692,6 +734,12 @@ def _blocked_solve_cuda(
     state = torch.empty((3, B), **kw)
     if B == 0:
         return x_out, state
+    # The global route's scratch: a slab per warp of the grid. Past the
+    # card's memory torch.empty raises, naming the bytes it wanted.
+    scratch = (
+        torch.empty((plan.slabs, plan.warp_bytes), dtype=torch.uint8, device=data_t.device)
+        if plan.storage == "global" else None
+    )
     strides = (ctypes.c_longlong * 4)(data_t.stride(1), data_t.stride(0), x0_t.stride(1), x0_t.stride(0))
     with torch.cuda.device(data_t.device):
         rc = launch(
@@ -708,10 +756,13 @@ def _blocked_solve_cuda(
             ls_iterations,
             int(line_search == "polynomial"),
             int(barrier == "mpc"),
+            None if scratch is None else scratch.data_ptr(),
+            plan.slabs,
+            plan.warp_bytes,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"blocked kernel launch failed: {error_text(rc)}")
+        raise RuntimeError(f"blocked kernel launch failed ({plan.storage} route): {error_text(rc)}")
     if family.cuda_functor is not None:
         BLOCKED_LAUNCHES += 1
     else:

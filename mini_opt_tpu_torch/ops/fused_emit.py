@@ -1,7 +1,8 @@
 """The family-to-CUDA emitter: a family that ``family_from_problem``
 generated from a ``Problem`` becomes its own instance of kernel 1
 (``csrc/fused_sqp.cuh``, the register target, D = n + m_eq <= 32) or of
-kernel 2 (``csrc/blocked_sqp.cuh``, the blocked target, D up to 192).
+kernel 2 (``csrc/blocked_sqp.cuh``, the blocked target, D up to 256: its
+shared route to 192, its global route past one CTA's slab or D = 192).
 
 It adds no kernel. The JAX package traces a generated family's register
 callables into its Pallas kernel (``pallas_ik.py::_make_kernel``); here the
@@ -70,6 +71,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .blocked import MAX_GLOBAL_D
 
 # The batch width of the traces: a prime that no per-lane size equals, so a
 # tensor is per-lane when, and only when, its last dimension has this size.
@@ -735,8 +737,9 @@ class FamilyProgram:
                         f"a residual block that reads a variable twice (indices {idx}) on the blocked "
                         "target: its lanes scatter one block's Hessian cells side by side")
         D = self.n + self.m_eq
-        if not 1 <= D <= 192:
-            raise UnsupportedOp(f"D = n + m_eq = {D} on the blocked target, which takes D = 1..192")
+        if not 1 <= D <= MAX_GLOBAL_D:
+            raise UnsupportedOp(
+                f"D = n + m_eq = {D} on the blocked target, which takes D = 1..{MAX_GLOBAL_D}")
 
     def blocked_retract(self, dtype):
         """The family's retract in ``dtype`` as one program per variable
@@ -1128,18 +1131,21 @@ struct GeneratedFamily {{
 extern "C" int mo_generated_blocked_launch(int dtype, const void* data, const void* x0, const long long* strides,
                                            void* x_out, void* state, int B, int warps, int max_iterations,
                                            int qp_iterations, int ls_iterations, int polynomial, int mpc,
-                                           void* stream) {{
+                                           void* scratch, int slabs, long long slab_bytes, void* stream) {{
   mo::blocked::LaunchArgs a;
   if (const int rc = mo::blocked::launch_args(data, x0, strides, x_out, state, B, warps, max_iterations,
-                                              qp_iterations, ls_iterations, polynomial, mpc, stream, &a)) {{
+                                              qp_iterations, ls_iterations, polynomial, mpc, scratch, slabs,
+                                              slab_bytes, stream, &a)) {{
     return rc;
   }}
   return mo::gen::launch_generated(GeneratedFamily{{}}, dtype, a, false);
 }}
 
-// CTAs of `warps` instances that fit one SM at once; negative on an error.
-extern "C" int mo_generated_blocked_occupancy(int dtype, int warps) {{
-  return mo::gen::launch_generated(GeneratedFamily{{}}, dtype, mo::blocked::occupancy_args(warps), true);
+// CTAs of `warps` instances that fit one SM at once on the shared (global
+// 0) or global (1) route; negative on an error.
+extern "C" int mo_generated_blocked_occupancy(int dtype, int warps, int global) {{
+  return mo::gen::launch_generated(GeneratedFamily{{}}, dtype, mo::blocked::occupancy_args(warps, global != 0),
+                                   true);
 }}
 
 extern "C" const char* mo_generated_error_string(int rc) {{ return mo::gen::error_text(rc); }}

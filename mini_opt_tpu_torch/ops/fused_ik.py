@@ -6,7 +6,8 @@ linearization, Gauss-Newton assembly with LM damping, the condensed-KKT
 interior point with a fully unrolled LDL^T, fraction-to-boundary, the L1-merit
 Armijo or polynomial line search with retraction, the LM lambda restore
 machine and the best-merit return -- runs as one CUDA kernel,
-``csrc/fused_ik.cu``, one instance per thread. It replaces the TPU kernel
+``csrc/fused_ik.cu``, one instance per thread, built at first use for each
+family, chain length and type it runs. It replaces the TPU kernel
 ``pallas_ik.py::_make_kernel``.
 
 Beside it sits ``_fused_solve_plain``, the same computation as plain PyTorch
@@ -56,8 +57,11 @@ from .blocked import REGISTER_KKT_MAX
 KERNEL_LAUNCHES = 0
 GENERATED_LAUNCHES = 0
 
-# The kernel's instances (csrc/fused_ik.cu): chain lengths and families.
-CUDA_MIN_N, CUDA_MAX_N = 2, 8
+# The kernel's hand-written instances (csrc/fused_ik.cu, one library per
+# family, chain length and type, built at first use by
+# _build.load_fused_ik): every n whose D = n + 1 the register tier takes
+# (REGISTER_KKT_MAX), in both families. _build passes the two to nvcc.
+CUDA_MIN_N, CUDA_MAX_N = 1, REGISTER_KKT_MAX - 1
 _CUDA_FAMILY_IDS = {"planar": 0, "spatial": 1}
 
 # History channels before dx_0..dx_{n-1}: f, eq, penalty, lam, dd, accepted,
@@ -651,8 +655,8 @@ def _fused_solve_cuda(
     ``_fused_solve_plain``'s results, batch-major. A hand-written family
     runs its instance in ``csrc/fused_ik.cu``; a family generated from a
     Problem runs the instance that ``ops/fused_emit.py`` emitted and built
-    for it. Copies nothing; raises on anything the kernel does not take and
-    on a refused launch."""
+    for it. Each is built at first use. Copies nothing; raises on anything
+    the kernel does not take and on a refused launch."""
     global KERNEL_LAUNCHES, GENERATED_LAUNCHES
     if family.cuda_functor is None and family.cuda_program is None:
         raise NotImplementedError(
@@ -669,7 +673,7 @@ def _fused_solve_cuda(
             raise NotImplementedError(f"no CUDA functor named {kind!r}")
         if not CUDA_MIN_N <= n <= CUDA_MAX_N:
             raise NotImplementedError(
-                f"csrc/fused_ik.cu instantiates n = {CUDA_MIN_N}..{CUDA_MAX_N}; got n = {n}"
+                f"csrc/fused_ik.cu has instances at n = {CUDA_MIN_N}..{CUDA_MAX_N}; got n = {n}"
             )
     dtype = data.dtype
     B = data.shape[0] if data.dim() == 2 else -1
@@ -703,12 +707,14 @@ def _fused_solve_cuda(
         int(barrier == "mpc"),
     )
     if family.cuda_functor is not None:
-        lib = _build.load_library()
+        lib = _build.load_fused_ik(_CUDA_FAMILY_IDS[kind], n, dtype == torch.float64)
         with torch.cuda.device(data.device):
             stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.mo_fused_ik_launch(_CUDA_FAMILY_IDS[kind], n, *io, ctypes.c_double(link_len), stream)
+            rc = lib.mo_fused_ik_launch(*io[1:], ctypes.c_double(link_len), stream)
         if rc != 0:
-            raise RuntimeError(f"fused_ik kernel launch failed: {_build.error_string(rc)}")
+            raise RuntimeError(
+                f"fused_ik kernel launch failed: error {rc}: {lib.mo_fused_ik_error_string(rc).decode()}"
+            )
         KERNEL_LAUNCHES += 1
         return x_out, state, history
     lib = family.cuda_program.library()

@@ -54,10 +54,13 @@ from .fused_ik import _ldlt_apply, _ldlt_bad, _ldlt_factor_unrolled
 # where it launches, and nowhere else.
 KERNEL_LAUNCHES = 0
 
-# csrc/pose_ring.cuh instances the multi-closure Schur system for up to
-# this many border poses (k = 1 is the single-closure path).
-CUDA_MAX_BORDERS = 6
-CUDA_MAX_CLOSURES = 16
+# csrc/pose_ring.cuh passes the schedule by value and instances the
+# multi-closure Schur system as a template on k for up to this many border
+# poses and closures (k = 1 is the single-closure path); past either, the
+# run-time route takes the schedule from a device table (ring_schedule) and
+# factors the 3k x 3k Schur system in the slab, for any k.
+TEMPLATE_MAX_BORDERS = 6
+TEMPLATE_MAX_CLOSURES = 16
 
 # Kernel 7's launch (csrc/pose_ring.cuh): one warp per graph, up to
 # WARPS_PER_CTA graphs per CTA, each graph's Layout slots a slab of the
@@ -73,16 +76,48 @@ def _round4(k):
     return -(-k // 4) * 4
 
 
-def layout_slots(n_poses: int, n_closures: int) -> int:
-    """Slots of one graph's slab: csrc/pose_ring.cuh's ``Layout(n,
-    n_cl).total``, each array from a 4-slot boundary -- the iterate, its best
+def layout_slots(n_poses: int, n_closures: int, table_borders: int = 0) -> int:
+    """Slots of one graph's slab: csrc/pose_ring.cuh's ``Layout(n, n_cl,
+    kr).total``, each array from a 4-slot boundary -- the iterate, its best
     and blend, the step, the gradient and the sweep's z / y (3N each), the
     diagonal blocks (9N), the chain blocks (9 (N - 1)), two border columns
-    per pose (18N), 9 per closure, the 3E measurements, and _EDGE_VALUES
-    rows of round4(E) terms."""
-    n, E = n_poses, n_poses - 1 + n_closures
-    sizes = [3 * n] * 6 + [9 * n, 9 * (n - 1), 18 * n, 9 * n_closures, 3 * E, _EDGE_VALUES * _round4(E)]
+    per pose (18N), 9 per closure, the 3E measurements, _EDGE_VALUES rows of
+    round4(E) terms, and on the run-time route (``table_borders`` = k > 0)
+    the 3k x 3k Schur system, its right-hand side and its pivots."""
+    n, E, kr = n_poses, n_poses - 1 + n_closures, table_borders
+    sizes = [3 * n] * 6 + [9 * n, 9 * (n - 1), 18 * n, 9 * n_closures, 3 * E, _EDGE_VALUES * _round4(E),
+                           9 * kr * kr, 3 * kr, 3 * kr]
     return sum(_round4(k) for k in sizes)
+
+
+def ring_schedule(n_poses: int, closures) -> tuple:
+    """The schedule of a multi-closure topology as csrc/pose_ring.cu's
+    ``make_topology`` makes it: ``(k, n_seg, table)`` with the border poses
+    (every closure endpoint) ascending, the chain segments between them (the
+    runs of other poses) ascending, and the int32 table [cl_from, cl_to,
+    border, seg_lo, seg_hi] of the run-time route."""
+    borders = sorted({p for c in closures for p in c})
+    bset = set(borders)
+    seg_lo, seg_hi = [], []
+    for p in range(n_poses):
+        if p in bset:
+            continue
+        if seg_hi and seg_hi[-1] == p - 1:
+            seg_hi[-1] = p
+        else:
+            seg_lo.append(p)
+            seg_hi.append(p)
+    table = [c[0] for c in closures] + [c[1] for c in closures] + borders + seg_lo + seg_hi
+    return len(borders), len(seg_lo), table
+
+
+def table_route(closures) -> int:
+    """The border count k where kernel 7 takes the run-time route (past
+    TEMPLATE_MAX_CLOSURES closures or TEMPLATE_MAX_BORDERS borders), else 0."""
+    if len(closures) == 1:
+        return 0
+    k = len({p for c in closures for p in c})
+    return k if len(closures) > TEMPLATE_MAX_CLOSURES or k > TEMPLATE_MAX_BORDERS else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,10 +135,11 @@ class LaunchPlan:
     grid: int
 
 
-def launch_plan(n_poses: int, n_closures: int, B: int, dtype: torch.dtype) -> LaunchPlan:
+def launch_plan(n_poses: int, n_closures: int, B: int, dtype: torch.dtype, table_borders: int = 0) -> LaunchPlan:
     """The launch plan of kernel 7 for B graphs of n_poses poses and
-    n_closures closures in ``dtype``."""
-    slots = layout_slots(n_poses, n_closures)
+    n_closures closures in ``dtype``; on the run-time route with
+    ``table_borders`` = k border poses (``table_route``)."""
+    slots = layout_slots(n_poses, n_closures, table_borders)
     slab = slots * torch.empty((), dtype=dtype).element_size()  # whole 16-byte units
     if slab <= MAX_CTA_SMEM:
         warps = min(WARPS_PER_CTA, MAX_CTA_SMEM // slab)
@@ -578,6 +614,14 @@ def _pose_ring_plain(family, data_t, x0_t, max_iterations, ls_iterations):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=64)
+def _device_schedule(n_poses, closures, device):
+    """``ring_schedule``'s table as an int32 tensor on ``device``, made once
+    per topology and kept (a launch reads it; nothing writes it)."""
+    k, n_seg, table = ring_schedule(n_poses, closures)
+    return k, n_seg, torch.tensor(table, dtype=torch.int32, device=device)
+
+
 def _pose_ring_cuda(family, data_t, x0_t, max_iterations, ls_iterations):
     """Launch ``csrc/pose_ring.cu`` on feature-major CUDA tensors; same
     contract as ``_pose_ring_plain``. Raises on anything the kernel does not
@@ -585,13 +629,7 @@ def _pose_ring_cuda(family, data_t, x0_t, max_iterations, ls_iterations):
     global KERNEL_LAUNCHES
     N, E = family.n_poses, family.n_edges
     cl = family.closure_list
-    # One closure has one border pose; several have all their endpoints.
-    borders = 1 if len(cl) == 1 else len({p for c in cl for p in c})
-    if len(cl) > CUDA_MAX_CLOSURES or borders > CUDA_MAX_BORDERS:
-        raise NotImplementedError(
-            f"csrc/pose_ring.cuh takes up to {CUDA_MAX_CLOSURES} closures and "
-            f"{CUDA_MAX_BORDERS} border poses; got {len(cl)} closures and {borders} borders"
-        )
+    kr = table_route(cl)
     dtype = data_t.dtype
     B = data_t.shape[1] if data_t.dim() == 2 else -1
     _check_cuda_tensors((("data", data_t, (3 * E, B)), ("x0", x0_t, (3 * N, B))), dtype, data_t.device, B)
@@ -601,17 +639,27 @@ def _pose_ring_cuda(family, data_t, x0_t, max_iterations, ls_iterations):
     if B == 0:
         return x_out, state
     lib = _build.load_library()
-    plan = launch_plan(N, len(cl), B, dtype)
+    plan = launch_plan(N, len(cl), B, dtype, kr)
+    # Past the card's memory torch.empty raises, naming the bytes it wanted.
     scratch = torch.empty((B, plan.slots), **kw) if plan.storage == "global" else None
-    flat = (ctypes.c_int * (2 * len(cl)))(*(v for c in cl for v in c))
     with torch.cuda.device(data_t.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.mo_pose_ring_launch(
-            _CUDA_DTYPE_IDS[dtype], N, len(cl), flat, ctypes.c_double(float(family.anchor_weight)),
-            data_t.data_ptr(), x0_t.data_ptr(), x_out.data_ptr(), state.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, plan.warps, max_iterations, ls_iterations,
-            stream,
-        )
+        if kr:
+            k, n_seg, table = _device_schedule(N, cl, data_t.device)
+            rc = lib.mo_pose_ring_table_launch(
+                _CUDA_DTYPE_IDS[dtype], N, len(cl), k, n_seg, table.data_ptr(),
+                ctypes.c_double(float(family.anchor_weight)), data_t.data_ptr(), x0_t.data_ptr(), x_out.data_ptr(),
+                state.data_ptr(), None if scratch is None else scratch.data_ptr(), B, plan.warps, max_iterations,
+                ls_iterations, stream,
+            )
+        else:
+            flat = (ctypes.c_int * (2 * len(cl)))(*(v for c in cl for v in c))
+            rc = lib.mo_pose_ring_launch(
+                _CUDA_DTYPE_IDS[dtype], N, len(cl), flat, ctypes.c_double(float(family.anchor_weight)),
+                data_t.data_ptr(), x0_t.data_ptr(), x_out.data_ptr(), state.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, plan.warps, max_iterations, ls_iterations,
+                stream,
+            )
     if rc != 0:
         raise RuntimeError(f"pose_ring kernel launch failed: {_build.error_string(rc)}")
     KERNEL_LAUNCHES += 1

@@ -5,11 +5,13 @@ SQP, ``ops/fused_ik.py``) on one CUDA card, so that two trees can be
 compared on one card.
 
     python3 scripts/fused_kernel_times.py [--tree DIR] [--label NAME] [--family hand|generated|both]
-                                          [--spans] [--ptxas]
+                                          [--spans] [--ptxas] [--kernel1]
 
 DIR (default: this checkout) is the root of the tree whose
 ``mini_opt_tpu_torch`` is timed; only its ``csrc/fused_*.cu`` are built,
-into ``DIR/build/kernels`` (the other entry points stay unbound). The timer
+into ``DIR/build/kernels`` (the other entry points stay unbound; kernel 1's
+instances each into a library of their own where the tree builds them so,
+at first use). The timer
 is ``chip_smoke.time_ms`` of this checkout (held: a device-side sleep holds
 the stream while the calls are issued). Rows, float32:
 
@@ -33,7 +35,8 @@ the stream while the calls are issued). Rows, float32:
   (``family_from_problem(scalar_planar_ik_builder(2), 2)`` with the
   ``_mod_pi`` retraction) and the entry point ``fused_solve_batch`` on it;
   ``--family both`` times the two in turns (generated, hand, hand,
-  generated), each in its own row.
+  generated), each in its own row. ``--kernel1`` builds kernel 1's sources
+  only and prints only its rows (the kernel-6 rows are left out).
 
 A tree whose wrappers take feature-major tensors (before the batch-major
 redesign) gets feature-major copies for its kernel-alone rows; its wrapper
@@ -122,9 +125,32 @@ def demangle(names):
     return list(names)
 
 
+def fused_sources(build):
+    """Kernels 6 and 1's sources of the main library: csrc/fused_*.cu, less
+    the sources a tree builds once per instance (kernel 1's fused_ik.cu,
+    where the tree has them)."""
+    return {p.name for p in build.CSRC.glob("fused_*.cu")} - set(getattr(build, "INSTANCE_SOURCES", ()))
+
+
+def kernel1_sources(build):
+    """Kernel 1's sources of the main library: fused_ik.cu in a tree that
+    builds every instance into it, else only error_text.cu."""
+    names = {p.name for p in build.CSRC.glob("*.cu")}
+    return ({"fused_ik.cu", "error_text.cu"} & names) - set(getattr(build, "INSTANCE_SOURCES", ()))
+
+
+def ik_library(build):
+    """Where kernel 1's planar n = 2 float instance lives: its own library,
+    or the main one in a tree that builds every instance into it."""
+    if hasattr(build, "build_fused_ik"):
+        return build.build_fused_ik([(0, 2, False)])[0]
+    return build.library_path()
+
+
 def ptxas_rows(timer, build, row):
-    log = build.library_path().with_suffix(".log")
-    rows = [r for r in timer.ptxas_report(log.read_text()) if "fused_qp" in r[0] or "fused_ik" in r[0]]
+    logs = {build.library_path().with_suffix(".log"), ik_library(build).with_suffix(".log")}
+    rows = [r for log in sorted(logs) for r in timer.ptxas_report(log.read_text())
+            if "fused_qp" in r[0] or "fused_ik" in r[0]]
     for (name, regs, spill, _, stack), label in zip(rows, demangle([r[0] for r in rows])):
         row(ptxas=label.replace("(anonymous namespace)::", ""), registers=regs, spill_store_bytes=spill,
             stack_frame_bytes=stack)
@@ -138,10 +164,12 @@ SASS_KERNELS = {
 
 def sass_counts(build, row, library=None, kernels=SASS_KERNELS):
     """Instruction counts of the main paths' instances in the tree's
-    library, or in ``library`` (cuobjdump beside nvcc)."""
+    libraries (kernel 1's planar n = 2 instance's own, where the tree has
+    one), or in ``library`` (cuobjdump beside nvcc)."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    text = subprocess.run([str(tool), "-sass", str(library or build.library_path())], capture_output=True,
-                          text=True, check=True).stdout
+    libs = [library] if library else sorted({build.library_path(), ik_library(build)})
+    text = "".join(subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                                  check=True).stdout for lib in libs)
     for block in text.split("Function : ")[1:]:
         name = block.split(None, 1)[0]
         for label, pattern in kernels.items():
@@ -184,20 +212,22 @@ def spans(build, timer, row, fq, fik, mot):
     build.NVCC_FLAGS = (*build.NVCC_FLAGS, "-DMO_FUSED_SPANS")
     build.BUILD_DIR = Path(build.BUILD_DIR) / "spans"
     build._lib = None
-    bind_subset(build, {p.name for p in build.CSRC.glob("fused_*.cu")})
+    bind_subset(build, fused_sources(build))
     lib = build.load_library()
+    ik_lib = build.load_fused_ik(0, 2, False) if hasattr(build, "load_fused_ik") else lib
     n_out = ctypes.c_ulonglong * 16
 
     def read(fn, names, call):
         call()  # warm-up
         torch.cuda.synchronize()
-        getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int]
-        if getattr(lib, fn)(None, 1) != 0:
+        source = ik_lib if fn == "mo_fused_ik_spans" else lib
+        getattr(source, fn).argtypes = [ctypes.c_void_p, ctypes.c_int]
+        if getattr(source, fn)(None, 1) != 0:
             sys.exit(f"fused_kernel_times: could not reset {fn}")
         call()
         torch.cuda.synchronize()
         out = n_out()
-        if getattr(lib, fn)(out, 0) != 0:
+        if getattr(source, fn)(out, 0) != 0:
             sys.exit(f"fused_kernel_times: could not read {fn}")
         return dict(zip(names, (int(v) for v in out)))
 
@@ -245,37 +275,10 @@ def planar_x(mot, B):
     return (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in (targets, x0))
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    add_tree_args(ap)
-    ap.add_argument("--spans", action="store_true", help="also print the phase cycles of one instance")
-    ap.add_argument("--ptxas", action="store_true",
-                    help="print every kernel-6 and kernel-1 instance's ptxas line and the main-path "
-                         "instances' SASS instruction counts")
-    ap.add_argument("--family", choices=("hand", "generated", "both"), default="hand",
-                    help="kernel 1's rows: the hand-written planar family, the one generated from a "
-                         "Problem, or both in turns")
-    args = ap.parse_args()
-    timer, _, row = open_tree("fused_kernel_times", args)
-
+def kernel6_rows(timer, row, mot, fq):
+    """Kernel 6's rows: alone at N = 2, 4, 8, its wrapper call, and both on
+    the general path's last QPs."""
     import torch
-
-    import mini_opt_tpu_torch as mot
-    from mini_opt_tpu_torch.ops import _build
-    from mini_opt_tpu_torch.ops import fused_ik as fik
-    from mini_opt_tpu_torch.ops import fused_qp as fq
-
-    bind_subset(_build, {p.name for p in _build.CSRC.glob("fused_*.cu")})
-    families = {"hand": fik.planar_family(2, LINK)} if args.family != "generated" else {}
-    if args.family != "hand":
-        families["generated"] = generated_family(mot)
-        families["generated"].cuda_program.library()
-    if args.ptxas:
-        ptxas_rows(timer, _build, row)
-        if "hand" in families:
-            sass_counts(_build, row)
-        if "generated" in families:
-            generated_ptxas(timer, _build, row, families["generated"])
 
     cases = [("float32", n, B) for n in (2, 4, 8) for B in (1, 1024, 8192)]
     cases += [("float64", n, 8192) for n in (2, 4, 8)]
@@ -313,6 +316,44 @@ def main():
     _, _, n_kernels, _ = timer.profile_call(lambda: fq._fused_qp_batch(*tensors, **kw))
     row(kernel=6, call="_fused_qp_batch", inputs="general path, last outer iteration", B=8192, ms=ms,
         repeats=repeats, device_kernels_per_call=n_kernels)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_tree_args(ap)
+    ap.add_argument("--spans", action="store_true", help="also print the phase cycles of one instance")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print every kernel-6 and kernel-1 instance's ptxas line and the main-path "
+                         "instances' SASS instruction counts")
+    ap.add_argument("--family", choices=("hand", "generated", "both"), default="hand",
+                    help="kernel 1's rows: the hand-written planar family, the one generated from a "
+                         "Problem, or both in turns")
+    ap.add_argument("--kernel1", action="store_true",
+                    help="build kernel 1's sources only and print kernel 1's rows only")
+    args = ap.parse_args()
+    timer, _, row = open_tree("fused_kernel_times", args)
+
+    import torch
+
+    import mini_opt_tpu_torch as mot
+    from mini_opt_tpu_torch.ops import _build
+    from mini_opt_tpu_torch.ops import fused_ik as fik
+    from mini_opt_tpu_torch.ops import fused_qp as fq
+
+    bind_subset(_build, kernel1_sources(_build) if args.kernel1 else fused_sources(_build))
+    families = {"hand": fik.planar_family(2, LINK)} if args.family != "generated" else {}
+    if args.family != "hand":
+        families["generated"] = generated_family(mot)
+        families["generated"].cuda_program.library()
+    if args.ptxas:
+        ptxas_rows(timer, _build, row)
+        if "hand" in families:
+            sass_counts(_build, row)
+        if "generated" in families:
+            generated_ptxas(timer, _build, row, families["generated"])
+
+    if not args.kernel1:
+        kernel6_rows(timer, row, mot, fq)
 
     order = list(families) + list(families)[::-1]  # in turns: a, b, b, a
     for B in (1, 8192, 262144):

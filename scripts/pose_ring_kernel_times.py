@@ -4,7 +4,7 @@ solve, ``mini_opt_tpu_torch/ops/pose_ring.py``) on one CUDA card, at B = 1,
 1024 and 8192, so that two trees can be compared on one card; kernel 3 (the
 standalone blocked KKT solve) beside it.
 
-    python3 scripts/pose_ring_kernel_times.py [--tree DIR] [--label NAME] [--subset] [--spans]
+    python3 scripts/pose_ring_kernel_times.py [--tree DIR] [--label NAME] [--subset] [--spans] [--routes]
 
 DIR (default: this checkout) is the root of the tree whose
 ``mini_opt_tpu_torch`` is timed; its kernels build into ``DIR/build/kernels``.
@@ -19,7 +19,10 @@ outer iterations, 2 line-search probe halvings); then, at B = 1 and 8192,
 the same solve under budgets that part its time: 6/0 (no halving: one
 probe per iteration), 1/0, and 6/2 on the closures ((15, 0), (4, 11))
 (k = 4 border poses); and kernel 3 at B = 1 and 8192, D = 49, float32, on
-chip_smoke.kkt_systems(8192, 49, seed=7). ``--spans`` (this checkout's
+chip_smoke.kkt_systems(8192, 49, seed=7). ``--routes`` prints instead, for
+each of chip_smoke.py phase 14's multi-closure topologies (k = 2..6), the
+template route's and the run-time route's held times at B = 8192, 6/2, in
+turns, and whether they give the same bits. ``--spans`` (this checkout's
 kernel only) builds kernel 7 once more with MO_RING_SPANS defined and
 prints the clock64() cycles of each phase of one graph's solve at B = 1,
 6/2. Prints the card's name and power limit, then one JSON object per
@@ -81,11 +84,49 @@ def span_cycles(build, fam, data_t, x0_t, budget):
     return dict(zip(SPAN_NAMES, (int(v) for v in spans)))
 
 
+# chip_smoke.py phase 14's multi-closure topologies at N = 16 (k = 2..6
+# border poses), each within the template route's limits.
+ROUTE_TOPOLOGIES = (((2, 9), (9, 2)), ((2, 9), (9, 13)), ((15, 0), (4, 11)), ((1, 5), (5, 9), (11, 14)),
+                    ((0, 4), (6, 9), (11, 15)))
+
+
+def route_rows(timer, row, torch, pr, chain_closure_instances, batch_from_numpy, B=8192):
+    """Kernel 7 on each of ROUTE_TOPOLOGIES at B = 8192, float32, 6/2: the
+    template route (``launch<T, K>``, the schedule passed by value) and the
+    run-time route (the schedule a device table, the Schur system in the
+    slab), the latter forced by setting the template limits to 0, in turns
+    (template, run-time, run-time, template), held; and whether the two
+    give the same bits."""
+    limits = pr.TEMPLATE_MAX_CLOSURES, pr.TEMPLATE_MAX_BORDERS
+
+    def route(table):
+        pr.TEMPLATE_MAX_CLOSURES, pr.TEMPLATE_MAX_BORDERS = (0, 0) if table else limits
+
+    for closures in ROUTE_TOPOLOGIES:
+        fam = pr.pose_ring_family(RING_N, closures=closures)
+        data, x0 = chain_closure_instances(B, RING_N, closures, seed=0)
+        data_t, x0_t = batch_from_numpy(data, x0, "cuda", torch.float32)
+        solve = lambda: pr._pose_ring_cuda(fam, data_t, x0_t, 6, 2)  # noqa: E731
+        got, ms = {}, {"template": [], "run-time": []}
+        for table in (False, True, True, False):
+            route(table)
+            name = "run-time" if table else "template"
+            got[name] = solve()
+            ms[name].append(timer.time_ms(solve, launches=10, held=True)[0])
+        route(False)
+        same = all(torch.equal(a, b) for a, b in zip(got["template"], got["run-time"]))
+        k = len({p for c in closures for p in c})
+        row(kernel=7, N=RING_N, closures=closures, k=k, B=B, budget="6/2", dtype="float32",
+            template_ms=ms["template"], runtime_ms=ms["run-time"], bit_identical=same)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_tree_args(ap)
     ap.add_argument("--subset", action="store_true", help="build only kernels 7 and 3's sources")
     ap.add_argument("--spans", action="store_true", help="also print the phase cycles of one graph")
+    ap.add_argument("--routes", action="store_true",
+                    help="only the k = 2..6 topologies on the template route and the run-time route")
     args = ap.parse_args()
     timer, _, row = open_tree("pose_ring_kernel_times", args)
 
@@ -99,6 +140,9 @@ def main():
 
     if args.subset:
         bind_subset(_build, ("blocked_kkt.cu", "pose_ring.cu", "pose_ring_f64.cu"))
+
+    if args.routes:
+        return route_rows(timer, row, torch, pr, chain_closure_instances, batch_from_numpy)
 
     ring = pr.pose_ring_family(RING_N)
     closures = ((15, 0), (4, 11))

@@ -300,9 +300,13 @@ def test_every_size_the_first_design_launched_gets_a_plan(dtype):
         plan = blk.launch_plan(blk.planar_slab_shape(n), 8192, dtype)
         assert plan.rows_per_lane == blk.rows_per_lane(n + 1)
         assert 32 * plan.rows_per_lane >= n + 1 > 32 * (plan.rows_per_lane - 2)
-    blk.launch_plan(blk.planar_slab_shape(LIMIT[dtype]), 1, dtype)
-    with pytest.raises(ValueError, match="does not fit a CTA"):
-        blk.launch_plan(blk.planar_slab_shape(LIMIT[dtype] + 1), 1, dtype)
+    assert blk.launch_plan(blk.planar_slab_shape(LIMIT[dtype]), 1, dtype).storage == "shared"
+    # Past the shared route's limit the global route takes the family, up to
+    # D = 256; past that the plan raises and names the limit.
+    assert blk.launch_plan(blk.planar_slab_shape(LIMIT[dtype] + 1), 1, dtype).storage == "global"
+    assert blk.launch_plan(blk.planar_slab_shape(blk.MAX_GLOBAL_D - 1), 1, dtype).storage == "global"
+    with pytest.raises(ValueError, match="global route's 256 rows"):
+        blk.launch_plan(blk.planar_slab_shape(blk.MAX_GLOBAL_D), 1, dtype)
 
 
 @pytest.mark.parametrize("case", [(48, torch.float32, 4), (48, torch.float64, 4), (111, torch.float64, 2),

@@ -178,7 +178,7 @@ def test_fused_ik_cuda_wrapper_checks_its_arguments():
     with pytest.raises(ValueError, match="on"):
         fik._fused_solve_cuda(family, data, x0, *budget)  # CPU tensors
     with pytest.raises(NotImplementedError):
-        fik._fused_solve_cuda(fik.planar_family(9, 0.4), data, torch.zeros(B, 9, dtype=data.dtype), *budget)
+        fik._fused_solve_cuda(fik.planar_family(32, 0.4), data, torch.zeros(B, 32, dtype=data.dtype), *budget)
     with pytest.raises(ValueError, match="expected data"):
         port.fused_solve_batch(family, torch.zeros(B, 3, dtype=data.dtype).T.contiguous().T, x0, max_iterations=2)
 

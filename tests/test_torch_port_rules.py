@@ -13,6 +13,7 @@ where jax may be missing (tests/conftest.py imports it):
 """
 
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -68,7 +69,8 @@ def test_import_leaves_jax_out():
     sorted((REPO / "mini_opt_tpu_torch").rglob("*.py"))
     + [REPO / "chip_smoke.py"]
     + [REPO / "scripts" / f"{name}_kernel_times.py" for name in ("mpc", "blocked", "pose_ring", "ldlt", "fused")]
-    + [REPO / "scripts" / "kernel_timing.py", REPO / "scripts" / "cg_path_times.py"],
+    + [REPO / "scripts" / "kernel_timing.py", REPO / "scripts" / "cg_path_times.py",
+       REPO / "scripts" / "fused_ik_instances.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_import_in_source(path):
@@ -192,8 +194,9 @@ def test_blocked_tier_and_bad_options_raise():
 
 def test_sources_present_and_build_dir_ignored():
     csrc = REPO / "mini_opt_tpu_torch" / "csrc"
-    for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu", "blocked_sqp.cuh", "blocked.cu",
-                 "blocked_f64.cu", "blocked_kkt.cu", "ldlt.cu", "fused_qp.cuh", "fused_qp.cu", "fused_qp_pairs.cu",
+    for name in ("fused_sqp.cuh", "families.cuh", "fused_ik.cu", "error_text.cu", "blocked_sqp.cuh", "blocked.cu",
+                 "blocked_f64.cu", "blocked_spatial.cu", "blocked_spatial_f64.cu", "blocked_global.cu",
+                 "blocked_global_f64.cu", "blocked_spatial_global.cu", "blocked_spatial_global_f64.cu", "blocked_kkt.cu", "ldlt.cu", "fused_qp.cuh", "fused_qp.cu", "fused_qp_pairs.cu",
                  "fused_qp_k2.cu", "fused_qp_warp.cu",
                  "pose_ring.cuh", "pose_ring.cu", "pose_ring_f64.cu", "mpc.cuh", "mpc.cu", "mpc_f64.cu"):
         assert (csrc / name).is_file(), name
@@ -266,11 +269,17 @@ def test_cuda_entry_point_launches_or_raises():
     )
     with pytest.raises(NotImplementedError, match="emitter"):
         port.fused_solve_batch(python_only, targets, x0, **BENCH)
+    # Every chain length of the register tier has an instance, built at
+    # first use; a device functor the kernels lack raises on both tiers.
+    before = fik.KERNEL_LAUNCHES
+    port.fused_ik_solve_batch(np.zeros((4, 2)), np.zeros((4, 9)), **BENCH)
+    assert fik.KERNEL_LAUNCHES == before + 1
+    unknown = dataclasses.replace(fik.spatial_family(33, 0.4), cuda_functor=("helical", 0.4))
     with pytest.raises(NotImplementedError):
-        port.fused_ik_solve_batch(np.zeros((4, 2)), np.zeros((4, 9)), **BENCH)
-    # The blocked tier has a planar functor only.
+        port.fused_solve_batch(dataclasses.replace(unknown, n=9, lower=(None,) * 9, upper=(None,) * 9),
+                               np.zeros((4, 3)), np.zeros((4, 9)), **BENCH)
     with pytest.raises(NotImplementedError, match="emitter"):
-        port.blocked_solve_batch(fik.spatial_family(33, 0.4), np.zeros((4, 3)), np.zeros((4, 33)))
+        port.blocked_solve_batch(unknown, np.zeros((4, 3)), np.zeros((4, 33)))
 
 
 @pytest.mark.cuda
